@@ -1,0 +1,72 @@
+"""The port's CUDA kernel wrappers: what runs without a card (they refuse
+CPU tensors, a build without nvcc raises) and, on a card (``-m cuda``),
+each kernel against its plain version.  No JAX here, so the file also runs
+on a machine that has a card and no JAX."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.glm_potential import (glm_potential_grad_cuda,
+                                               glm_potential_grad_ref)
+from repro_torch.kernels.leapfrog import (leapfrog_halfstep_cuda,
+                                          leapfrog_halfstep_ref)
+
+TOL = {spec.name: spec.tol for spec in ops.OP_TABLE}
+
+
+def _glm_inputs(n, d, seed, family):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    w = (0.3 * rng.standard_normal(d)).astype(np.float32)
+    off = (0.2 * rng.standard_normal(n)).astype(np.float32)
+    if family == "bernoulli_logit":
+        y = (rng.random(n) < 0.5).astype(np.float32)
+    else:
+        y = (x @ w + 0.5 * rng.standard_normal(n)).astype(np.float32)
+    return x, y, w, off
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The wrappers take the plain version only for CPU tensors; the CUDA
+    wrappers themselves never run on one."""
+    z = torch.zeros(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        leapfrog_halfstep_cuda(z, z, z, z, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        glm_potential_grad_cuda(torch.zeros(3, 2), torch.zeros(3),
+                                torch.zeros(2))
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
+    monkeypatch.setattr(_build, "_LOADED", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("leapfrog")
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    for D, dtype in ((54, torch.float32), (1_000_003, torch.float64)):
+        gen = torch.Generator().manual_seed(D)
+        z, r, g = (torch.randn(D, generator=gen, dtype=dtype).to(dev)
+                   for _ in range(3))
+        m_inv = torch.rand(D, generator=gen, dtype=dtype).to(dev) + 0.5
+        eps = torch.tensor(0.01, dtype=dtype, device=dev)
+        a = leapfrog_halfstep_cuda(z, r, g, m_inv, eps)
+        b = leapfrog_halfstep_ref(z, r, g, m_inv, eps)
+        for u, v in zip(a, b):
+            assert float((u - v).abs().max()) <= TOL["leapfrog_halfstep"]
+    for family, scale in (("bernoulli_logit", None), ("normal", 0.7)):
+        x, y, w, off = (torch.from_numpy(a).to(dev)
+                        for a in _glm_inputs(1001, 7, 3, family))
+        kv, kg = glm_potential_grad_cuda(x, y, w, off, scale, family)
+        pv, pg = glm_potential_grad_ref(x, y, w, off, scale, family,
+                                        compute_dtype=torch.float64)
+        assert abs(float(kv) - float(pv)) <= TOL["glm_potential_grad"]
+        assert float((kg - pg).abs().max()) <= TOL["glm_potential_grad"]
