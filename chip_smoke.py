@@ -277,11 +277,14 @@ def run_main_path(dev):
         "max_abs_posterior_mean_minus_true_w": post_err,
         "min_ess": float(np.min(effective_sample_size(w))),
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "glm_prior": stats["glm_prior"],
     }
     print("adaptive NUTS:", json.dumps(out["adaptive"]), flush=True)
     mcmc.print_summary()
     check(divergences == 0, f"{divergences} divergent transitions")
     check(post_err < 0.05, f"posterior mean is {post_err} from true_w")
+    check(stats["glm_prior"] == "slim", f"the fused potential's prior term "
+          f"runs on the {stats['glm_prior']} data, not on 0 rows")
     for name, launches in counts.items():
         check(launches >= stats["num_leapfrog"],
               f"{name}: {launches} launches < {stats['num_leapfrog']} "
@@ -334,20 +337,20 @@ def main():
           flush=True)
     path, counts = run_main_path(dev)
 
+    from repro_torch.kernels.ops import SPECS
     kernels = []
-    for name, source, replaces, timing, checks in (
+    for name, source, timing, checks in (
             ("leapfrog_halfstep", "src/repro_torch/csrc/leapfrog.cu",
-             "src/repro/kernels/leapfrog.py:40", lf_timing, lf_checks),
+             lf_timing, lf_checks),
             ("glm_potential_grad", "src/repro_torch/csrc/glm_potential.cu",
-             "src/repro/kernels/glm_potential.py:62", glm_timing,
-             glm_checks_)):
+             glm_timing, glm_checks_)):
         times, (bound_ms, bound_by), err = timing
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
+            "name": name, "route": SPECS[name].route, "source": source,
+            "replaces": SPECS[name].replaces, "launches": counts[name],
             "max_abs_err": max(c["max_abs_err"] for c in checks),
             "max_abs_err_main_shape": err,
-            "ms": times["ms"], "kernel_ms": times["ms"],
+            "ms": times["ms"],
             "plain_ms": times["plain_ms"], "call_ms": times["call_ms"],
             "plain_call_ms": times["plain_call_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,

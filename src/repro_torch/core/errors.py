@@ -12,6 +12,8 @@ Two codes are particular to this package:
   has not been ported yet; the message names the work it waits for.
 - ``RPL502`` (:data:`NO_DEVICE`): an entry point was asked to run on a
   device this process does not have.
+- ``RPL503`` (:data:`KERNEL_MISMATCH`): a fused potential built on a
+  hand-written kernel disagreed with the model's plain potential.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Optional
 
 PENDING = "RPL501"
 NO_DEVICE = "RPL502"
+KERNEL_MISMATCH = "RPL503"
 
 
 class ReproError(Exception):
@@ -76,6 +79,7 @@ def pending(feature: str, slice_name: str) -> ReproNotImplementedError:
 
 
 __all__ = [
+    "KERNEL_MISMATCH",
     "NO_DEVICE",
     "PENDING",
     "ReproError",

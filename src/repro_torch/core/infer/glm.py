@@ -14,17 +14,23 @@ at two random probes.  The fused potential is
     potential(z) = potential_energy(block(model, hide=[site]), z) + nll(z)
 
 with ``nll`` a ``torch.autograd.Function`` whose backward returns
-``ct * grad`` from the kernel's own pass.  Any structural surprise falls
-back to the plain potential with a warning: the fusion is an optimization,
-never a semantics change.
+``ct * grad`` from the kernel's own pass.  Any structural surprise, found
+before the kernel first runs, falls back to the plain potential with a
+warning: the fusion is an optimization, never a semantics change.  Once
+the structure is verified, the fused and plain potentials agree by
+construction, so the closing check at a probe point tests the kernel: an
+error of the kernel's wrapper propagates, and a disagreement raises
+``RPL503`` rather than falling back.
 
 Eager PyTorch does not drop dead code, so re-running the model for the
 prior term would also recompute the blocked site's ``x @ w`` (and record
 its autograd graph) at every gradient.  The prior term therefore runs the
 model with every argument whose leading dimension is the observation count
 cut to zero rows; that this leaves the prior unchanged is verified at a
-probe point, and the full arguments are used where it does not.  The
-data-sharded fold (``data_shards``) waits for the data-shards slice.
+probe point.  Where it does not, the full arguments are used with a
+warning.  The fused potential's ``glm_prior`` attribute says which
+(``"slim"`` or ``"full"``).  The data-sharded fold (``data_shards``) waits
+for the data-shards slice.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from contextlib import contextmanager
 import torch
 
 from ...kernels import ops
+from ..errors import KERNEL_MISMATCH, ReproRuntimeError
 from ..handlers import block, seed, substitute, trace
 
 
@@ -210,22 +217,29 @@ def maybe_fuse_glm_potential(model, model_args, model_kwargs, transforms,
     try:
         slim_ok = _close(prior_energy(zp, *prior_inputs),
                          prior_energy(zp, model_args, model_kwargs), 1e-6)
-    except Exception:  # noqa: BLE001 — the model needs its full data
+        why = "its prior term changes when the data are cut to 0 rows"
+    except Exception as e:  # noqa: BLE001 — the model needs its full data
         slim_ok = False
+        why = (f"its prior term fails on data cut to 0 rows "
+               f"({type(e).__name__}: {e})")
     if not slim_ok:
+        warnings.warn(
+            f"site '{name}' is fused but {why}; every gradient re-runs the "
+            "model on the full arguments.", stacklevel=2)
         prior_inputs = (model_args, model_kwargs)
 
     def fused_potential(zflat):
         return (prior_energy(zflat, *prior_inputs)
                 + GlmNll.apply(zflat, x, y32, offset, scale, family))
 
-    # end-to-end verification: fused == plain at a probe point
-    try:
-        a, b = fused_potential(zp), potential_flat(zp)
-        if not _close(a, b, 1e-4):
-            return _fallback(name, f"fused potential mismatch "
-                             f"({float(a)} vs {float(b)})")
-    except Exception as e:  # noqa: BLE001
-        return _fallback(name, f"fused potential verification failed "
-                         f"({type(e).__name__}: {e})")
+    fused_potential.glm_prior = "slim" if slim_ok else "full"
+    # end-to-end verification: fused == plain at a probe point.  Not caught:
+    # a build or launch error of the kernel propagates.
+    a, b = fused_potential(zp), potential_flat(zp)
+    if not _close(a, b, 1e-4):
+        raise ReproRuntimeError(
+            f"site '{name}': the fused GLM potential disagrees with the plain "
+            f"one at a probe point ({float(a)} vs {float(b)}) on "
+            f"{x.device}: ops.glm_potential_grad is at fault.",
+            code=KERNEL_MISMATCH, site=name)
     return fused_potential

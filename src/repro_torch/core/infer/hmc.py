@@ -78,6 +78,24 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _check_on_device(value, device):
+    """Raise unless every tensor in ``value`` (containers walked) lies on
+    ``device``."""
+    if isinstance(value, torch.Tensor):
+        if value.device.type != device.type or (
+                device.index is not None and value.device.index is not None
+                and value.device.index != device.index):
+            raise ValueError(f"a model argument lies on {value.device}, the "
+                             f"sampler on {device}: move the arguments there "
+                             "(MCMC.run does)")
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            _check_on_device(v, device)
+    elif isinstance(value, dict):
+        for v in value.values():
+            _check_on_device(v, device)
+
+
 def _full(value, like):
     return torch.full((), float(value), dtype=like.dtype, device=like.device)
 
@@ -228,21 +246,24 @@ def hmc_setup(generator, num_warmup, *, model=None, potential_fn=None,
               algo="HMC", step_size=1.0, trajectory_length=2 * math.pi,
               adapt_step_size=True, adapt_mass_matrix=True, dense_mass=False,
               target_accept_prob=0.8, max_tree_depth=10,
-              init_strategy="uniform", device="cpu") -> KernelSetup:
+              init_strategy="uniform", device="cuda") -> KernelSetup:
     """Build the :class:`KernelSetup` for HMC (``algo="HMC"``) or NUTS
     (``algo="NUTS"``).  ``generator`` seeds the structure-discovery trace
     only; per-chain randomness comes from the draw source given to
-    ``init_fn``/``sample_fn``.  Model arguments must already be on
-    ``device``."""
+    ``init_fn``/``sample_fn``.  The chain runs on ``device`` (default
+    ``"cuda"``; raises without CUDA unless ``device="cpu"``), where the
+    model arguments must already lie."""
     if dense_mass:
         raise pending("dense_mass=True", "dense mass matrix")
     device = resolve_device(device)
     model_kwargs = model_kwargs or {}
     reads = HostReads()
     if model is not None:
+        _check_on_device((model_args, model_kwargs), device)
         (potential_flat, unravel, transforms, constrain, _,
          prototype) = initialize_model_structure(generator, model,
                                                  model_args, model_kwargs)
+        prototype = prototype.to(device)
         z_fixed = None
         if init_params is not None:
             z_fixed = ravel({k: transforms[k].inv(torch.as_tensor(v).to(device))

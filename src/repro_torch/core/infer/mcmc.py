@@ -49,8 +49,11 @@ class MCMC:
     After ``run``, ``stats`` holds the run's counts: ``num_leapfrog`` (every
     trajectory leapfrog, warmup included), ``host_syncs`` (the sampler's
     device->host reads), ``setup_seconds`` (moving the arguments, tracing
-    the model, building the potential) and ``chain_seconds`` (every chain's
-    init and transitions, ended by a device synchronize).
+    the model, building the potential), ``chain_seconds`` (every chain's
+    init and transitions, ended by a device synchronize) and ``glm_prior``
+    (``"slim"`` or ``"full"``: how the fused GLM potential evaluates the
+    prior term, see :mod:`repro_torch.core.infer.glm`; None when the
+    potential is not fused).
     """
 
     def __init__(self, kernel, num_warmup: int, num_samples: int,
@@ -121,7 +124,9 @@ class MCMC:
         self.stats = {"num_leapfrog": int(num_leapfrog),
                       "host_syncs": setup.host_reads.count - reads0,
                       "setup_seconds": t_chains - t0,
-                      "chain_seconds": t_end - t_chains}
+                      "chain_seconds": t_end - t_chains,
+                      "glm_prior": getattr(setup.potential_fn, "glm_prior",
+                                           None)}
         return self
 
     def get_samples(self, group_by_chain: bool = False):

@@ -12,7 +12,7 @@ than falling back.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional
 
 from . import glm_potential, leapfrog
 
@@ -20,17 +20,18 @@ from . import glm_potential, leapfrog
 class OpSpec(NamedTuple):
     """Registry entry for one op of the JAX package's table.
 
-    ``kernel``/``ref`` are ``(module, attr)`` import paths of the CUDA
-    wrapper and the plain version (``None`` until ported); ``route`` is
-    ``"cuda"`` or ``"triton"`` once ported; ``replaces`` is the file:line of
-    the JAX function that reaches ``pl.pallas_call`` (``None`` for the
-    ref-only rows, which have no TPU kernel); ``tol`` is the parity bound
-    between kernel and plain version (max-abs error).
+    ``kernel``/``ref`` are the CUDA wrapper and the plain version (``None``
+    until ported); the wrapper carries the op's launch counter as its
+    ``launches`` attribute.  ``route`` is ``"cuda"`` or ``"triton"`` once
+    ported; ``replaces`` is the file:line of the JAX function that reaches
+    ``pl.pallas_call`` (``None`` for the ref-only rows, which have no TPU
+    kernel); ``tol`` is the parity bound between kernel and plain version
+    (max-abs error).
     """
 
     name: str
-    kernel: Optional[Tuple[str, str]]
-    ref: Optional[Tuple[str, str]]
+    kernel: Optional[Callable]
+    ref: Optional[Callable]
     route: Optional[str]
     replaces: Optional[str]
     bit_identical: bool
@@ -44,16 +45,14 @@ OP_TABLE = (
            _K + "flash_attention.py:79", False, 2e-4),
     OpSpec("decode_attention", None, None, None, None, False, 0.0),
     OpSpec("mla_absorbed_decode", None, None, None, None, False, 0.0),
-    OpSpec("leapfrog_halfstep",
-           ("repro_torch.kernels.leapfrog", "leapfrog_halfstep_cuda"),
-           ("repro_torch.kernels.leapfrog", "leapfrog_halfstep_ref"),
-           "cuda", _K + "leapfrog.py:40", False, 1e-6),
+    OpSpec("leapfrog_halfstep", leapfrog.leapfrog_halfstep_cuda,
+           leapfrog.leapfrog_halfstep_ref, "cuda", _K + "leapfrog.py:40",
+           False, 1e-6),
     OpSpec("leapfrog_halfstep_batch", None, None, None,
            _K + "leapfrog.py:104", False, 1e-6),
-    OpSpec("glm_potential_grad",
-           ("repro_torch.kernels.glm_potential", "glm_potential_grad_cuda"),
-           ("repro_torch.kernels.glm_potential", "glm_potential_grad_ref"),
-           "cuda", _K + "glm_potential.py:62", False, 5e-3),
+    OpSpec("glm_potential_grad", glm_potential.glm_potential_grad_cuda,
+           glm_potential.glm_potential_grad_ref, "cuda",
+           _K + "glm_potential.py:62", False, 5e-3),
     OpSpec("mala_step", None, None, None, _K + "rwm_mala.py:42", False, 1e-6),
     OpSpec("enum_contract", None, None, None,
            _K + "enum_contract.py:50", True, 0.0),
@@ -64,41 +63,35 @@ OP_TABLE = (
     OpSpec("ssd_decode_step", None, None, None, None, False, 0.0),
 )
 
+SPECS = {spec.name: spec for spec in OP_TABLE}
 PORTED = tuple(spec.name for spec in OP_TABLE if spec.kernel is not None)
+
+
+def _route(name, tensor):
+    """The plain version for a tensor on the CPU, else the kernel."""
+    spec = SPECS[name]
+    return spec.ref if tensor.device.type == "cpu" else spec.kernel
 
 
 def leapfrog_halfstep(z, r, grad, m_inv, eps):
     """Fused momentum half-step + position full-step of velocity Verlet
     (diagonal mass): (z, r, grad, m_inv) flat (D,) tensors and a scalar or
     device-scalar ``eps`` -> (z', r')."""
-    if z.device.type == "cpu":
-        return leapfrog.leapfrog_halfstep_ref(z, r, grad, m_inv, eps)
-    return leapfrog.leapfrog_halfstep_cuda(z, r, grad, m_inv, eps)
+    return _route("leapfrog_halfstep", z)(z, r, grad, m_inv, eps)
 
 
 def glm_potential_grad(x, y, w, offset=None, scale=None,
                        family="bernoulli_logit"):
     """Fused GLM negative log-likelihood + gradient wrt ``w`` in one pass
     over the (n, d) design matrix: -> (nll scalar, grad (d,))."""
-    if x.device.type == "cpu":
-        return glm_potential.glm_potential_grad_ref(x, y, w, offset, scale,
-                                                    family)
-    return glm_potential.glm_potential_grad_cuda(x, y, w, offset, scale,
-                                                 family)
-
-
-def _kernel_wrappers():
-    import importlib
-    return {spec.name: getattr(importlib.import_module(spec.kernel[0]),
-                               spec.kernel[1])
-            for spec in OP_TABLE if spec.kernel is not None}
+    return _route("glm_potential_grad", x)(x, y, w, offset, scale, family)
 
 
 def launch_counts() -> dict:
     """Kernel launches per ported op since the last reset."""
-    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
+    return {name: SPECS[name].kernel.launches for name in PORTED}
 
 
 def reset_launch_counts() -> None:
-    for fn in _kernel_wrappers().values():
-        fn.launches = 0
+    for name in PORTED:
+        SPECS[name].kernel.launches = 0

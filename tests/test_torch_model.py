@@ -21,11 +21,13 @@ from repro.core.infer import initialize_model_structure as j_init_structure
 from repro_torch import core as pc
 from repro_torch.bench.models import logreg_model, logreg_model_glm
 from repro_torch.core import dist
-from repro_torch.core.errors import PENDING, ReproError
+from repro_torch.core.errors import KERNEL_MISMATCH, PENDING, ReproError
 from repro_torch.core.handlers import block, condition, seed, substitute, trace
-from repro_torch.core.infer import initialize_model_structure, log_density
+from repro_torch.core.infer import (MCMC, NUTS, initialize_model_structure,
+                                    log_density)
 from repro_torch.core.infer.hmc_util import value_and_grad
 from repro_torch.core.primitives import stack
+from repro_torch.kernels import ops
 
 
 def model(x=None):
@@ -265,6 +267,58 @@ def test_fused_glm_falls_back_with_warning(bad, reason):
     z = torch.tensor([0.3, -0.2, 0.1])
     tr_lp, _ = log_density(bad, args, kw, {"w": z})
     np.testing.assert_allclose(float(pot(z)), -float(tr_lp), rtol=1e-6)
+
+
+@pytest.mark.parametrize("fault", ["raises", "disagrees"])
+def test_fused_glm_kernel_fault_raises_not_falls_back(monkeypatch, fault):
+    """A fault of the fused term is never masked by a fallback: an error of
+    the kernel's wrapper propagates out of ``MCMC.run``, and a disagreement
+    with the plain potential raises RPL503."""
+    real = ops.glm_potential_grad
+
+    def broken(*args):
+        if fault == "raises":
+            raise RuntimeError("glm_potential_grad: launch failed")
+        val, grad = real(*args)
+        return val + 1.0, grad
+
+    monkeypatch.setattr(ops, "glm_potential_grad", broken)
+    x, y = _logreg_inputs(100, 3, 9)
+    mcmc = MCMC(NUTS(logreg_model_glm, device="cpu"), num_warmup=2,
+                num_samples=2)
+    err, match = ((RuntimeError, "launch failed") if fault == "raises"
+                  else (ReproError, KERNEL_MISMATCH))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)  # no fallback
+        with pytest.raises(err, match=match):
+            mcmc.run(0, x, y=y)
+
+
+def _data_dependent_prior(x, y=None):
+    d = x.shape[-1]
+    s = 1.0 + x.abs().mean()  # nan on 0 rows
+    w = pc.sample("w", dist.Normal(x.new_zeros(d), s * x.new_ones(d))
+                  .to_event(1))
+    return pc.sample("y", dist.Bernoulli(logits=x @ w), obs=y,
+                     infer={"potential": "glm"})
+
+
+def test_fused_glm_prior_path_is_reported():
+    """The prior term runs on data cut to 0 rows where that leaves it
+    unchanged; elsewhere on the full data, with a warning."""
+    x, y = _logreg_inputs(100, 3, 9)
+    args, kw = (torch.from_numpy(x),), {"y": torch.from_numpy(y)}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)
+        pot = initialize_model_structure(None, logreg_model_glm, args, kw)[0]
+    assert pot.glm_prior == "slim"
+    with pytest.warns(UserWarning, match="full arguments"):
+        pot = initialize_model_structure(None, _data_dependent_prior, args,
+                                         kw)[0]
+    assert pot.glm_prior == "full"
+    z = torch.tensor([0.3, -0.2, 0.1])
+    tr_lp, _ = log_density(_data_dependent_prior, args, kw, {"w": z})
+    np.testing.assert_allclose(float(pot(z)), -float(tr_lp), rtol=1e-5)
 
 
 def test_discrete_latent_raises_pending():

@@ -149,6 +149,7 @@ def test_nuts_posterior_matches_reference_run():
     assert np.all(gelman_rubin(w) < 1.05)
     assert int(m.get_extra_fields()["diverging"].sum()) == 0
     assert m.stats["num_leapfrog"] > 0 and m.stats["host_syncs"] > 0
+    assert m.stats["glm_prior"] == "slim"
 
 
 def test_same_seed_same_samples_other_seed_other_samples():
@@ -187,3 +188,13 @@ def test_entry_points_default_to_cuda():
             NUTS(logreg_model)
         with pytest.raises(ReproError, match=NO_DEVICE):
             MCMC(NUTS(logreg_model, device="cpu"), 1, 1, device="cuda")
+        with pytest.raises(ReproError, match=NO_DEVICE):
+            nuts_setup(None, 1, model=logreg_model,
+                       model_args=(torch.zeros(4, 2),))
+
+
+def test_setup_rejects_arguments_on_another_device():
+    x = torch.zeros(4, 2, device="meta")
+    with pytest.raises(ValueError, match="lies on meta"):
+        nuts_setup(None, 1, model=logreg_model, model_args=(x,),
+                   device="cpu")
