@@ -9,13 +9,19 @@ result line if any fails):
    the hand-written kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together).
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged ones, and time kernel and plain version
-   with CUDA events.
-3. Drive the main path through the user's entry points:
+   main paths' shapes and at ragged ones, and time kernel and plain version
+   with CUDA events (``enum_contract`` also against ``torch.logsumexp``, the
+   library yardstick, and at a large shape).
+3. Drive the main paths through the user's entry points, each with every
+   kernel launch counter set to 0 just before and read just after:
    ``MCMC(NUTS(logreg_model_glm), 100, 100).run(...)`` on 581,012 x 54
-   CoverType-shaped data made from a seed, with every kernel launch counter
-   set to 0 just before and read just after; then the paper's fixed-step
-   configuration (0 warmup, 40 draws, step 0.0015, no adaptation).
+   CoverType-shaped data made from a seed, then the paper's fixed-step
+   configuration (0 warmup, 40 draws, step 0.0015, no adaptation); the
+   fully-latent HMM ``MCMC(NUTS(enum_hmm_model, max_tree_depth=8), 100,
+   100)`` at K = 8, T = 120, V = 16, whose states ``markov`` sums out
+   through the ``enum_contract`` kernel pair; and the paper's
+   semi-supervised ``hmm_model`` at T = 600, T_sup = 100, K = 3, V = 10
+   (50 warmup + 20 draws).
 4. Print one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -41,6 +47,18 @@ HBM_BYTES_PER_S = 3.35e12
 FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 N, D = 581_012, 54
 GLM_REL_TOL = 1e-5
+ENUM_K, ENUM_T, ENUM_V = 8, 120, 16
+HMM_T, HMM_T_SUP, HMM_K, HMM_V = 600, 100, 3, 10
+# its draws are cut (never T) to keep the script near 6 minutes: at
+# ~150 ms per leapfrog 50 + 50 took 272 s on an H100
+HMM_WARMUP, HMM_DRAWS = 50, 20
+# enum_contract checks: the main path's shape, the ragged shapes of
+# tests/test_kernels.py:268-270, Ki = 1, and the large timing shape
+ENUM_MAIN, ENUM_LARGE = ((), ENUM_K, ENUM_K), ((16384,), 64, 64)
+ENUM_SHAPES = (ENUM_MAIN, ((), 2, 2), ((), 3, 3), ((), 16, 16),
+               ((), 128, 128), ((), 7, 13), ((), 257, 5), ((4,), 8, 8),
+               ((2, 3), 5, 5), ((), 1, 6), ENUM_LARGE)
+ENUM_BWD_RTOL = 1e-6  # the backward against its plain version
 
 
 def card_line() -> str:
@@ -200,6 +218,93 @@ def glm_checks(dev):
     return results, timing
 
 
+def _enum_inputs(batch, ki, k, dtype, seed, dev, masked=False):
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn(batch + (ki,), generator=gen, dtype=dtype)
+    m = torch.randn(batch + (ki, k), generator=gen, dtype=dtype)
+    if masked:  # a -inf row and a -inf column (tests/test_kernels.py:284)
+        a[1] = -math.inf
+        m[:, 2] = -math.inf
+    g = torch.randn(batch + (k,), generator=gen, dtype=dtype)
+    return a.to(dev), m.to(dev), g.to(dev)
+
+
+def enum_checks(dev):
+    """The forward kernel bit-identical to its plain version, the backward
+    within 1e-6 relative, on every shape in float32 and float64; timings
+    at the main shape and the large one."""
+    from repro_torch.kernels.enum_contract import (enum_contract_bwd_cuda,
+                                                   enum_contract_bwd_ref,
+                                                   enum_contract_cuda,
+                                                   enum_contract_ref)
+    cases = [(shape, False) for shape in ENUM_SHAPES] + [(((), 3, 4), True)]
+    results, timing = [], {}
+    for dtype in (torch.float32, torch.float64):
+        for seed, ((batch, ki, k), masked) in enumerate(cases):
+            a, m, g = _enum_inputs(batch, ki, k, dtype, seed, dev, masked)
+            out = enum_contract_cuda(a, m)
+            want = enum_contract_ref(a, m)
+            da, dm = enum_contract_bwd_cuda(a, m, out, g)
+            ra, rm = enum_contract_bwd_ref(a, m, out, g)
+            torch.cuda.synchronize()
+            identical = torch.equal(out, want)
+            finite = torch.isfinite(want)
+            fwd_err = 0.0 if identical else float(
+                torch.where(finite, (out - want).abs(),
+                            (out != want).to(dtype) * math.inf).max())
+            bwd_err = max(float(((x - y).abs() / (1.0 + y.abs())).max())
+                          for x, y in ((da, ra), (dm, rm)))
+            bwd_abs = max(float((x - y).abs().max())
+                          for x, y in ((da, ra), (dm, rm)))
+            nan = bool(torch.isnan(da).any() or torch.isnan(dm).any())
+            results.append({"batch": batch, "Ki": ki, "K": k,
+                            "masked": masked, "dtype": str(dtype),
+                            "fwd_bit_identical": identical,
+                            "max_abs_err": fwd_err,
+                            "bwd_max_rel_err": bwd_err,
+                            "bwd_max_abs_err": bwd_abs, "bwd_nan": nan})
+            check(identical, f"enum_contract kernel is not bit-identical to "
+                             f"its plain version at {batch} x ({ki}, {k}) "
+                             f"{dtype}: max error {fwd_err}")
+            check(bwd_err <= ENUM_BWD_RTOL and not nan,
+                  f"enum_contract_bwd disagrees at {batch} x ({ki}, {k}) "
+                  f"{dtype}: {bwd_err} > {ENUM_BWD_RTOL} or NaN ({nan})")
+            if masked:
+                check(bool(torch.isneginf(out[2])) and float(da[1]) == 0.0
+                      and float(dm[1].abs().max()) == 0.0
+                      and float(dm[:, 2].abs().max()) == 0.0,
+                      "enum_contract: the masked row/column is not -inf with "
+                      "zero gradients")
+            if dtype == torch.float32 and not masked \
+                    and (batch, ki, k) in (ENUM_MAIN, ENUM_LARGE):
+                timing[(batch, ki, k)] = enum_timing(a, m, g, out)
+    return results, timing
+
+
+def enum_timing(a, m, g, out):
+    from repro_torch.kernels.enum_contract import (enum_contract_bwd_cuda,
+                                                   enum_contract_bwd_ref,
+                                                   enum_contract_cuda,
+                                                   enum_contract_ref)
+    rows, ki, k = max(1, math.prod(a.shape[:-1])), a.shape[-1], m.shape[-1]
+    iters = 200 if rows == 1 else 20
+    fwd = timings(lambda: enum_contract_cuda(a, m),
+                  lambda: enum_contract_ref(a, m), iters)
+    fwd["library_ms"] = device_ms(
+        lambda: torch.logsumexp(a[..., :, None] + m, dim=-2), iters)
+    bwd = timings(lambda: enum_contract_bwd_cuda(a, m, out, g),
+                  lambda: enum_contract_bwd_ref(a, m, out, g), iters)
+    bwd["library_ms"] = None  # no single PyTorch call computes it
+    cells = rows * ki * k
+    fwd_bound = bound(4 * (rows * ki + cells + rows * k),
+                      5 * cells + rows * k, torch.float32)
+    bwd_bound = bound(4 * (2 * rows * ki + 2 * cells + 2 * rows * k),
+                      5 * cells, torch.float32)
+    return {"shape": [list(a.shape), list(m.shape)],
+            "enum_contract": (fwd, fwd_bound),
+            "enum_contract_bwd": (bwd, bwd_bound)}
+
+
 def profile_transitions(mcmc, num):
     """Device busy share and device time per leapfrog over ``num`` more
     sampling transitions of the adapted chain, under ``torch.profiler``.
@@ -285,7 +390,8 @@ def run_main_path(dev):
     check(post_err < 0.05, f"posterior mean is {post_err} from true_w")
     check(stats["glm_prior"] == "slim", f"the fused potential's prior term "
           f"runs on the {stats['glm_prior']} data, not on 0 rows")
-    for name, launches in counts.items():
+    for name in ("leapfrog_halfstep", "glm_potential_grad"):
+        launches = counts[name]
         check(launches >= stats["num_leapfrog"],
               f"{name}: {launches} launches < {stats['num_leapfrog']} "
               "leapfrogs: the main path did not run through its kernel")
@@ -317,6 +423,174 @@ def run_main_path(dev):
     return out, counts
 
 
+def _simplex_ok(x):
+    return bool(torch.isfinite(x).all() and (x >= 0).all()
+                and ((x.sum(-1) - 1.0).abs() <= 1e-5).all())
+
+
+def run_enum_hmm(dev):
+    """The fully-latent HMM through the user's entry points: NUTS moves the
+    K x K transition and K x V emission rows, ``markov`` sums the hidden
+    states out at every gradient through the enum_contract kernel pair."""
+    from repro_torch.bench.models import enum_hmm_data, enum_hmm_model
+    from repro_torch.core.infer import MCMC, NUTS, effective_sample_size
+    from repro_torch.kernels import ops
+
+    data = enum_hmm_data(ENUM_K, seed=0, T=ENUM_T, V=ENUM_V)
+    ops.reset_launch_counts()
+    mcmc = MCMC(NUTS(enum_hmm_model, max_tree_depth=8), num_warmup=100,
+                num_samples=100)
+    mcmc.run(0, data)
+    counts = ops.launch_counts()
+    stats = mcmc.stats
+    samples = mcmc.get_samples(group_by_chain=True)
+    extra = mcmc.get_extra_fields()
+    lf, evals = stats["num_leapfrog"], stats["num_grad_evals"]
+    theta, phi = samples["theta"], samples["phi"]
+    flat = np.concatenate([v.detach().cpu().numpy().reshape(1, 100, -1)
+                           for v in (theta, phi)], axis=-1)
+    out = {
+        "K": ENUM_K, "T": ENUM_T, "V": ENUM_V, "num_warmup": 100,
+        "num_samples": 100, "max_tree_depth": 8,
+        "setup_seconds": stats["setup_seconds"],
+        "chain_seconds": stats["chain_seconds"],
+        "num_leapfrog": lf, "num_grad_evals": evals,
+        "ms_per_leapfrog": 1e3 * stats["chain_seconds"] / lf,
+        "ms_per_grad_eval": 1e3 * stats["chain_seconds"] / evals,
+        "host_syncs_per_leapfrog": stats["host_syncs"] / lf,
+        "launches": counts,
+        "kernel_launches_per_leapfrog": {
+            name: counts[name] / lf for name in
+            ("enum_contract", "enum_contract_bwd", "leapfrog_halfstep")},
+        "mean_accept_prob": float(extra["accept_prob"].float().mean()),
+        "mean_num_steps": float(extra["num_steps"].float().mean()),
+        "divergences": int(extra["diverging"].sum()),
+        "min_ess": float(np.min(effective_sample_size(flat))),
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+    }
+    print("enumerated HMM NUTS:", json.dumps(out), flush=True)
+    check(tuple(theta.shape) == (1, 100, ENUM_K, ENUM_K)
+          and tuple(phi.shape) == (1, 100, ENUM_K, ENUM_V),
+          f"samples have shapes {tuple(theta.shape)} {tuple(phi.shape)}")
+    check(_simplex_ok(theta) and _simplex_ok(phi),
+          "a theta/phi row is off the simplex or not finite")
+    check(bool(torch.isfinite(extra["accept_prob"]).all()),
+          "an accept_prob is not finite")
+    steps = ENUM_T - 1
+    for name in ("enum_contract", "enum_contract_bwd"):
+        check(counts[name] == steps * evals,
+              f"{name}: {counts[name]} launches != (T-1) x {evals} gradient "
+              "evaluations: the potential did not run through its kernel")
+        check(counts[name] >= steps * lf,
+              f"{name}: {counts[name]} launches < (T-1) x {lf} leapfrogs")
+    check(counts["leapfrog_halfstep"] >= lf,
+          f"leapfrog_halfstep: {counts['leapfrog_halfstep']} launches < "
+          f"{lf} leapfrogs")
+    out["profile"] = profile_transitions(mcmc, 3)
+    print("enumerated HMM profile:", json.dumps(out["profile"]), flush=True)
+    out["breakdown"] = enum_potential_breakdown(dev)
+    print("enumerated HMM gradient breakdown:", json.dumps(out["breakdown"]),
+          flush=True)
+    return out, counts
+
+
+def enum_potential_breakdown(dev, evals=10):
+    """Wall ms per value-and-gradient of the enumerated HMM's potential at
+    T = 1 (the model, no chain), T = 2 (plus the ``torch.func.vmap``
+    transition and one contraction) and the main path's T; the differences
+    split a gradient into model, vectorized transition and contraction
+    chain."""
+    from repro_torch.bench.models import enum_hmm_data, enum_hmm_model
+    from repro_torch.core.infer import initialize_model_structure
+    from repro_torch.core.infer.hmc_util import value_and_grad
+
+    ms = {}
+    for T in (1, 2, ENUM_T):
+        data = {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+                else v for k, v in enum_hmm_data(ENUM_K, seed=0, T=T,
+                                                 V=ENUM_V).items()}
+        pot, _, _, _, _, proto = initialize_model_structure(
+            torch.Generator().manual_seed(0), enum_hmm_model, (data,))
+        pe_and_grad = value_and_grad(pot)
+        z = torch.zeros_like(proto).to(dev)
+        pe_and_grad(z)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(evals):
+            pe_and_grad(z)
+        torch.cuda.synchronize()
+        ms[T] = 1e3 * (time.perf_counter() - t0) / evals
+    per_step = (ms[ENUM_T] - ms[2]) / (ENUM_T - 2)
+    return {"ms_per_grad_eval": {str(t): v for t, v in ms.items()},
+            "model_ms": ms[1],
+            "vmap_transition_ms": ms[2] - ms[1] - per_step,
+            "contraction_ms_per_step": per_step,
+            "contraction_chain_ms": per_step * (ENUM_T - 1)}
+
+
+def hmm_theta_gate(theta_draws, true_theta, z_max=4.0):
+    """Posterior check of the semi-supervised HMM: every entry of the
+    posterior mean of ``theta`` lies within ``z_max`` posterior standard
+    deviations of the data-generating ``theta``.  (A fixed distance is no
+    check here: about 33 supervised transitions per row leave a posterior
+    sd near 0.09 per entry, and the reference's own posterior mean lies
+    0.1-0.2 from the truth; tests/test_torch_hmm_gate.py runs the reference
+    through this gate.)  ``theta_draws`` is ``(..., K, K)``; returns ``(ok,
+    max |mean - true|, max z)``."""
+    flat = np.asarray(theta_draws).reshape((-1,) + np.shape(true_theta))
+    mean, sd = flat.mean(0), np.maximum(flat.std(0, ddof=1), 1e-3)
+    dist = np.abs(mean - true_theta)
+    z = float(np.max(dist / sd))
+    return z <= z_max, float(np.max(dist)), z
+
+
+def run_hmm(dev):
+    """The paper's semi-supervised HMM: a hand-written forward pass (a
+    plain PyTorch loop of logsumexp steps, as the JAX model's lax.scan is
+    plain jnp) under NUTS."""
+    from repro_torch.bench.models import hmm_data, hmm_model
+    from repro_torch.core.infer import MCMC, NUTS, effective_sample_size
+    from repro_torch.kernels import ops
+
+    data = hmm_data(seed=0, T=HMM_T, T_sup=HMM_T_SUP, K=HMM_K, V=HMM_V)
+    ops.reset_launch_counts()
+    mcmc = MCMC(NUTS(hmm_model), num_warmup=HMM_WARMUP,
+                num_samples=HMM_DRAWS)
+    mcmc.run(0, data)
+    counts = ops.launch_counts()
+    stats = mcmc.stats
+    samples = mcmc.get_samples(group_by_chain=True)
+    extra = mcmc.get_extra_fields()
+    lf = stats["num_leapfrog"]
+    theta, phi = samples["theta"], samples["phi"]
+    th = theta.detach().cpu().numpy()
+    ok, err, z = hmm_theta_gate(th, data["true_theta"])
+    out = {
+        "T": HMM_T, "T_sup": HMM_T_SUP, "K": HMM_K, "V": HMM_V,
+        "num_warmup": HMM_WARMUP, "num_samples": HMM_DRAWS,
+        "chain_seconds": stats["chain_seconds"], "num_leapfrog": lf,
+        "ms_per_leapfrog": 1e3 * stats["chain_seconds"] / lf,
+        "host_syncs_per_leapfrog": stats["host_syncs"] / lf,
+        "launches": counts,
+        "mean_accept_prob": float(extra["accept_prob"].float().mean()),
+        "divergences": int(extra["diverging"].sum()),
+        "max_abs_posterior_mean_theta_minus_true": err,
+        "max_z_posterior_mean_theta_minus_true": z,
+        "min_ess_theta": float(np.min(effective_sample_size(th))),
+    }
+    print("semi-supervised HMM NUTS:", json.dumps(out), flush=True)
+    check(_simplex_ok(theta) and _simplex_ok(phi),
+          "a theta/phi row is off the simplex or not finite")
+    check(bool(torch.isfinite(extra["accept_prob"]).all()),
+          "an accept_prob is not finite")
+    check(ok, f"posterior mean of theta is {z} posterior sds ({err}) from "
+              "the data-generating theta")
+    check(counts["leapfrog_halfstep"] >= lf,
+          f"leapfrog_halfstep: {counts['leapfrog_halfstep']} launches < "
+          f"{lf} leapfrogs")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs an "
@@ -327,15 +601,22 @@ def main():
     card = card_line()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    build_s = _build.build_all(["leapfrog", "glm_potential"])
+    build_s = _build.build_all(["leapfrog", "glm_potential",
+                                "enum_contract"])
     print("build seconds:", json.dumps(build_s), flush=True)
 
     lf_checks, lf_timing = leapfrog_checks(dev)
     glm_checks_, glm_timing = glm_checks(dev)
+    enum_checks_, enum_timings = enum_checks(dev)
     print("kernel checks:", json.dumps({"leapfrog_halfstep": lf_checks,
-                                        "glm_potential_grad": glm_checks_}),
+                                        "glm_potential_grad": glm_checks_,
+                                        "enum_contract": enum_checks_}),
           flush=True)
+    print("enum_contract timings:", json.dumps(
+        {str(shape): t for shape, t in enum_timings.items()}), flush=True)
     path, counts = run_main_path(dev)
+    enum_path, enum_counts = run_enum_hmm(dev)
+    run_hmm(dev)
 
     from repro_torch.kernels.ops import SPECS
     kernels = []
@@ -356,6 +637,34 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "launches_per_leapfrog": counts[name]
             / path["adaptive"]["num_leapfrog"]})
+    main_t, large_t = enum_timings[ENUM_MAIN], enum_timings[ENUM_LARGE]
+    for name, replaces, err_key, note in (
+            ("enum_contract", SPECS["enum_contract"].replaces,
+             "max_abs_err", None),
+            ("enum_contract_bwd", None, "bwd_max_abs_err",
+             "the backward of enum_contract: the JAX package has no TPU "
+             "kernel for it, it differentiates ref.enum_contract")):
+        times, (bound_ms, bound_by) = main_t[name]
+        ltimes, (lbound_ms, lbound_by) = large_t[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/enum_contract.cu",
+            "replaces": replaces, "launches": enum_counts[name],
+            "max_abs_err": max(c[err_key] for c in enum_checks_),
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "call_ms": times["call_ms"],
+            "plain_call_ms": times["plain_call_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": times["library_ms"],
+            "launches_per_leapfrog": enum_counts[name]
+            / enum_path["num_leapfrog"],
+            "shape": main_t["shape"],
+            "large": {"shape": large_t["shape"], "ms": ltimes["ms"],
+                      "plain_ms": ltimes["plain_ms"],
+                      "call_ms": ltimes["call_ms"],
+                      "library_ms": ltimes["library_ms"],
+                      "bound_ms": lbound_ms, "bound_by": lbound_by},
+            **({"note": note} if note else {})})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,11 @@ constraint supports and a ``biject_to`` registry.  This package stays free
 of intra-``repro_torch.core`` imports other than ``errors``.
 """
 from . import constraints, transforms
-from .continuous import Normal
-from .discrete import Bernoulli
+from .continuous import Delta, Dirichlet, Normal
+from .discrete import Bernoulli, Categorical
 from .distribution import Distribution, ExpandedDistribution, Independent
 from .transforms import biject_to
 
-__all__ = ["Bernoulli", "Distribution", "ExpandedDistribution",
-           "Independent", "Normal", "biject_to", "constraints",
-           "transforms"]
+__all__ = ["Bernoulli", "Categorical", "Delta", "Dirichlet", "Distribution",
+           "ExpandedDistribution", "Independent", "Normal", "biject_to",
+           "constraints", "transforms"]

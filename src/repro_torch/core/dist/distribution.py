@@ -70,6 +70,17 @@ class Distribution:
     def log_prob(self, value):
         raise NotImplementedError
 
+    def enumerate_support(self, expand=True):
+        """All values of a finite support, stacked along a fresh leftmost dim.
+
+        Returns an integer tensor of shape ``(K,) + batch_shape`` (``expand=
+        True``) or ``(K,) + (1,) * len(batch_shape)`` (``expand=False``, the
+        broadcast-ready form the ``enum`` handler installs).  Only defined
+        when ``has_enumerate_support``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no enumerate_support: only discrete "
+            "distributions with finite support can be enumerated")
+
     def __call__(self, *args, generator=None, sample_shape=(), **kwargs):
         return self.sample(generator=generator, sample_shape=sample_shape)
 
@@ -169,6 +180,18 @@ class ExpandedDistribution(Distribution):
     @property
     def support(self):
         return self.base_dist.support
+
+    @property
+    def has_enumerate_support(self):
+        return self.base_dist.has_enumerate_support
+
+    def enumerate_support(self, expand=True):
+        values = self.base_dist.enumerate_support(expand=False)
+        values = values.reshape(values.shape[:1]
+                                + (1,) * len(self._batch_shape))
+        if expand:
+            values = values.broadcast_to(values.shape[:1] + self._batch_shape)
+        return values
 
     def sample(self, generator=None, sample_shape=()):
         lead = self._batch_shape[:len(self._batch_shape)

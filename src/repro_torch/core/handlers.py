@@ -1,5 +1,5 @@
-"""Effect handlers: ``trace``, ``seed``, ``substitute``, ``condition`` and
-``block`` (Table 1 of the paper).
+"""Effect handlers: ``trace``, ``seed``, ``substitute``, ``condition``,
+``block``, ``scope`` and ``infer_config`` (Table 1 of the paper).
 
 A handler is a context manager that sits on the global stack and rewrites
 the messages the primitives produce.  Each acts through one or both hooks:
@@ -10,8 +10,8 @@ the messages the primitives produce.  Each acts through one or both hooks:
 - ``postprocess_message`` runs outermost-first *after* the value exists:
   results are recorded (``trace``).
 
-``replay``, ``mask``, ``scale``, ``do``, ``scope``, ``infer_config`` and
-``reparam`` are still to be ported (ROADMAP.md, Queue 1).
+``replay``, ``mask``, ``scale``, ``do`` and ``reparam`` are still to be
+ported (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -239,4 +239,48 @@ class block(Messenger):
             msg["stop"] = True
 
 
-__all__ = ["Messenger", "trace", "seed", "substitute", "condition", "block"]
+class scope(Messenger):
+    """Prefix every interior site name with ``prefix + divider``.
+
+    Effect: ``process_message`` — rewrites ``msg['name']`` for all named
+    message types (``sample``/``param``/``deterministic``/``plate``), which
+    lets one model be instantiated several times in a larger program without
+    site-name collisions.  Nested scopes compose outside-in:
+    ``scope(scope(f, prefix='a'), prefix='b')`` yields ``b/a/site``.
+    """
+
+    def __init__(self, fn=None, prefix: str = "", divider: str = "/"):
+        super().__init__(fn)
+        if not prefix:
+            raise ValueError("scope requires a non-empty prefix")
+        self.prefix = prefix
+        self.divider = divider
+
+    def process_message(self, msg: dict) -> None:
+        if msg["type"] in ("sample", "param", "deterministic", "plate"):
+            msg["name"] = f"{self.prefix}{self.divider}{msg['name']}"
+
+
+class infer_config(Messenger):
+    """Update per-site inference configuration.
+
+    Effect: ``process_message`` — for ``sample``/``param`` sites, merges
+    ``config_fn(msg)`` (a dict, may be empty) into ``msg['infer']``.
+    Values never affect the density.
+    """
+
+    def __init__(self, fn=None, config_fn: Optional[Callable] = None):
+        super().__init__(fn)
+        if config_fn is None:
+            raise ValueError("infer_config requires a config_fn")
+        self.config_fn = config_fn
+
+    def process_message(self, msg: dict) -> None:
+        if msg["type"] in ("sample", "param"):
+            extra = self.config_fn(msg)
+            if extra:
+                msg["infer"].update(extra)
+
+
+__all__ = ["Messenger", "trace", "seed", "substitute", "condition", "block",
+           "scope", "infer_config"]

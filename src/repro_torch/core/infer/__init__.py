@@ -5,6 +5,8 @@ from .diagnostics import (
     print_summary,
     summary,
 )
+from .enum import (config_enumerate, contract_enum_factors, enum,
+                   infer_discrete, markov)
 from .hmc import HMC, NUTS, AdaptState, HMCState, hmc_setup, nuts_setup
 from .hmc_util import GeneratorDraws, HostReads
 from .kernel_api import KernelSetup, collect, init_state, sample
@@ -26,5 +28,6 @@ __all__ = [
     "transform_fn", "get_model_transforms", "ravel",
     "initialize_model_structure", "find_valid_initial_params",
     "effective_sample_size", "gelman_rubin", "hpdi", "summary",
-    "print_summary",
+    "print_summary", "config_enumerate", "contract_enum_factors", "enum",
+    "infer_discrete", "markov",
 ]

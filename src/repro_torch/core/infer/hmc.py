@@ -100,6 +100,18 @@ def _full(value, like):
     return torch.full((), float(value), dtype=like.dtype, device=like.device)
 
 
+def _counting(potential_fn):
+    """``potential_fn`` counting its calls in ``.count``: the sampler only
+    evaluates the potential with its gradient, so the count is the number
+    of gradient evaluations."""
+    def potential(z):
+        potential.count += 1
+        return potential_fn(z)
+
+    potential.count = 0
+    return potential
+
+
 def _make_init_fn(potential_fn, prototype, reads, *, z_fixed, adapt_step_size,
                   step_size0, init_strategy):
     """Per-chain state init: initial-point search (unless ``z_fixed``),
@@ -277,12 +289,13 @@ def hmc_setup(generator, num_warmup, *, model=None, potential_fn=None,
                                   for k, v in init_params.items()})
         potential_flat, constrain, prototype = potential_fn, unravel, z_fixed
     schedule = build_adaptation_schedule(num_warmup)
+    counted = _counting(potential_flat)
     init_fn = _make_init_fn(
-        potential_flat, prototype, reads, z_fixed=z_fixed,
+        counted, prototype, reads, z_fixed=z_fixed,
         adapt_step_size=adapt_step_size, step_size0=step_size,
         init_strategy=init_strategy)
     sample_fn = _make_sample_fn(
-        potential_flat, num_warmup, schedule, reads, algo=algo,
+        counted, num_warmup, schedule, reads, algo=algo,
         trajectory_length=trajectory_length, adapt_step_size=adapt_step_size,
         adapt_mass_matrix=adapt_mass_matrix,
         target_accept_prob=target_accept_prob, max_tree_depth=max_tree_depth)
@@ -291,7 +304,7 @@ def hmc_setup(generator, num_warmup, *, model=None, potential_fn=None,
         potential_fn=potential_flat, unravel_fn=unravel,
         constrain_fn=constrain, num_warmup=int(num_warmup), algo=algo,
         adapt_schedule=tuple((int(s), int(e)) for (s, e) in schedule),
-        host_reads=reads)
+        host_reads=reads, grad_evals=counted)
 
 
 def nuts_setup(generator, num_warmup, **kwargs) -> KernelSetup:

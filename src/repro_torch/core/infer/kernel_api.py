@@ -29,6 +29,9 @@ class KernelSetup(NamedTuple):
     # the sampler's device->host reads (hmc_util.HostReads): on a card,
     # each is a host sync
     host_reads: object = None
+    # the potential as the sampler calls it, counting its value-and-gradient
+    # evaluations in ``.count``
+    grad_evals: object = None
 
 
 def init_state(setup: KernelSetup, draws):

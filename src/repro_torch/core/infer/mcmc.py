@@ -48,7 +48,9 @@ class MCMC:
     was built with ``device="cpu"``); model arguments are moved there.
     After ``run``, ``stats`` holds the run's counts: ``num_leapfrog`` (every
     trajectory leapfrog, warmup included), ``host_syncs`` (the sampler's
-    device->host reads), ``setup_seconds`` (moving the arguments, tracing
+    device->host reads), ``num_grad_evals`` (potential value-and-gradient
+    evaluations: the leapfrogs plus the initial-point and step-size
+    searches), ``setup_seconds`` (moving the arguments, tracing
     the model, building the potential), ``chain_seconds`` (every chain's
     init and transitions, ended by a device synchronize) and ``glm_prior``
     (``"slim"`` or ``"full"``: how the fused GLM potential evaluates the
@@ -95,6 +97,7 @@ class MCMC:
                                   model_kwargs=model_kwargs)
         self._setup = setup
         reads0 = setup.host_reads.count
+        evals0 = setup.grad_evals.count
         t_chains = time.perf_counter()
         seeds = np.random.SeedSequence(int(seed)).generate_state(
             self.num_chains, dtype=np.uint64)
@@ -123,6 +126,7 @@ class MCMC:
         self._samples = setup.constrain_fn(z) if z is not None else {}
         self.stats = {"num_leapfrog": int(num_leapfrog),
                       "host_syncs": setup.host_reads.count - reads0,
+                      "num_grad_evals": setup.grad_evals.count - evals0,
                       "setup_seconds": t_chains - t0,
                       "chain_seconds": t_end - t_chains,
                       "glm_prior": getattr(setup.potential_fn, "glm_prior",

@@ -27,15 +27,25 @@ class _SupportChecked(Messenger):
             msg["support_checked"] = True
 
 
-def _site_log_prob(site: dict):
-    """Per-site log factor: ``mask`` zeroes elements before the
-    multiplicative ``scale`` applies."""
-    lp = site["fn"].log_prob(site["value"])
-    if site["mask"] is not None:
-        lp = torch.where(site["mask"], lp, torch.zeros_like(lp))
-    if site["scale"] is not None:
-        lp = lp * site["scale"]
-    return lp
+def _probe_enumeration(model, model_args, model_kwargs, params):
+    """The enum-aware ``log_density``'s first, inert pass: returns the trace
+    and, when some site requests enumeration (or a ``markov`` chain runs),
+    the ``first_available_dim`` of the enumeration pass; else ``None``."""
+    from .enum import _EnumProbe, _first_available_dim
+    probe = _EnumProbe(model)
+    tr = trace(substitute(probe, data=params)).get_trace(*model_args,
+                                                         **model_kwargs)
+    return tr, (_first_available_dim(probe) if probe.found else None)
+
+
+def _enum_log_density(model, model_args, model_kwargs, params,
+                      first_available_dim):
+    """The enumeration pass: trace under ``enum`` and eliminate."""
+    from .enum import contract_enum_factors, enum
+    handler = enum(model, first_available_dim=first_available_dim)
+    tr = trace(substitute(handler, data=params)).get_trace(*model_args,
+                                                           **model_kwargs)
+    return contract_enum_factors(tr), tr
 
 
 def log_density(model, model_args, model_kwargs, params):
@@ -43,18 +53,28 @@ def log_density(model, model_args, model_kwargs, params):
 
     Returns ``(log_joint, trace)``.  The single density accumulator of the
     system: only ``sample`` sites contribute, each as
-    ``sum(where(mask, log_prob, 0) * scale)``.  Enumerated discrete sites
-    wait for the enumeration slice.
+    ``sum(where(mask, log_prob, 0) * scale)``.
+
+    The accumulator is enumeration-aware, as in the JAX package: a first,
+    inert probe pass detects sites marked ``infer={"enumerate":
+    "parallel"}`` (or chains built with
+    :func:`~repro_torch.core.infer.enum.markov`) and measures the deepest
+    plate/batch dim.  If any are found, the model is traced again under an
+    :class:`~repro_torch.core.infer.enum.enum` handler and the enumeration
+    dims are summed out exactly by
+    :func:`~repro_torch.core.infer.enum.contract_enum_factors`; otherwise the
+    probe's trace is the model's and is summed directly.
     """
-    tr = trace(substitute(model, data=params)).get_trace(*model_args,
-                                                         **model_kwargs)
+    from .enum import _site_log_prob
+    tr, first_available_dim = _probe_enumeration(model, model_args,
+                                                 model_kwargs, params)
+    if first_available_dim is not None:
+        return _enum_log_density(model, model_args, model_kwargs, params,
+                                 first_available_dim)
     log_joint = 0.0
     for site in tr.values():
-        if site["type"] != "sample":
-            continue
-        if site["infer"].get("enumerate") == "parallel":
-            raise pending(f"enumerated site '{site['name']}'", "enumeration")
-        log_joint = log_joint + torch.sum(_site_log_prob(site))
+        if site["type"] == "sample":
+            log_joint = log_joint + torch.sum(_site_log_prob(site))
     return log_joint, tr
 
 
@@ -63,8 +83,9 @@ def get_model_transforms(model, model_args=(), model_kwargs=None,
     """Trace the model once to discover latent sites and their bijections.
 
     Wrapped in ``block`` so the exploratory trace never leaks sites into an
-    enclosing handler.  A latent discrete site raises: marginalizing it
-    needs the enumeration slice.
+    enclosing handler.  Enumerable discrete latents have no bijection: the
+    enum-aware :func:`log_density` marginalizes them, so they are simply
+    not part of the continuous latent vector.
     """
     model_kwargs = model_kwargs or {}
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
@@ -76,9 +97,7 @@ def get_model_transforms(model, model_args=(), model_kwargs=None,
             fn = site["fn"]
             if (site["infer"].get("enumerate") == "parallel"
                     or getattr(fn, "has_enumerate_support", False)):
-                raise pending(f"latent discrete site '{name}' (marginalized "
-                              "by config_enumerate in the JAX package)",
-                              "enumeration")
+                continue
             transforms[name] = biject_to(fn.support)
     return transforms, tr
 
@@ -89,8 +108,11 @@ def transform_fn(transforms, params):
 
 
 def potential_energy(model, model_args, model_kwargs, transforms,
-                     params_uncon):
-    """-log p(constrained(z)) - log|det J(z)| on unconstrained space."""
+                     params_uncon, first_available_dim=None):
+    """-log p(constrained(z)) - log|det J(z)| on unconstrained space.
+
+    ``first_available_dim`` (from a probe made once at setup) skips the
+    probe pass of :func:`log_density` and traces straight under ``enum``."""
     params_con = {}
     log_det = 0.0
     for name, t in transforms.items():
@@ -98,7 +120,12 @@ def potential_energy(model, model_args, model_kwargs, transforms,
         x = t(u)
         params_con[name] = x
         log_det = log_det + torch.sum(t.log_abs_det_jacobian(u, x))
-    log_joint, _ = log_density(model, model_args, model_kwargs, params_con)
+    if first_available_dim is None:
+        log_joint, _ = log_density(model, model_args, model_kwargs,
+                                   params_con)
+    else:
+        log_joint, _ = _enum_log_density(model, model_args, model_kwargs,
+                                         params_con, first_available_dim)
     return -(log_joint + log_det)
 
 
@@ -134,8 +161,18 @@ def initialize_model_structure(generator, model, model_args=(),
     model_trace, flat_prototype)``.  A model that marks its likelihood
     ``infer={"potential": "glm"}`` gets the fused GLM potential when the
     structural checks of :mod:`repro_torch.core.infer.glm` pass.
+
+    Models with enumerable discrete latents need no special treatment: the
+    model is wrapped in :func:`~repro_torch.core.infer.enum.config_enumerate`
+    (inert otherwise), those sites are left out of the continuous latent
+    vector, and every potential evaluation marginalizes them.  The model's
+    structure is static, so the enumeration probe runs once here and the
+    potential traces each gradient under ``enum`` directly (the JAX package
+    probes at every trace, which ``jit`` makes free).
     """
+    from .enum import config_enumerate
     model_kwargs = model_kwargs or {}
+    model = config_enumerate(model)
     transforms, tr = get_model_transforms(model, model_args, model_kwargs,
                                           generator)
     if not transforms:
@@ -143,10 +180,13 @@ def initialize_model_structure(generator, model, model_args=(),
     proto = {name: t.inv(tr[name]["value"]) for name, t in transforms.items()}
     flat_proto, unravel_fn = ravel(proto)
     checked = _SupportChecked(model)
+    _, first_available_dim = _probe_enumeration(
+        checked, model_args, model_kwargs,
+        {name: tr[name]["value"] for name in transforms})
 
     def potential_flat(zflat):
         return potential_energy(checked, model_args, model_kwargs, transforms,
-                                unravel_fn(zflat))
+                                unravel_fn(zflat), first_available_dim)
 
     def constrain(zflat):
         return transform_fn(transforms, unravel_fn(zflat))

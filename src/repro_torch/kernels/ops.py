@@ -8,12 +8,15 @@ PyTorch version and the TPU kernel it replaces; a row not ported yet has
 
 For a ported op, tensors on the CPU take the plain version and tensors on a
 card launch the kernel; a kernel that cannot build or launch raises rather
-than falling back.
+than falling back.  A ported op whose gradient is a kernel of its own names
+it in ``BACKWARD`` (the JAX package has no row for it: it differentiates
+the jnp reference); its launches are counted with the rest.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+from . import enum_contract as _enum_contract
 from . import glm_potential, leapfrog
 
 
@@ -54,7 +57,8 @@ OP_TABLE = (
            glm_potential.glm_potential_grad_ref, "cuda",
            _K + "glm_potential.py:62", False, 5e-3),
     OpSpec("mala_step", None, None, None, _K + "rwm_mala.py:42", False, 1e-6),
-    OpSpec("enum_contract", None, None, None,
+    OpSpec("enum_contract", _enum_contract.enum_contract_cuda,
+           _enum_contract.enum_contract_ref, "cuda",
            _K + "enum_contract.py:50", True, 0.0),
     OpSpec("rmsnorm", None, None, None, _K + "rmsnorm.py:49", False, 2e-5),
     OpSpec("softmax_xent", None, None, None,
@@ -65,6 +69,12 @@ OP_TABLE = (
 
 SPECS = {spec.name: spec for spec in OP_TABLE}
 PORTED = tuple(spec.name for spec in OP_TABLE if spec.kernel is not None)
+# backward kernels of ported ops (name -> CUDA wrapper)
+BACKWARD = {"enum_contract_bwd": _enum_contract.enum_contract_bwd_cuda}
+
+
+def _counted():
+    return {**{name: SPECS[name].kernel for name in PORTED}, **BACKWARD}
 
 
 def _route(name, tensor):
@@ -87,11 +97,20 @@ def glm_potential_grad(x, y, w, offset=None, scale=None,
     return _route("glm_potential_grad", x)(x, y, w, offset, scale, family)
 
 
+def enum_contract(log_alpha, log_mat):
+    """``out[..., j] = logsumexp_i(log_alpha[..., i] + log_mat[..., i, j])``
+    over ``(..., Ki) x (..., Ki, K) -> (..., K)``, differentiable: the plain
+    versions for CPU tensors, the forward and backward kernels for CUDA
+    tensors (:class:`~repro_torch.kernels.enum_contract.EnumContract`)."""
+    return _enum_contract.EnumContract.apply(log_alpha, log_mat)
+
+
 def launch_counts() -> dict:
-    """Kernel launches per ported op since the last reset."""
-    return {name: SPECS[name].kernel.launches for name in PORTED}
+    """Kernel launches per ported op (and backward kernel) since the last
+    reset."""
+    return {name: kernel.launches for name, kernel in _counted().items()}
 
 
 def reset_launch_counts() -> None:
-    for name in PORTED:
-        SPECS[name].kernel.launches = 0
+    for kernel in _counted().values():
+        kernel.launches = 0

@@ -7,6 +7,11 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels.enum_contract import (EnumContract,
+                                               enum_contract_bwd_cuda,
+                                               enum_contract_bwd_ref,
+                                               enum_contract_cuda,
+                                               enum_contract_ref)
 from repro_torch.kernels.glm_potential import (glm_potential_grad_cuda,
                                                glm_potential_grad_ref)
 from repro_torch.kernels.leapfrog import (leapfrog_halfstep_cuda,
@@ -36,6 +41,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         glm_potential_grad_cuda(torch.zeros(3, 2), torch.zeros(3),
                                 torch.zeros(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        enum_contract_cuda(torch.zeros(3), torch.zeros(3, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        enum_contract_bwd_cuda(torch.zeros(3), torch.zeros(3, 4),
+                               torch.zeros(4), torch.zeros(4))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -43,8 +53,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     monkeypatch.setattr(_build, "_LOADED", {})
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.load("leapfrog")
+    for name in ("leapfrog", "enum_contract"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load(name)
 
 
 @pytest.mark.cuda
@@ -70,3 +81,56 @@ def test_cuda_kernels_match_plain_on_card():
                                         compute_dtype=torch.float64)
         assert abs(float(kv) - float(pv)) <= TOL["glm_potential_grad"]
         assert float((kg - pg).abs().max()) <= TOL["glm_potential_grad"]
+
+
+ENUM_SHAPES = [((), 8, 8), ((), 2, 2), ((), 3, 3), ((), 16, 16),
+               ((), 128, 128), ((), 7, 13), ((), 257, 5), ((4,), 8, 8),
+               ((2, 3), 5, 5), ((), 1, 6), ((16384,), 64, 64)]
+
+
+def _enum_inputs(batch, ki, k, dtype, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal(batch + (ki,))
+    m = rng.standard_normal(batch + (ki, k))
+    return torch.from_numpy(a).to(dtype), torch.from_numpy(m).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_enum_contract_kernels_match_plain_on_card(dtype):
+    """Forward bit-identical to the plain version on the card (OP_TABLE's
+    bit_identical row), backward within 1e-6 relative, masked rows and
+    columns giving -inf and zero gradients, never NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    assert ops.SPECS["enum_contract"].bit_identical
+    dev = torch.device("cuda")
+    cases = [_enum_inputs(b, ki, k, dtype, i)
+             for i, (b, ki, k) in enumerate(ENUM_SHAPES)]
+    a, m = _enum_inputs((), 3, 4, dtype, 99)
+    a[1] = -float("inf")
+    m[:, 2] = -float("inf")
+    cases.append((a, m))
+    for a, m in cases:
+        a, m = a.to(dev), m.to(dev)
+        out = enum_contract_cuda(a, m)
+        assert torch.equal(out, enum_contract_ref(a, m))
+        g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            tuple(out.shape))).to(dtype).to(dev)
+        da, dm = enum_contract_bwd_cuda(a, m, out, g)
+        ra, rm = enum_contract_bwd_ref(a, m, out, g)
+        for got, want in ((da, ra), (dm, rm)):
+            assert not torch.isnan(got).any()
+            err = (got - want).abs() / (1.0 + want.abs())
+            assert float(err.max()) <= 1e-6
+    # the masked case: -inf column, zero gradients in the masked row/column
+    assert bool(torch.isneginf(out[2]))
+    assert float(dm[1].abs().max()) == 0.0 and float(dm[:, 2].abs().max()) \
+        == 0.0 and float(da[1]) == 0.0
+    # the autograd Function routes CUDA tensors to the kernels
+    ops.reset_launch_counts()
+    a, m = (t.to(dev).requires_grad_(True)
+            for t in _enum_inputs((), 8, 8, dtype, 3))
+    EnumContract.apply(a, m).sum().backward()
+    counts = ops.launch_counts()
+    assert counts["enum_contract"] == 1 and counts["enum_contract_bwd"] == 1

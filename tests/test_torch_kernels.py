@@ -34,7 +34,10 @@ def test_op_table_has_the_reference_rows():
             path, line = port.replaces.split(":")
             text = open(path).read().splitlines()[int(line) - 1]
             assert text.startswith("def ") or text.startswith("    def ")
-    assert ops.PORTED == ("leapfrog_halfstep", "glm_potential_grad")
+    assert ops.PORTED == ("leapfrog_halfstep", "glm_potential_grad",
+                          "enum_contract")
+    # backward kernels are counted with the rest
+    assert set(ops.launch_counts()) == set(ops.PORTED) | set(ops.BACKWARD)
 
 
 @pytest.mark.parametrize("D", [1, 54, 4099])

@@ -322,18 +322,28 @@ def test_fused_glm_prior_path_is_reported():
 
 
 def test_discrete_latent_raises_pending():
+    """A latent discrete site is marginalized since the enumeration slice;
+    sampling it from its posterior (``infer_discrete``, ``enum`` in sample
+    mode) is what still waits, with a coded error."""
+    from repro_torch.core.infer import enum, infer_discrete
+
     def m():
         pc.sample("c", dist.Bernoulli(probs=torch.tensor(0.5)))
         pc.sample("x", dist.Normal(0.0, 1.0))
 
+    transforms = initialize_model_structure(None, m)[2]
+    assert list(transforms) == ["x"]
     with pytest.raises(ReproError, match=PENDING):
-        initialize_model_structure(None, m)
+        infer_discrete(m, torch.Generator())
+    with pytest.raises(ReproError, match=PENDING):
+        enum(m, first_available_dim=-1, mode="sample")
 
 
 def test_port_imports_no_jax():
     """The port imports torch and numpy, never jax nor the repro package."""
     code = ("import sys; import repro_torch.core.infer, repro_torch.interop, "
-            "repro_torch.bench.models, repro_torch.kernels.ops; "
+            "repro_torch.bench.models, repro_torch.kernels.ops, "
+            "repro_torch.core.infer.enum, repro_torch.kernels.enum_contract; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             " assert not bad, bad")
