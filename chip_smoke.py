@@ -11,17 +11,23 @@ result line if any fails):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and at ragged ones, and time kernel and plain version
    with CUDA events (``enum_contract`` also against ``torch.logsumexp``, the
-   library yardstick, and at a large shape).
+   library yardstick, and at a large shape; the batch leapfrog and the
+   MALA/RWM proposal also at (64, 1,000,003)).
 3. Drive the main paths through the user's entry points, each with every
    kernel launch counter set to 0 just before and read just after:
    ``MCMC(NUTS(logreg_model_glm), 100, 100).run(...)`` on 581,012 x 54
    CoverType-shaped data made from a seed, then the paper's fixed-step
    configuration (0 warmup, 40 draws, step 0.0015, no adaptation); the
-   fully-latent HMM ``MCMC(NUTS(enum_hmm_model, max_tree_depth=8), 100,
-   100)`` at K = 8, T = 120, V = 16, whose states ``markov`` sums out
+   fully-latent HMM ``MCMC(NUTS(enum_hmm_model, max_tree_depth=8), 50,
+   50)`` at K = 8, T = 120, V = 16, whose states ``markov`` sums out
    through the ``enum_contract`` kernel pair; and the paper's
    semi-supervised ``hmm_model`` at T = 600, T_sup = 100, K = 3, V = 10
-   (50 warmup + 20 draws).
+   (50 warmup + 20 draws); then the ensemble samplers on the same logreg
+   data: ``MCMC(ChEES(logreg_model_glm), 300, 1500, num_chains=8)``
+   (lockstep trajectories through ``leapfrog_halfstep_batch``),
+   ``MCMC(MALA(logreg_model_glm), 500, 500, num_chains=16)`` and ``RWM``
+   at the same setting warm-started at MALA's posterior mean (one
+   ``mala_step`` launch per iteration, RWM's without the gradient).
 4. Print one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -48,6 +54,9 @@ FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 N, D = 581_012, 54
 GLM_REL_TOL = 1e-5
 ENUM_K, ENUM_T, ENUM_V = 8, 120, 16
+# its draws are cut from 100 + 100 (never K or T) to make room for the
+# ensemble phases within the script's time
+ENUM_WARMUP, ENUM_DRAWS = 50, 50
 HMM_T, HMM_T_SUP, HMM_K, HMM_V = 600, 100, 3, 10
 # its draws are cut (never T) to keep the script near 6 minutes: at
 # ~150 ms per leapfrog 50 + 50 took 272 s on an H100
@@ -59,6 +68,20 @@ ENUM_SHAPES = (ENUM_MAIN, ((), 2, 2), ((), 3, 3), ((), 16, 16),
                ((), 128, 128), ((), 7, 13), ((), 257, 5), ((4,), 8, 8),
                ((2, 3), 5, 5), ((), 1, 6), ENUM_LARGE)
 ENUM_BWD_RTOL = 1e-6  # the backward against its plain version
+# the ensemble samplers: ChEES at benchmarks/chees.py's 8-chain point
+# (300 warmup iterations) with 1500 draws, not 300: on this data its warmup
+# leaves a short trajectory (~1.5, ~0.1 effective draws per draw at the
+# worst coordinate), and at 300 draws split R-hat exceeds 1.01 for the JAX
+# package itself (1.03 in two seeds; PERF.md); MALA and RWM at 16 chains
+# (RWM warm-started at MALA's posterior mean)
+CHEES_CHAINS, CHEES_WARMUP, CHEES_DRAWS = 8, 300, 1500
+MRW_CHAINS, MRW_WARMUP, MRW_DRAWS = 16, 500, 500
+RHAT_MAX = 1.01  # tests/test_ensemble.py:144's gate
+# batch leapfrog and MALA/RWM checks: the main paths' ensembles, ragged
+# ones, and the large timing shape
+ENS_CHEES, ENS_MRW, ENS_LARGE = (CHEES_CHAINS, D), (MRW_CHAINS, D), \
+    (64, 1_000_003)
+ENS_SHAPES = (ENS_CHEES, ENS_MRW, (1, 1), (3, 130), (5, 4097), ENS_LARGE)
 
 
 def card_line() -> str:
@@ -305,10 +328,78 @@ def enum_timing(a, m, g, out):
             "enum_contract_bwd": (bwd, bwd_bound)}
 
 
+def ensemble_kernel_checks(dev):
+    """The batch leapfrog (kick 0.5 and 1.0) and the MALA proposal (with
+    and without grad) against their plain versions on every shape of
+    ``ENS_SHAPES`` in float32 and float64, within OP_TABLE's 1e-6 (both
+    kernels round every operation as the plain version does, so the error
+    is expected to be 0); timings at the main shapes and the large one."""
+    from repro_torch.kernels.leapfrog import (leapfrog_halfstep_batch_cuda,
+                                              leapfrog_halfstep_batch_ref)
+    from repro_torch.kernels.ops import SPECS
+    from repro_torch.kernels.rwm_mala import mala_step_cuda, mala_step_ref
+    results, timing = [], {}
+    eps = 0.0123
+    for dtype in (torch.float32, torch.float64):
+        for seed, (c, d) in enumerate(ENS_SHAPES):
+            gen = torch.Generator().manual_seed(seed)
+            z, r, g, noise = (torch.randn((c, d), generator=gen,
+                                          dtype=dtype).to(dev)
+                              for _ in range(4))
+            m_inv = (torch.rand(d, generator=gen, dtype=dtype) + 0.5).to(dev)
+            cases = [("leapfrog_halfstep_batch", f"kick={kick}",
+                      lambda k=kick: leapfrog_halfstep_batch_cuda(
+                          z, r, g, m_inv, eps, k),
+                      lambda k=kick: leapfrog_halfstep_batch_ref(
+                          z, r, g, m_inv, eps, k))
+                     for kick in (0.5, 1.0)]
+            cases += [("mala_step", variant,
+                       lambda gr=grad: (mala_step_cuda(z, gr, noise, m_inv,
+                                                       eps),),
+                       lambda gr=grad: (mala_step_ref(z, gr, noise, m_inv,
+                                                      eps),))
+                      for variant, grad in (("MALA", g), ("RWM", None))]
+            for name, variant, kernel, plain in cases:
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                err = max(float((a - b).abs().max()) for a, b in
+                          zip(got, want))
+                identical = all(torch.equal(a, b) for a, b in zip(got, want))
+                tol = SPECS[name].tol
+                results.append({"name": name, "variant": variant,
+                                "shape": [c, d], "dtype": str(dtype),
+                                "max_abs_err": err, "tol": tol,
+                                "bit_identical": identical})
+                check(err <= tol, f"{name} ({variant}) disagrees at "
+                                  f"{(c, d)} {dtype}: {err} > {tol}")
+                main = {"leapfrog_halfstep_batch": ENS_CHEES,
+                        "mala_step": ENS_MRW}[name]
+                if dtype == torch.float32 and (c, d) in (main, ENS_LARGE) \
+                        and variant != "kick=0.5":
+                    iters = 200 if (c, d) == main else 10
+                    timing[(name, variant, (c, d))] = (
+                        timings(kernel, plain, iters),
+                        ensemble_bound(name, variant, c, d), err)
+    return results, timing
+
+
+def ensemble_bound(name, variant, c, d):
+    """Bytes (each (C, D) input read once, each output written once, plus
+    the m_inv row) and operations of one call, float32."""
+    cells = c * d
+    if name == "leapfrog_halfstep_batch":   # z, r, g in; z', r' out
+        return bound(4 * (5 * cells + d), 5 * cells, torch.float32)
+    if variant == "MALA":                   # z, g, noise in; z' out
+        return bound(4 * (4 * cells + d), 4 * cells + 3 * d, torch.float32)
+    return bound(4 * (3 * cells + d), 2 * cells + 2 * d, torch.float32)
+
+
 def profile_transitions(mcmc, num):
     """Device busy share and device time per leapfrog over ``num`` more
-    sampling transitions of the adapted chain, under ``torch.profiler``.
-    The profiler adds host cost, so its wall time is not the run's."""
+    sampling transitions of the adapted chain (or ensemble: there a
+    "leapfrog" moves every chain, and a MALA/RWM proposal counts as one),
+    under ``torch.profiler``.  The profiler adds host cost, so its wall
+    time is not the run's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -324,7 +415,7 @@ def profile_transitions(mcmc, num):
         t0 = time.perf_counter()
         for _ in range(num):
             state = sample(setup, state, draws)
-            leapfrogs += state.num_steps
+            leapfrogs += getattr(state, "num_steps", 1)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     rows = [(getattr(a, "self_device_time_total", 0.0), a.count, a.key)
@@ -345,14 +436,11 @@ def profile_transitions(mcmc, num):
              "launches_per_leapfrog": c / leapfrogs} for t, c, k in top]}
 
 
-def run_main_path(dev):
-    from repro_torch.bench.models import covtype_data, logreg_model_glm
+def run_main_path(dev, data, data_s):
+    from repro_torch.bench.models import logreg_model_glm
     from repro_torch.core.infer import MCMC, NUTS, effective_sample_size
     from repro_torch.kernels import ops
 
-    t0 = time.perf_counter()
-    data = covtype_data(seed=0, n=N, d=D)
-    data_s = time.perf_counter() - t0
     out = {}
     ops.reset_launch_counts()
     mcmc = MCMC(NUTS(logreg_model_glm), num_warmup=100, num_samples=100)
@@ -438,8 +526,8 @@ def run_enum_hmm(dev):
 
     data = enum_hmm_data(ENUM_K, seed=0, T=ENUM_T, V=ENUM_V)
     ops.reset_launch_counts()
-    mcmc = MCMC(NUTS(enum_hmm_model, max_tree_depth=8), num_warmup=100,
-                num_samples=100)
+    mcmc = MCMC(NUTS(enum_hmm_model, max_tree_depth=8),
+                num_warmup=ENUM_WARMUP, num_samples=ENUM_DRAWS)
     mcmc.run(0, data)
     counts = ops.launch_counts()
     stats = mcmc.stats
@@ -447,11 +535,11 @@ def run_enum_hmm(dev):
     extra = mcmc.get_extra_fields()
     lf, evals = stats["num_leapfrog"], stats["num_grad_evals"]
     theta, phi = samples["theta"], samples["phi"]
-    flat = np.concatenate([v.detach().cpu().numpy().reshape(1, 100, -1)
+    flat = np.concatenate([v.detach().cpu().numpy().reshape(1, ENUM_DRAWS, -1)
                            for v in (theta, phi)], axis=-1)
     out = {
-        "K": ENUM_K, "T": ENUM_T, "V": ENUM_V, "num_warmup": 100,
-        "num_samples": 100, "max_tree_depth": 8,
+        "K": ENUM_K, "T": ENUM_T, "V": ENUM_V, "num_warmup": ENUM_WARMUP,
+        "num_samples": ENUM_DRAWS, "max_tree_depth": 8,
         "setup_seconds": stats["setup_seconds"],
         "chain_seconds": stats["chain_seconds"],
         "num_leapfrog": lf, "num_grad_evals": evals,
@@ -469,8 +557,8 @@ def run_enum_hmm(dev):
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
     }
     print("enumerated HMM NUTS:", json.dumps(out), flush=True)
-    check(tuple(theta.shape) == (1, 100, ENUM_K, ENUM_K)
-          and tuple(phi.shape) == (1, 100, ENUM_K, ENUM_V),
+    check(tuple(theta.shape) == (1, ENUM_DRAWS, ENUM_K, ENUM_K)
+          and tuple(phi.shape) == (1, ENUM_DRAWS, ENUM_K, ENUM_V),
           f"samples have shapes {tuple(theta.shape)} {tuple(phi.shape)}")
     check(_simplex_ok(theta) and _simplex_ok(phi),
           "a theta/phi row is off the simplex or not finite")
@@ -591,6 +679,169 @@ def run_hmm(dev):
     return out
 
 
+def _ensemble_summary(mcmc, data, counts, extra_keys=()):
+    """What an ensemble phase measured, and the gates every phase shares:
+    finite draws of the expected shape, no divergence after warmup, the
+    posterior mean within 0.05 of ``true_w``, and every GLM launch
+    accounted for: one per chain and ensemble evaluation, one per
+    evaluation of the initial-point and step-size searches, and the fused
+    potential's closing check at setup (``core/infer/glm.py``)."""
+    from repro_torch.core.infer import effective_sample_size, gelman_rubin
+    stats = mcmc.stats
+    chains = mcmc.num_chains
+    w = mcmc.get_samples(group_by_chain=True)["w"].detach().cpu().numpy()
+    extra = mcmc.get_extra_fields(group_by_chain=True)
+    post_err = float(np.max(np.abs(w.mean((0, 1)) - data["true_w"])))
+    divergences = int(extra["diverging"].sum())
+    evals = stats["num_grad_evals"]
+    out = {
+        "num_chains": chains, "num_warmup": mcmc.num_warmup,
+        "num_samples": mcmc.num_samples,
+        "setup_seconds": stats["setup_seconds"],
+        "chain_seconds": stats["chain_seconds"],
+        "num_iterations": stats["num_iterations"],
+        "num_leapfrog": stats["num_leapfrog"],
+        "num_grad_evals": evals, "init_grad_evals": stats["init_grad_evals"],
+        "ms_per_leapfrog": 1e3 * stats["chain_seconds"]
+        / stats["num_leapfrog"],
+        "ms_per_iteration": 1e3 * stats["chain_seconds"]
+        / stats["num_iterations"],
+        "ms_per_grad_eval": 1e3 * stats["chain_seconds"] / evals,
+        "host_syncs": stats["host_syncs"],
+        "host_syncs_per_iteration": stats["host_syncs"]
+        / stats["num_iterations"],
+        "launches": counts,
+        "mean_accept_prob": float(extra["accept_prob"].float().mean()),
+        "step_size": float(extra["step_size"][0, -1]),
+        "divergences": divergences,
+        "max_abs_posterior_mean_minus_true_w": post_err,
+        "max_split_rhat": float(np.max(gelman_rubin(w))),
+        "min_ess": float(np.min(effective_sample_size(w))),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "glm_prior": stats["glm_prior"],
+    }
+    for key in extra_keys:
+        out[key] = float(extra[key].float().mean())
+    check(w.shape == (chains, mcmc.num_samples, D) and np.all(np.isfinite(w)),
+          f"samples have shape {w.shape} or are not finite")
+    check(divergences == 0, f"{divergences} divergent transitions after "
+                            "warmup")
+    check(post_err < 0.05, f"posterior mean is {post_err} from true_w")
+    check(stats["glm_prior"] == "slim", "the fused potential's prior term "
+          f"runs on the {stats['glm_prior']} data, not on 0 rows")
+    check(evals == chains * stats["num_leapfrog"] + stats["init_grad_evals"],
+          f"{evals} gradient evaluations != {chains} chains x "
+          f"{stats['num_leapfrog']} + {stats['init_grad_evals']} (searches)")
+    check(counts["glm_potential_grad"] == evals + 1,
+          f"glm_potential_grad: {counts['glm_potential_grad']} launches != "
+          f"{evals} gradient evaluations + 1 (the setup's check)")
+    return out, w
+
+
+def run_chees(dev, data):
+    """``MCMC(ChEES(logreg_model_glm), 300, 1500, num_chains=8)`` on the
+    581,012 x 54 data: lockstep trajectories through the batch leapfrog
+    kernel, every chain's gradient through the GLM kernel."""
+    from repro_torch.bench.models import logreg_model_glm
+    from repro_torch.core.infer import MCMC, ChEES
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    mcmc = MCMC(ChEES(logreg_model_glm), num_warmup=CHEES_WARMUP,
+                num_samples=CHEES_DRAWS, num_chains=CHEES_CHAINS)
+    mcmc.run(0, data["x"], y=data["y"])
+    counts = ops.launch_counts()
+    out, _ = _ensemble_summary(mcmc, data, counts, ("trajectory_length",
+                                                    "num_steps"))
+    steps = mcmc.get_extra_fields(group_by_chain=True)["num_steps"]
+    out["leapfrog_halfstep_batch_per_leapfrog"] = \
+        counts["leapfrog_halfstep_batch"] / out["num_leapfrog"]
+    print("ChEES:", json.dumps(out), flush=True)
+    check(bool((steps == steps[:1]).all()),
+          "the chains report different num_steps at some draw: not lockstep")
+    check(out["max_split_rhat"] < RHAT_MAX,
+          f"max split R-hat {out['max_split_rhat']} >= {RHAT_MAX}")
+    check(counts["leapfrog_halfstep_batch"] == out["num_leapfrog"],
+          f"leapfrog_halfstep_batch: {counts['leapfrog_halfstep_batch']} "
+          f"launches != {out['num_leapfrog']} ensemble leapfrogs")
+    out["profile"] = profile_transitions(mcmc, 20)
+    print("ChEES profile:", json.dumps(out["profile"]), flush=True)
+    return out, counts
+
+
+def run_mrw(dev, data, algo, init_w=None):
+    """``MCMC(MALA | RWM(logreg_model_glm), 500, 500, num_chains=16)`` on the
+    581,012 x 54 data, one ``mala_step`` launch per iteration (RWM's without
+    the gradient operand); RWM starts every chain at ``init_w`` through the
+    entry point's ``init_params``."""
+    from repro_torch.bench.models import logreg_model_glm
+    from repro_torch.core.infer import MALA, MCMC, RWM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rwm_mala import mala_step_cuda
+
+    kernel = {"MALA": MALA, "RWM": RWM}[algo]
+    ops.reset_launch_counts()
+    mcmc = MCMC(kernel(logreg_model_glm), num_warmup=MRW_WARMUP,
+                num_samples=MRW_DRAWS, num_chains=MRW_CHAINS)
+    init = None if init_w is None else {"w": init_w}
+    mcmc.run(0, data["x"], y=data["y"], init_params=init)
+    counts = ops.launch_counts()
+    without_grad = mala_step_cuda.launches_without_grad
+    out, w = _ensemble_summary(mcmc, data, counts)
+    out["mala_step_launches_without_grad"] = without_grad
+    print(f"{algo}:", json.dumps(out), flush=True)
+    iterations = MRW_WARMUP + MRW_DRAWS
+    check(counts["mala_step"] == iterations,
+          f"mala_step: {counts['mala_step']} launches != {iterations} "
+          "iterations")
+    want = iterations if algo == "RWM" else 0
+    check(without_grad == want, f"{algo}: {without_grad} launches of the "
+          f"no-gradient variant, expected {want}")
+    out["profile"] = profile_transitions(mcmc, 20)
+    print(f"{algo} profile:", json.dumps(out["profile"]), flush=True)
+    return out, counts, w.mean((0, 1))
+
+
+def ensemble_kernel_rows(checks, timing, phases):
+    """The kernel-table rows of the batch leapfrog and ``mala_step``: the
+    main shape's times (the merged kick, MALA's variant) and bound, the
+    other variants' and the large shape's beside them, and the launches of
+    every phase that ran the kernel (``phases``: name -> {phase: (summary,
+    launch counts)})."""
+    from repro_torch.kernels.ops import SPECS
+    rows = []
+    for name, source, variant, shape in (
+            ("leapfrog_halfstep_batch", "leapfrog_batch.cu", "kick=1.0",
+             ENS_CHEES),
+            ("mala_step", "mala_step.cu", "MALA", ENS_MRW)):
+        times, (bound_ms, bound_by), err = timing[(name, variant, shape)]
+        runs = phases[name]
+        rows.append({
+            "name": name, "route": SPECS[name].route,
+            "source": "src/repro_torch/csrc/" + source,
+            "replaces": SPECS[name].replaces,
+            "launches": sum(c[name] for _, c in runs.values()),
+            "launches_by_phase": {p: c[name] for p, (_, c) in runs.items()},
+            "launches_per_iteration": {
+                p: c[name] / o["num_iterations"]
+                for p, (o, c) in runs.items()},
+            "max_abs_err": max(c["max_abs_err"] for c in checks
+                               if c["name"] == name),
+            "max_abs_err_main_shape": err,
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "call_ms": times["call_ms"],
+            "plain_call_ms": times["plain_call_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library": "none: no single PyTorch call computes it",
+            "shape": list(shape), "variant": variant,
+            "variants": {
+                f"{v} {list(sh)}": {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                                    "call_ms": t["call_ms"], "bound_ms": b[0],
+                                    "bound_by": b[1]}
+                for (n, v, sh), (t, b, _) in timing.items() if n == name}})
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs an "
@@ -601,8 +852,10 @@ def main():
     card = card_line()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
     build_s = _build.build_all(["leapfrog", "glm_potential",
-                                "enum_contract"])
+                                "enum_contract", "leapfrog_batch",
+                                "mala_step"])
     print("build seconds:", json.dumps(build_s), flush=True)
 
     lf_checks, lf_timing = leapfrog_checks(dev)
@@ -614,9 +867,22 @@ def main():
           flush=True)
     print("enum_contract timings:", json.dumps(
         {str(shape): t for shape, t in enum_timings.items()}), flush=True)
-    path, counts = run_main_path(dev)
+    ens_checks, ens_timing = ensemble_kernel_checks(dev)
+    print("ensemble kernel checks:", json.dumps(ens_checks), flush=True)
+    print("ensemble kernel timings:", json.dumps(
+        {str(k): v for k, v in ens_timing.items()}), flush=True)
+
+    from repro_torch.bench.models import covtype_data
+    t0 = time.perf_counter()
+    data = covtype_data(seed=0, n=N, d=D)
+    data_s = time.perf_counter() - t0
+    path, counts = run_main_path(dev, data, data_s)
     enum_path, enum_counts = run_enum_hmm(dev)
     run_hmm(dev)
+    chees, chees_counts = run_chees(dev, data)
+    mala, mala_counts, mala_mean = run_mrw(dev, data, "MALA")
+    rwm, rwm_counts, _ = run_mrw(dev, data, "RWM",
+                                 init_w=torch.from_numpy(mala_mean))
 
     from repro_torch.kernels.ops import SPECS
     kernels = []
@@ -665,6 +931,10 @@ def main():
                       "library_ms": ltimes["library_ms"],
                       "bound_ms": lbound_ms, "bound_by": lbound_by},
             **({"note": note} if note else {})})
+    kernels += ensemble_kernel_rows(ens_checks, ens_timing, {
+        "leapfrog_halfstep_batch": {"ChEES": (chees, chees_counts)},
+        "mala_step": {"MALA": (mala, mala_counts), "RWM": (rwm, rwm_counts)}})
+    print("wall seconds:", time.perf_counter() - t_start, flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

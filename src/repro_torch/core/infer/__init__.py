@@ -7,9 +7,11 @@ from .diagnostics import (
 )
 from .enum import (config_enumerate, contract_enum_factors, enum,
                    infer_discrete, markov)
+from .ensemble import ChEES, chees_setup
 from .hmc import HMC, NUTS, AdaptState, HMCState, hmc_setup, nuts_setup
 from .hmc_util import GeneratorDraws, HostReads
 from .kernel_api import KernelSetup, collect, init_state, sample
+from .mala import MALA, RWM, mrw_setup
 from .mcmc import MCMC
 from .util import (
     find_valid_initial_params,
@@ -29,5 +31,6 @@ __all__ = [
     "initialize_model_structure", "find_valid_initial_params",
     "effective_sample_size", "gelman_rubin", "hpdi", "summary",
     "print_summary", "config_enumerate", "contract_enum_factors", "enum",
-    "infer_discrete", "markov",
+    "infer_discrete", "markov", "ChEES", "chees_setup", "MALA", "RWM",
+    "mrw_setup",
 ]

@@ -8,8 +8,9 @@ the kernel's device; the scalars that steer it (energies, accept
 probabilities, dual averaging) live on the host, so the step size is a
 device scalar rewritten from the host value once per warmup transition.
 
-Dense mass matrices and the cross-chain (pooled) adaptation wait for later
-slices.
+:func:`flat_model_ingredients` is the model-tracing preamble every
+gradient-based setup shares (this one, ChEES's and MALA/RWM's).  Dense mass
+matrices and NUTS's cross-chain (pooled) adaptation wait for later slices.
 """
 from __future__ import annotations
 
@@ -98,18 +99,6 @@ def _check_on_device(value, device):
 
 def _full(value, like):
     return torch.full((), float(value), dtype=like.dtype, device=like.device)
-
-
-def _counting(potential_fn):
-    """``potential_fn`` counting its calls in ``.count``: the sampler only
-    evaluates the potential with its gradient, so the count is the number
-    of gradient evaluations."""
-    def potential(z):
-        potential.count += 1
-        return potential_fn(z)
-
-    potential.count = 0
-    return potential
 
 
 def _make_init_fn(potential_fn, prototype, reads, *, z_fixed, adapt_step_size,
@@ -253,23 +242,21 @@ def _collect_fn(state: HMCState):
     }
 
 
-def hmc_setup(generator, num_warmup, *, model=None, potential_fn=None,
-              init_params=None, model_args=(), model_kwargs=None,
-              algo="HMC", step_size=1.0, trajectory_length=2 * math.pi,
-              adapt_step_size=True, adapt_mass_matrix=True, dense_mass=False,
-              target_accept_prob=0.8, max_tree_depth=10,
-              init_strategy="uniform", device="cuda") -> KernelSetup:
-    """Build the :class:`KernelSetup` for HMC (``algo="HMC"``) or NUTS
-    (``algo="NUTS"``).  ``generator`` seeds the structure-discovery trace
-    only; per-chain randomness comes from the draw source given to
-    ``init_fn``/``sample_fn``.  The chain runs on ``device`` (default
-    ``"cuda"``; raises without CUDA unless ``device="cpu"``), where the
-    model arguments must already lie."""
-    if dense_mass:
-        raise pending("dense_mass=True", "dense mass matrix")
+def flat_model_ingredients(generator, device, *, model=None,
+                           potential_fn=None, init_params=None,
+                           model_args=(), model_kwargs=None,
+                           data_shards=None):
+    """The one-time work every gradient-based setup shares: trace the model
+    (or take a raw ``potential_fn``) on ``device``, which must be there
+    (raises ``RPL502`` for a card this process lacks) and where the model
+    arguments must already lie.  Returns ``(potential_flat, unravel,
+    constrain, prototype, z_fixed)``: the flat potential, the flat-vector
+    closures, a flat prototype on ``device`` and the flat ``init_params``
+    (None without them).  ``data_shards`` waits for the multi-GPU slice."""
+    if data_shards is not None:
+        raise pending("data_shards", "multi-GPU")
     device = resolve_device(device)
     model_kwargs = model_kwargs or {}
-    reads = HostReads()
     if model is not None:
         _check_on_device((model_args, model_kwargs), device)
         (potential_flat, unravel, transforms, constrain, _,
@@ -288,8 +275,43 @@ def hmc_setup(generator, num_warmup, *, model=None, potential_fn=None,
         z_fixed, unravel = ravel({k: torch.as_tensor(v).to(device)
                                   for k, v in init_params.items()})
         potential_flat, constrain, prototype = potential_fn, unravel, z_fixed
+    return potential_flat, unravel, constrain, prototype, z_fixed
+
+
+def counting(potential_fn):
+    """``potential_fn`` counting its calls in ``.count``: the samplers only
+    evaluate the potential with its gradient, so the count is the number
+    of gradient evaluations (one per chain and evaluation)."""
+    def potential(z):
+        potential.count += 1
+        return potential_fn(z)
+
+    potential.count = 0
+    return potential
+
+
+def hmc_setup(generator, num_warmup, *, model=None, potential_fn=None,
+              init_params=None, model_args=(), model_kwargs=None,
+              algo="HMC", step_size=1.0, trajectory_length=2 * math.pi,
+              adapt_step_size=True, adapt_mass_matrix=True, dense_mass=False,
+              target_accept_prob=0.8, max_tree_depth=10,
+              init_strategy="uniform", device="cuda") -> KernelSetup:
+    """Build the :class:`KernelSetup` for HMC (``algo="HMC"``) or NUTS
+    (``algo="NUTS"``).  ``generator`` seeds the structure-discovery trace
+    only; per-chain randomness comes from the draw source given to
+    ``init_fn``/``sample_fn``.  The chain runs on ``device`` (default
+    ``"cuda"``; raises without CUDA unless ``device="cpu"``), where the
+    model arguments must already lie."""
+    if dense_mass:
+        raise pending("dense_mass=True", "dense mass matrix")
+    reads = HostReads()
+    (potential_flat, unravel, constrain, prototype,
+     z_fixed) = flat_model_ingredients(
+        generator, device, model=model, potential_fn=potential_fn,
+        init_params=init_params, model_args=model_args,
+        model_kwargs=model_kwargs)
     schedule = build_adaptation_schedule(num_warmup)
-    counted = _counting(potential_flat)
+    counted = counting(potential_flat)
     init_fn = _make_init_fn(
         counted, prototype, reads, z_fixed=z_fixed,
         adapt_step_size=adapt_step_size, step_size0=step_size,

@@ -15,7 +15,13 @@ become Python ``if``s over references, with the same semantics.
 
 Randomness comes from a *draw source* (:class:`GeneratorDraws` by default)
 so that a test can replay another implementation's draws: momentum normals,
-direction bits, and the transition uniforms.
+direction bits, and the transition uniforms (and, for the ensemble samplers,
+their ``(C, D)`` momenta and noise and ``(C,)`` uniforms).
+
+The cross-chain helpers at the end serve the ensemble samplers (ChEES,
+MALA/RWM): the pairwise ``chain_sum`` fold, the pooled Welford
+accumulators, the chain-batched potential gradient and the ``(C, D)``
+trajectory with merged interior kicks.
 """
 from __future__ import annotations
 
@@ -65,6 +71,17 @@ class GeneratorDraws:
 
     leaf_uniform = merge_uniform = accept_uniform = _uniform
 
+    # the ensemble samplers' draws: one shared source moves every chain
+    def momentum_batch(self, c, d, dtype):
+        """Standard normal (C, D) momenta; scaled by the mass outside."""
+        return torch.randn((c, d), generator=self.generator, dtype=dtype)
+
+    noise = momentum_batch  # MALA/RWM proposal noise, (C, D)
+
+    def accept_uniforms(self, c, dtype):
+        """(C,) uniforms of the chains' Metropolis tests."""
+        return torch.rand(c, generator=self.generator, dtype=dtype)
+
 
 def to_device(t, device):
     """Host -> device copy without a sync (pinned, non-blocking on a card)."""
@@ -85,7 +102,10 @@ class IntegratorState(NamedTuple):
 
 
 def kinetic_energy(inverse_mass_matrix, r):
-    return 0.5 * torch.dot(r, inverse_mass_matrix * r)
+    """``0.5 r . (m_inv * r)``; a ``(C, D)`` ensemble gives ``(C,)``."""
+    if r.dim() == 1:
+        return 0.5 * torch.dot(r, inverse_mass_matrix * r)
+    return 0.5 * torch.sum(r * (inverse_mass_matrix * r), -1)
 
 
 def momentum_sample(eps, inverse_mass_matrix):
@@ -476,3 +496,109 @@ def build_tree(vv_update, inverse_mass_matrix, step_size, draws,
                                   merged.r_right, merged.r_sum, reads)
         tree = merged._replace(turning=merged.turning or turning)
     return tree
+
+
+# ---------------------------------------------------------------------------
+# cross-chain (ensemble) helpers
+# ---------------------------------------------------------------------------
+
+def chain_sum(x):
+    """Sum over the leading (chain) axis by the JAX package's fixed pairwise
+    fold (halves added, an odd row carried), not ``torch.sum``: the pooled
+    statistics then have the reference's association exactly."""
+    while x.shape[0] > 1:
+        n = x.shape[0]
+        half = n // 2
+        folded = x[:half] + x[half:2 * half]
+        if n % 2:
+            folded = torch.cat([folded, x[2 * half:]], 0)
+        x = folded
+    return x[0]
+
+
+def chain_mean(x):
+    return chain_sum(x) / x.shape[0]
+
+
+def welford_combine(a: WelfordState, b: WelfordState) -> WelfordState:
+    """Exact merge of two Welford accumulators (Chan et al. 1979); either
+    may be empty.  The count ratios are float32, as in the JAX package."""
+    n_a, n_b = _F32(a.n), _F32(b.n)
+    n_safe = max(n_a + n_b, _F32(1))
+    delta = b.mean - a.mean
+    mean = a.mean + delta * float(n_b / n_safe)
+    m2 = a.m2 + b.m2 + (delta * delta) * float(n_a * n_b / n_safe)
+    return WelfordState(mean, m2, a.n + b.n)
+
+
+def welford_batch(x) -> WelfordState:
+    """The accumulator of every row of ``x`` (``(batch, dim)``) in one
+    vectorized pass, reduced with :func:`chain_sum`."""
+    mean = chain_mean(x)
+    centered = x - mean
+    return WelfordState(mean, chain_sum(centered * centered), x.shape[0])
+
+
+def welford_pool(states: WelfordState) -> WelfordState:
+    """Pool a chain-batch of accumulators (``mean``/``m2`` lead with the
+    chain axis, ``n`` one count per chain) into the accumulator of all
+    their draws at once."""
+    counts = [int(n) for n in (states.n.tolist()
+                               if isinstance(states.n, torch.Tensor)
+                               else states.n)]
+    n_c = torch.tensor(counts, dtype=states.mean.dtype,
+                       device=states.mean.device)
+    n_safe = torch.clamp(chain_sum(n_c), min=1.0)
+    nb = n_c.reshape((-1,) + (1,) * (states.mean.dim() - 1))
+    mean = chain_sum(nb * states.mean) / n_safe
+    delta = states.mean - mean
+    m2 = chain_sum(states.m2) + chain_sum(nb * delta * delta)
+    return WelfordState(mean, m2, sum(counts))
+
+
+def chain_value_and_grad(potential_fn: Callable):
+    """``(C, D) -> ((C,) potentials, (C, D) gradients)``: the counterpart of
+    the JAX package's ``chain_vmap(jax.value_and_grad(potential))``.
+
+    A loop over the chains, one value-and-gradient evaluation each, stacked:
+    the fused GLM potential is a ctypes-backed ``torch.autograd.Function``
+    that ``torch.func.vmap`` cannot enter, so on the logistic regression
+    each evaluation of the ensemble launches the GLM kernel once per chain,
+    one pass over X per chain (as ``jax.vmap`` of the Pallas kernel does)."""
+    pe_and_grad = value_and_grad(potential_fn)
+
+    def batched(z):
+        pes, grads = zip(*(pe_and_grad(row) for row in z))
+        return torch.stack(pes), torch.stack(grads)
+
+    return batched
+
+
+def velocity_verlet_batch(potential_fn: Callable):
+    """Chain-batched leapfrog trajectory over a (C, D) ensemble with merged
+    interior kicks (diagonal mass): the opening half-kick and drift, then
+    ``num_steps - 1`` full kicks and drifts, through
+    ``ops.leapfrog_halfstep_batch`` (one launch each), then the closing
+    half-kick.  The same positions and the same ``num_steps`` ensemble
+    gradients as ``num_steps`` plain leapfrogs.
+
+    Returns ``trajectory(step_size, inverse_mass_matrix, state, num_steps)``
+    for a host ``step_size`` and ``num_steps >= 1``."""
+    pe_and_grad = chain_value_and_grad(potential_fn)
+
+    def trajectory(step_size, inverse_mass_matrix, state: IntegratorState,
+                   num_steps):
+        def kick_drift(s, kick):
+            z, r = ops.leapfrog_halfstep_batch(s.z, s.r, s.z_grad,
+                                               inverse_mass_matrix,
+                                               step_size, kick)
+            pe, z_grad = pe_and_grad(z)
+            return IntegratorState(z, r, pe, z_grad)
+
+        s = kick_drift(state, 0.5)                  # opening half-kick
+        for _ in range(num_steps - 1):
+            s = kick_drift(s, 1.0)
+        r = s.r - 0.5 * step_size * s.z_grad        # closing half-kick
+        return IntegratorState(s.z, r, s.potential_energy, s.z_grad)
+
+    return trajectory

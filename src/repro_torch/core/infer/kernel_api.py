@@ -7,6 +7,12 @@ closure, unravel, constrain, adaptation schedule) captured once in a
 state: ``init_fn`` and ``sample_fn`` take a *draw source* (see
 ``hmc_util.GeneratorDraws``), one per chain, so a test can inject another
 implementation's draws.
+
+A *cross-chain* setup (``cross_chain=True``: ChEES, MALA, RWM) moves the
+whole ensemble at once: ``init_fn(chain_draws, draws)`` takes one draw
+source per chain (for each chain's initial-point search) and the shared
+source, ``sample_fn(state, draws)`` maps the ensemble state with the shared
+source, and ``collect_fn`` returns leaves that lead with the chain axis.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ from typing import Callable, NamedTuple, Tuple
 class KernelSetup(NamedTuple):
     """Static, closure-carrying companion of a chain state."""
 
-    init_fn: Callable          # draws -> state
+    init_fn: Callable          # draws -> state (see cross_chain)
     sample_fn: Callable        # (state, draws) -> state
     # state -> dict of per-draw outputs ("z" plus diagnostics)
     collect_fn: Callable
@@ -24,7 +30,7 @@ class KernelSetup(NamedTuple):
     unravel_fn: Callable       # flat (..., D) -> latent dict (unconstrained)
     constrain_fn: Callable     # flat (..., D) -> latent dict (constrained)
     num_warmup: int
-    algo: str                  # "HMC" | "NUTS"
+    algo: str                  # "HMC" | "NUTS" | "ChEES" | "MALA" | "RWM"
     adapt_schedule: Tuple[Tuple[int, int], ...]  # Stan-style (start, end)
     # the sampler's device->host reads (hmc_util.HostReads): on a card,
     # each is a host sync
@@ -32,11 +38,14 @@ class KernelSetup(NamedTuple):
     # the potential as the sampler calls it, counting its value-and-gradient
     # evaluations in ``.count``
     grad_evals: object = None
+    # batch-aware kernel: init/sample move the (C, ...) ensemble together
+    cross_chain: bool = False
 
 
-def init_state(setup: KernelSetup, draws):
-    """Per-chain state init."""
-    return setup.init_fn(draws)
+def init_state(setup: KernelSetup, *draws):
+    """State init: ``draws`` of one chain, or for a cross-chain setup the
+    per-chain sources and the shared one."""
+    return setup.init_fn(*draws)
 
 
 def sample(setup: KernelSetup, state, draws):

@@ -17,7 +17,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 from . import enum_contract as _enum_contract
-from . import glm_potential, leapfrog
+from . import glm_potential, leapfrog, rwm_mala
 
 
 class OpSpec(NamedTuple):
@@ -51,12 +51,14 @@ OP_TABLE = (
     OpSpec("leapfrog_halfstep", leapfrog.leapfrog_halfstep_cuda,
            leapfrog.leapfrog_halfstep_ref, "cuda", _K + "leapfrog.py:40",
            False, 1e-6),
-    OpSpec("leapfrog_halfstep_batch", None, None, None,
+    OpSpec("leapfrog_halfstep_batch", leapfrog.leapfrog_halfstep_batch_cuda,
+           leapfrog.leapfrog_halfstep_batch_ref, "cuda",
            _K + "leapfrog.py:104", False, 1e-6),
     OpSpec("glm_potential_grad", glm_potential.glm_potential_grad_cuda,
            glm_potential.glm_potential_grad_ref, "cuda",
            _K + "glm_potential.py:62", False, 5e-3),
-    OpSpec("mala_step", None, None, None, _K + "rwm_mala.py:42", False, 1e-6),
+    OpSpec("mala_step", rwm_mala.mala_step_cuda, rwm_mala.mala_step_ref,
+           "cuda", _K + "rwm_mala.py:42", False, 1e-6),
     OpSpec("enum_contract", _enum_contract.enum_contract_cuda,
            _enum_contract.enum_contract_ref, "cuda",
            _K + "enum_contract.py:50", True, 0.0),
@@ -90,11 +92,26 @@ def leapfrog_halfstep(z, r, grad, m_inv, eps):
     return _route("leapfrog_halfstep", z)(z, r, grad, m_inv, eps)
 
 
+def leapfrog_halfstep_batch(z, r, grad, m_inv, eps, kick=0.5):
+    """Chain-batched leapfrog kick + drift over a (C, D) ensemble with a
+    shared (D,) ``m_inv``: ``r' = r - (kick * eps) * g``, ``z' = z + eps *
+    (r' * m_inv)``; ``kick`` 0.5 is a half-kick, 1.0 the merged kick between
+    interior steps; ``eps`` a host number -> (z', r')."""
+    return _route("leapfrog_halfstep_batch", z)(z, r, grad, m_inv, eps, kick)
+
+
 def glm_potential_grad(x, y, w, offset=None, scale=None,
                        family="bernoulli_logit"):
     """Fused GLM negative log-likelihood + gradient wrt ``w`` in one pass
     over the (n, d) design matrix: -> (nll scalar, grad (d,))."""
     return _route("glm_potential_grad", x)(x, y, w, offset, scale, family)
+
+
+def mala_step(z, grad, noise, m_inv, eps):
+    """Batched Langevin proposal over a (C, D) ensemble, ``z - eps * m_inv
+    * grad + sqrt(2 * eps * m_inv) * noise``; ``grad=None`` gives the
+    symmetric random-walk proposal; ``eps`` a host number."""
+    return _route("mala_step", z)(z, grad, noise, m_inv, eps)
 
 
 def enum_contract(log_alpha, log_mat):
@@ -114,3 +131,4 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for kernel in _counted().values():
         kernel.launches = 0
+    rwm_mala.mala_step_cuda.launches_without_grad = 0

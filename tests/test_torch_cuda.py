@@ -14,8 +14,11 @@ from repro_torch.kernels.enum_contract import (EnumContract,
                                                enum_contract_ref)
 from repro_torch.kernels.glm_potential import (glm_potential_grad_cuda,
                                                glm_potential_grad_ref)
-from repro_torch.kernels.leapfrog import (leapfrog_halfstep_cuda,
+from repro_torch.kernels.leapfrog import (leapfrog_halfstep_batch_cuda,
+                                          leapfrog_halfstep_batch_ref,
+                                          leapfrog_halfstep_cuda,
                                           leapfrog_halfstep_ref)
+from repro_torch.kernels.rwm_mala import mala_step_cuda, mala_step_ref
 
 TOL = {spec.name: spec.tol for spec in ops.OP_TABLE}
 
@@ -46,6 +49,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         enum_contract_bwd_cuda(torch.zeros(3), torch.zeros(3, 4),
                                torch.zeros(4), torch.zeros(4))
+    zz = torch.zeros(2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        leapfrog_halfstep_batch_cuda(zz, zz, zz, torch.ones(4), 0.1, 1.0)
+    for grad in (zz, None):
+        with pytest.raises(ValueError, match="CUDA"):
+            mala_step_cuda(zz, grad, zz, torch.ones(4), 0.1)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -53,7 +62,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     monkeypatch.setattr(_build, "_LOADED", {})
-    for name in ("leapfrog", "enum_contract"):
+    for name in ("leapfrog", "enum_contract", "leapfrog_batch", "mala_step"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.load(name)
 
@@ -134,3 +143,44 @@ def test_enum_contract_kernels_match_plain_on_card(dtype):
     EnumContract.apply(a, m).sum().backward()
     counts = ops.launch_counts()
     assert counts["enum_contract"] == 1 and counts["enum_contract_bwd"] == 1
+
+
+# the main paths' ensembles (ChEES 8 chains, MALA/RWM 16) and ragged ones
+ENSEMBLE_SHAPES = [(8, 54), (16, 54), (1, 1), (3, 130), (5, 4097)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ensemble_kernels_match_plain_on_card(dtype):
+    """The batch leapfrog (kick 0.5 and 1.0) and the MALA/RWM proposal
+    (with and without grad) against their plain versions within OP_TABLE's
+    1e-6; each launch counted; a device-tensor eps and a bad kick refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    ops.reset_launch_counts()
+    for i, (c, d) in enumerate(ENSEMBLE_SHAPES):
+        rng = np.random.default_rng(i)
+        z, r, g, noise = (torch.from_numpy(rng.standard_normal((c, d)))
+                          .to(dtype).to(dev) for _ in range(4))
+        m_inv = torch.from_numpy(rng.uniform(0.5, 2.0, d)).to(dtype).to(dev)
+        for kick in (0.5, 1.0):
+            got = leapfrog_halfstep_batch_cuda(z, r, g, m_inv, 0.0123, kick)
+            want = leapfrog_halfstep_batch_ref(z, r, g, m_inv, 0.0123, kick)
+            for a, b in zip(got, want):
+                assert a.dtype == dtype
+                assert float((a - b).abs().max()) <= \
+                    TOL["leapfrog_halfstep_batch"]
+        for grad in (g, None):
+            got = mala_step_cuda(z, grad, noise, m_inv, 0.0071)
+            want = mala_step_ref(z, grad, noise, m_inv, 0.0071)
+            assert float((got - want).abs().max()) <= TOL["mala_step"]
+    counts = ops.launch_counts()
+    n = len(ENSEMBLE_SHAPES)
+    assert counts["leapfrog_halfstep_batch"] == 2 * n
+    assert counts["mala_step"] == 2 * n
+    with pytest.raises(ValueError, match="host number"):
+        leapfrog_halfstep_batch_cuda(z, r, g, m_inv,
+                                     torch.tensor(0.1, device=dev))
+    with pytest.raises(ValueError, match="kick"):
+        leapfrog_halfstep_batch_cuda(z, r, g, m_inv, 0.1, 0.25)
