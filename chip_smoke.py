@@ -8,15 +8,15 @@ result line if any fails):
 1. Print the card (``nvidia-smi --query-gpu=name,power.limit``) and build
    the hand-written kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together).
-2. Hold each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and at ragged ones, and time kernel and plain version
-   with CUDA events (``enum_contract`` also against ``torch.logsumexp``, the
-   library yardstick, and at a large shape; the batch leapfrog and the
-   MALA/RWM proposal also at (64, 1,000,003)).
-3. Drive the main paths through the user's entry points, each with every
-   kernel launch counter set to 0 just before and read just after:
-   ``MCMC(NUTS(logreg_model_glm), 100, 100).run(...)`` on 581,012 x 54
-   CoverType-shaped data made from a seed, then the paper's fixed-step
+2. ``samplers``: hold each kernel of slices 1-3 against its plain PyTorch
+   version on the card, at the main paths' shapes and at ragged ones, and
+   time kernel and plain version with CUDA events (``enum_contract`` also
+   against ``torch.logsumexp``, the library yardstick, and at a large
+   shape; the batch leapfrog and the MALA/RWM proposal also at (64,
+   1,000,003)).  Then drive the main paths through the user's entry points,
+   each with every kernel launch counter set to 0 just before and read just
+   after: ``MCMC(NUTS(logreg_model_glm), 100, 100).run(...)`` on 581,012 x
+   54 CoverType-shaped data made from a seed, then the paper's fixed-step
    configuration (0 warmup, 40 draws, step 0.0015, no adaptation); the
    fully-latent HMM ``MCMC(NUTS(enum_hmm_model, max_tree_depth=8), 50,
    50)`` at K = 8, T = 120, V = 16, whose states ``markov`` sums out
@@ -28,6 +28,18 @@ result line if any fails):
    ``MCMC(MALA(logreg_model_glm), 500, 500, num_chains=16)`` and ``RWM``
    at the same setting warm-started at MALA's posterior mean (one
    ``mala_step`` launch per iteration, RWM's without the gradient).
+3. ``lm``: hold ``rmsnorm`` and ``flash_attention`` against their plain
+   versions (float32 and bfloat16, causal and not, MHA/GQA/MQA, dq != dv,
+   ragged) and time them beside ``F.rms_norm`` and
+   ``F.scaled_dot_product_attention``; then the full Qwen3-8B (bf16,
+   params drawn on the card from seed 0): ``make_prefill_step`` at B = 4,
+   P = 512 (145 ``rmsnorm`` and 36 ``attention`` launches), and the
+   launcher's serving loop (``serve.generate``: the prompt teacher-forced,
+   then 32 sampled tokens; 145 ``rmsnorm`` launches and no ``attention``
+   per step), its logits at P - 1 against the prefill's; per-token time
+   split, device busy share, memory peak; then a full-width 2-layer
+   float32 Qwen3 through the kernels against the plain versions: its
+   prefill, and 8 decode steps teacher-forced into a fresh cache.
 4. Print one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -50,7 +62,8 @@ import torch  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
-FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+FLOPS = {torch.float32: 67e12, torch.float64: 34e12,
+         torch.bfloat16: 989e12}
 N, D = 581_012, 54
 GLM_REL_TOL = 1e-5
 ENUM_K, ENUM_T, ENUM_V = 8, 120, 16
@@ -82,6 +95,37 @@ RHAT_MAX = 1.01  # tests/test_ensemble.py:144's gate
 ENS_CHEES, ENS_MRW, ENS_LARGE = (CHEES_CHAINS, D), (MRW_CHAINS, D), \
     (64, 1_000_003)
 ENS_SHAPES = (ENS_CHEES, ENS_MRW, (1, 1), (3, 130), (5, 4097), ENS_LARGE)
+# the LM slice: the full Qwen3-8B, B = 4 prompts of 512 tokens (a multiple
+# of the JAX prefill's 128-row tiles), 32 sampled tokens
+LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 512, 32
+LM_PREFILL_REPS = 3
+# prefill's last logits against the teacher-forced decode logits at P - 1,
+# relative rms error: both run the same bf16 model, but the prefill's
+# (2048 x d) products and the decode's (4 x d) ones sum in other orders, so
+# every bf16-rounded activation may differ by a rounding step (2**-8
+# relative); ~10 rounded values per layer over 36 layers compound to a few
+# per cent.  A wrong position, mask or cache slot decorrelates the logits
+# (relative error ~1).
+LM_REL_RMS_MAX = 0.15
+# the 2-layer float32 model (its prefill, and LM_F32_DECODE_STEPS decode
+# steps) through the kernels against the plain versions: the products are the same cuBLAS calls in both runs, so only the kernels'
+# float32 rounding (~1e-7 relative) differs; 1e-4 of the largest logit
+LM_F32_REL_TOL = 1e-4
+LM_F32_DECODE_STEPS = 8
+# rmsnorm checks: the rows of Qwen3-8B's block norms at prefill (timed: the
+# main shape first) and decode, its q/k-norm rows, and ragged ones
+RMS_TIMED = ((LM_BATCH * LM_PROMPT, 4096), (LM_BATCH * LM_PROMPT * 32, 128),
+             (LM_BATCH, 4096))
+RMS_SHAPES = RMS_TIMED + ((LM_BATCH * LM_PROMPT * 8, 128), (LM_BATCH * 32, 128),
+                          (LM_BATCH * 8, 128), (7, 96), (1, 1), (3, 5, 4097))
+# attention checks (B, S, H, K, dq, dv, causal): Qwen3-8B's prefill (timed),
+# bidirectional, ragged S with GQA and MHA, MLA-shaped dq != dv, MQA,
+# gemma's head dim 256, and a sequence shorter than one tile
+ATTN_MAIN = (LM_BATCH, LM_PROMPT, 32, 8, 128, 128, True)
+ATTN_SHAPES = (ATTN_MAIN, (LM_BATCH, LM_PROMPT, 32, 8, 128, 128, False),
+               (2, 200, 4, 2, 64, 64, True), (2, 200, 4, 4, 64, 64, False),
+               (1, 130, 4, 4, 192, 128, True), (2, 96, 8, 1, 64, 64, True),
+               (1, 64, 2, 1, 256, 256, True), (3, 7, 2, 2, 32, 16, False))
 
 
 def card_line() -> str:
@@ -842,22 +886,431 @@ def ensemble_kernel_rows(checks, timing, phases):
     return rows
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda is not available; this script needs an "
-              "NVIDIA card", file=sys.stderr)
-        return 2
-    from repro_torch.kernels import _build
+# ---------------------------------------------------------------------------
+# the LM serving slice: Qwen3-8B prefill and KV-cache decode
+# ---------------------------------------------------------------------------
 
-    card = card_line()
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    t_start = time.perf_counter()
-    build_s = _build.build_all(["leapfrog", "glm_potential",
-                                "enum_contract", "leapfrog_batch",
-                                "mala_step"])
-    print("build seconds:", json.dumps(build_s), flush=True)
+def _bf16_close(got, want):
+    """Elementwise within one bfloat16 rounding step of the float32-computed
+    value (``kernels/ops.py:BF16_RTOL``); returns (ok, max abs
+    error, largest error / bound)."""
+    from repro_torch.kernels.ops import BF16_ATOL, BF16_RTOL
+    err = (got.float() - want.float()).abs()
+    bound_ = BF16_RTOL * want.float().abs() + BF16_ATOL
+    return bool((err <= bound_).all()), float(err.max()), \
+        float((err / bound_).max())
 
+
+def _kernel_case(kernel, plain, dtype, tol):
+    """Run a kernel and its plain version on the same inputs; the outputs
+    (tuples) must agree within ``tol`` (float32) or one bfloat16 step."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    errs, ok = [], True
+    for a, b in zip(got, want):
+        if a.dtype == torch.float32:
+            err = float((a - b).abs().max())
+            ok = ok and err <= tol
+        else:
+            close, err, _ = _bf16_close(a, b)
+            ok = ok and close
+        errs.append(err)
+    return ok, max(errs)
+
+
+def rmsnorm_bound(rows, d, dtype):
+    """x read and out written once, the float32 weight row; ~3 float32
+    operations per element (square-accumulate, two products)."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    return bound(2 * rows * d * itemsize + 4 * d, 3 * rows * d,
+                 torch.float32)
+
+
+def attention_bound(B, S, H, K, dq, dv, causal, dtype):
+    """q, k, v read once, o and lse written once; the score entries this
+    mask keeps (S (S + 1) / 2 per head when causal), each a dq-long product
+    and a dv-long update (2 operations per multiply-add), at the peak rate
+    of the inputs' type (bf16 tensor cores for bf16)."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = itemsize * B * S * (H * dq + K * dq + K * dv + H * dv) \
+        + 4 * B * H * S
+    entries = B * H * (S * (S + 1) // 2 if causal else S * S)
+    return bound(nbytes, entries * (2 * dq + 2 * dv), dtype)
+
+
+def lm_kernel_checks(dev):
+    """``rmsnorm_cuda`` and ``flash_attention_cuda`` against their plain
+    versions in float32 (OP_TABLE's 2e-5 and 2e-4) and bfloat16 (one
+    rounding step) on the LM's shapes and ragged ones: causal and not, MHA,
+    GQA and MQA, dq != dv, S not a multiple of the tile; timings and the
+    library yardsticks (``F.rms_norm``, ``F.scaled_dot_product_attention``)
+    at the main path's shapes in bfloat16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.ops import SPECS
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+
+    results, timing = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for seed, shape in enumerate(RMS_SHAPES):
+            gen = torch.Generator().manual_seed(seed)
+            x = torch.randn(shape, generator=gen).to(dtype).to(dev)
+            w = (torch.rand(shape[-1], generator=gen) + 0.5).to(dev)
+            ok, err = _kernel_case(lambda: (rmsnorm_cuda(x, w),),
+                                   lambda: (rmsnorm_ref(x, w),), dtype,
+                                   SPECS["rmsnorm"].tol)
+            results.append({"name": "rmsnorm", "shape": list(shape),
+                            "dtype": str(dtype), "max_abs_err": err,
+                            "within_bound": ok})
+            check(ok, f"rmsnorm kernel disagrees at {shape} {dtype}: {err}")
+            if dtype == torch.bfloat16 and shape in RMS_TIMED:
+                rows, d = math.prod(shape[:-1]), shape[-1]
+                t = timings(lambda: rmsnorm_cuda(x, w),
+                            lambda: rmsnorm_ref(x, w), 100)
+                wl = w.to(dtype)
+                t["library_ms"] = device_ms(
+                    lambda: F.rms_norm(x, (d,), wl, 1e-6), 100)
+                timing[("rmsnorm", shape)] = (t, rmsnorm_bound(rows, d,
+                                                               dtype), err)
+        for seed, (B, S, H, K, dq, dv, causal) in enumerate(ATTN_SHAPES):
+            gen = torch.Generator().manual_seed(100 + seed)
+            q, k, v = (torch.randn(s, generator=gen).to(dtype).to(dev)
+                       for s in ((B, S, H, dq), (B, S, K, dq), (B, S, K, dv)))
+            ok, err = _kernel_case(
+                lambda: flash_attention_cuda(q, k, v, causal=causal),
+                lambda: flash_attention_ref(q, k, v, causal=causal), dtype,
+                SPECS["attention"].tol)
+            shape = [B, S, H, K, dq, dv]
+            results.append({"name": "attention", "shape": shape,
+                            "causal": causal, "dtype": str(dtype),
+                            "max_abs_err": err, "within_bound": ok})
+            check(ok, f"flash_attention kernel disagrees at {shape} causal="
+                      f"{causal} {dtype}: {err}")
+            if dtype == torch.bfloat16 and (B, S, H, K, dq, dv, causal) \
+                    == ATTN_MAIN:
+                t = timings(lambda: flash_attention_cuda(q, k, v),
+                            lambda: flash_attention_ref(q, k, v), 10)
+                qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+                t["library_ms"] = device_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+                timing[("attention", ATTN_MAIN)] = (
+                    t, attention_bound(B, S, H, K, dq, dv, causal, dtype),
+                    err)
+    return results, timing
+
+
+def _gen_tokens(vocab, batch, length, dev):
+    """Prompts from numpy seed 1 in [3, vocab), as the launcher makes them."""
+    prompt = np.random.default_rng(1).integers(3, vocab, (batch, length))
+    return torch.from_numpy(prompt.astype(np.int32)).to(dev)
+
+
+def device_profile(fn, calls):
+    """Device busy share of ``calls`` calls of ``fn`` under
+    ``torch.profiler``, device ms per call and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    rows = [(getattr(a, "self_device_time_total", 0.0), a.count, a.key)
+            for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    busy_us = sum(r[0] for r in rows)
+    if busy_us <= 0:
+        return {"device_busy_share": None,
+                "note": "the profiler recorded no device time"}
+    return {
+        "calls": calls, "wall_ms_per_call_profiled": wall_us / 1e3 / calls,
+        "device_busy_ms_per_call": busy_us / 1e3 / calls,
+        "device_busy_share": busy_us / wall_us,
+        "device_kernels_per_call": sum(r[1] for r in rows) / calls,
+        "top_device_kernels": [
+            {"name": k[:80], "ms_per_call": t / 1e3 / calls,
+             "launches_per_call": c / calls}
+            for t, c, k in sorted(rows, reverse=True)[:8]]}
+
+
+def count_syncs(fn):
+    """Synchronizing CUDA calls made by ``fn`` (the host waiting for the
+    card), counted through ``torch.cuda.set_sync_debug_mode``'s warnings."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def decode_breakdown(lm, w, prompt, steps):
+    """Wall ms of ``steps`` decode tokens split into the model (host time to
+    issue ``decode_step``, then the wait for the card to finish it) and the
+    ``next_token`` sample site (host-drawn uniforms copied to the card,
+    argmax), each ended by a synchronize.  Decode attends over the whole
+    cache under a mask, so its cost does not depend on the position."""
+    from repro_torch.core import dist
+    from repro_torch.core.primitives import sample
+
+    B = prompt.shape[0]
+    cache = lm.init_cache(B, prompt.shape[1] + LM_TOKENS, device=prompt.device)
+    issue, wait, draw = [], [], []
+    for t in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.decode_step(w, prompt[:, t:t + 1], cache, t)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        sample("next_token", dist.Categorical(logits=logits / 1.0),
+               generator=torch.Generator().manual_seed(t))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        issue.append(t1 - t0)
+        wait.append(t2 - t1)
+        draw.append(t3 - t2)
+    ms = lambda xs: 1e3 * float(np.median(xs))  # noqa: E731
+    return {"steps": steps, "model_issue_ms": ms(issue),
+            "model_wait_ms": ms(wait),
+            "model_ms": ms([a + b for a, b in zip(issue, wait)]),
+            "sampling_ms": ms(draw)}
+
+
+def run_lm(dev):
+    """The full Qwen3-8B (36 layers, bf16, params drawn on the card from
+    seed 0): ``make_prefill_step`` at B = 4, P = 512, then the launcher's
+    serving loop (``serve.generate``: the prompt teacher-forced through
+    ``serve_step``, then 32 sampled tokens), each with the launch counters
+    set to 0 before and read after."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import LM, count_params
+
+    cfg = get_config("qwen3-8b")
+    lm = LM(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    w = lm.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = count_params(cfg)
+    B, P, V = LM_BATCH, LM_PROMPT, cfg.vocab_size
+    prompt = _gen_tokens(V, B, P, dev)
+    prefill = make_prefill_step(lm)
+
+    ops.reset_launch_counts()
+    last = prefill(w, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(LM_PREFILL_REPS):
+        prefill(w, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0) / LM_PREFILL_REPS
+
+    ops.reset_launch_counts()
+    result = serve.generate(lm, w, prompt, LM_TOKENS, temperature=1.0)
+    serve_counts = ops.launch_counts()
+    steps_run = P - 1 + LM_TOKENS
+    first, seq = result["first_logits"], result["tokens"]
+
+    diff = (first.float() - last.float())
+    rel_rms = float(diff.pow(2).mean().sqrt()
+                    / last.float().pow(2).mean().sqrt())
+    top1 = (first.argmax(-1) == last.argmax(-1)).float().mean()
+    out = {
+        "arch": cfg.name, "params": n_params, "batch": B, "prompt_len": P,
+        "new_tokens": LM_TOKENS, "init_seconds": init_s,
+        "prefill_ms": prefill_ms,
+        "prefill_tokens_per_s": B * P / (prefill_ms / 1e3),
+        "prefill_launches": prefill_counts,
+        "teacher_forced_ms_per_step": 1e3 * result["teacher_forced_seconds"]
+        / (P - 1),
+        "sampled_ms_per_token": 1e3 * result["sampled_seconds"] / LM_TOKENS,
+        "sampled_tokens_per_s": B * LM_TOKENS / result["sampled_seconds"],
+        "serve_launches": serve_counts, "serve_steps": steps_run,
+        "prefill_vs_decode_logits": {
+            "max_abs_err": float(diff.abs().max()), "rel_rms_err": rel_rms,
+            "rel_rms_bound": LM_REL_RMS_MAX,
+            "top1_agreement": float(top1),
+            "logit_rms": float(last.float().pow(2).mean().sqrt())},
+    }
+    print("Qwen3-8B serving:", json.dumps(out), flush=True)
+    check(tuple(last.shape) == (B, V) and tuple(first.shape) == (B, V),
+          f"logits have shapes {tuple(last.shape)}, {tuple(first.shape)}")
+    check(bool(torch.isfinite(last).all() and torch.isfinite(first).all()),
+          "a prefill or decode logit is not finite")
+    check(tuple(seq.shape) == (B, P + LM_TOKENS)
+          and bool(((seq >= 0) & (seq < V)).all()),
+          f"tokens of shape {tuple(seq.shape)} or outside [0, {V})")
+    check(torch.equal(seq[:, :P], prompt), "the prompt was not kept")
+    check(rel_rms <= LM_REL_RMS_MAX,
+          f"prefill and teacher-forced decode logits at P-1 differ by "
+          f"{rel_rms} (relative rms) > {LM_REL_RMS_MAX}")
+    per_pass = 4 * cfg.num_layers + 1
+    check(prefill_counts["rmsnorm"] == per_pass
+          and prefill_counts["attention"] == cfg.num_layers,
+          f"prefill launched rmsnorm {prefill_counts['rmsnorm']} and "
+          f"attention {prefill_counts['attention']} times, not {per_pass} "
+          f"and {cfg.num_layers}")
+    check(serve_counts["rmsnorm"] == per_pass * steps_run
+          and serve_counts["attention"] == 0,
+          f"serving launched rmsnorm {serve_counts['rmsnorm']} and attention "
+          f"{serve_counts['attention']} times over {steps_run} steps, not "
+          f"{per_pass} and 0 per step")
+
+    out["decode_breakdown"] = decode_breakdown(lm, w, prompt, 16)
+    step = make_serve_step(lm)
+    cache = lm.init_cache(B, P + LM_TOKENS, device=dev)
+    tok = prompt[:, :1]
+
+    def serve_one():
+        step(w, cache, tok, 0, torch.Generator().manual_seed(0))
+    out["decode_breakdown"]["host_syncs_per_step"] = count_syncs(serve_one)
+    out["prefill_host_syncs"] = count_syncs(
+        lambda: prefill(w, {"tokens": prompt}))
+    out["decode_profile"] = device_profile(serve_one, 8)
+    out["prefill_profile"] = device_profile(
+        lambda: prefill(w, {"tokens": prompt}), 2)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    print("Qwen3-8B breakdown:", json.dumps(
+        {k: out[k] for k in ("decode_breakdown", "decode_profile",
+                             "prefill_profile", "prefill_host_syncs",
+                             "peak_mem_gb")}), flush=True)
+    return out
+
+
+def run_lm_f32_check(dev):
+    """A full-width, 2-layer float32 Qwen3 (params from seed 0 on the card)
+    through the kernels and through the plain versions on the card
+    (``ops.SPECS`` pointed at the plain versions for the second run): the
+    prefill's last logits, and LM_F32_DECODE_STEPS decode steps of the
+    prompt teacher-forced into a fresh cache (the norms at the decode rows).
+    In float32 the two differ only by the kernels' own rounding, so the
+    bound is tight: LM_F32_REL_TOL of the largest logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import LM
+
+    import dataclasses
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=2,
+                              dtype="float32")
+    lm = LM(cfg)
+    w = lm.init(torch.Generator(device=dev).manual_seed(0))
+    prompt = _gen_tokens(cfg.vocab_size, LM_BATCH, LM_PROMPT, dev)
+    prefill = make_prefill_step(lm)
+    steps = LM_F32_DECODE_STEPS
+
+    def decode():
+        cache = lm.init_cache(LM_BATCH, steps, device=dev)
+        logits = []
+        for t in range(steps):
+            lg, cache = lm.decode_step(w, prompt[:, t:t + 1], cache, t)
+            logits.append(lg)
+        return torch.stack(logits)
+
+    ops.reset_launch_counts()
+    got = prefill(w, {"tokens": prompt})
+    prefill_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    got_dec = decode()
+    decode_counts = ops.launch_counts()
+    saved = dict(ops.SPECS)
+    try:
+        for name in ("rmsnorm", "attention"):
+            ops.SPECS[name] = saved[name]._replace(kernel=saved[name].ref)
+        want = prefill(w, {"tokens": prompt})
+        want_dec = decode()
+    finally:
+        ops.SPECS.update(saved)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = LM_F32_REL_TOL * max(1.0, float(want.abs().max()))
+    dec_err = float((got_dec - want_dec).abs().max())
+    dec_tol = LM_F32_REL_TOL * max(1.0, float(want_dec.abs().max()))
+    out = {"layers": 2, "dtype": "float32", "max_abs_err": err, "tol": tol,
+           "max_abs_logit": float(want.abs().max()),
+           "launches": prefill_counts, "decode_steps": steps,
+           "decode_max_abs_err": dec_err, "decode_tol": dec_tol,
+           "decode_launches": decode_counts}
+    print("Qwen3 2-layer float32 kernels vs plain:", json.dumps(out),
+          flush=True)
+    check(bool(torch.isfinite(got).all() and torch.isfinite(got_dec).all()),
+          "a float32 logit is not finite")
+    check(err <= tol, f"float32 prefill through the kernels differs from the "
+                      f"plain versions by {err} > {tol}")
+    check(dec_err <= dec_tol, f"float32 decode through the kernels differs "
+                              f"from the plain versions by {dec_err} > "
+                              f"{dec_tol}")
+    check(prefill_counts["rmsnorm"] == 9 and prefill_counts["attention"] == 2,
+          f"2-layer prefill launched {prefill_counts}")
+    check(decode_counts["rmsnorm"] == 9 * steps
+          and decode_counts["attention"] == 0,
+          f"{steps} 2-layer decode steps launched {decode_counts}")
+    return out
+
+
+def lm_kernel_rows(checks, timing, lm):
+    """The kernel-table rows of ``rmsnorm`` and ``attention``: main-shape
+    times and bounds, variants beside them, and the launches of the serving
+    phases."""
+    from repro_torch.kernels.ops import SPECS
+    rows = []
+    for name, source, key in (
+            ("rmsnorm", "rmsnorm.cu", ("rmsnorm", RMS_TIMED[0])),
+            ("attention", "flash_attention.cu", ("attention", ATTN_MAIN))):
+        times, (bound_ms, bound_by), err = timing[key]
+        by_phase = {"prefill": lm["prefill_launches"][name],
+                    "serve": lm["serve_launches"][name]}
+        row = {
+            "name": name, "route": SPECS[name].route,
+            "source": "src/repro_torch/csrc/" + source,
+            "replaces": SPECS[name].replaces,
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
+            "launches_per_prefill": by_phase["prefill"],
+            "launches_per_decode_step": by_phase["serve"] / lm["serve_steps"],
+            "max_abs_err": max(c["max_abs_err"] for c in checks
+                               if c["name"] == name),
+            "max_abs_err_main_shape": err,
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "call_ms": times["call_ms"],
+            "plain_call_ms": times["plain_call_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": times["library_ms"],
+            "library": {"rmsnorm": "torch.nn.functional.rms_norm",
+                        "attention": "torch.nn.functional."
+                        "scaled_dot_product_attention(enable_gqa=True)"}[name],
+            "shape": list(key[1]), "dtype": "bfloat16"}
+        if name == "rmsnorm":
+            row["variants"] = {
+                str(list(shape)): {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                                   "library_ms": t["library_ms"],
+                                   "bound_ms": b[0], "bound_by": b[1]}
+                for (n, shape), (t, b, _) in timing.items()
+                if n == "rmsnorm" and shape != RMS_TIMED[0]}
+        rows.append(row)
+    return rows
+
+
+def run_samplers(dev):
+    """The kernels of slices 1-3 against their plain versions, then their
+    main paths (NUTS logreg, the two HMMs, ChEES, MALA, RWM); returns their
+    rows of the kernel table."""
     lf_checks, lf_timing = leapfrog_checks(dev)
     glm_checks_, glm_timing = glm_checks(dev)
     enum_checks_, enum_timings = enum_checks(dev)
@@ -934,6 +1387,40 @@ def main():
     kernels += ensemble_kernel_rows(ens_checks, ens_timing, {
         "leapfrog_halfstep_batch": {"ChEES": (chees, chees_counts)},
         "mala_step": {"MALA": (mala, mala_counts), "RWM": (rwm, rwm_counts)}})
+    return kernels
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available; this script needs an "
+              "NVIDIA card", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+
+    card = card_line()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    build_s = _build.build_all(["leapfrog", "glm_potential",
+                                "enum_contract", "leapfrog_batch",
+                                "mala_step", "rmsnorm", "flash_attention"])
+    print("build seconds:", json.dumps(build_s), flush=True)
+    phase_s = {}
+    t0 = time.perf_counter()
+    kernels = run_samplers(dev)
+    phase_s["samplers"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm_checks, lm_timing = lm_kernel_checks(dev)
+    print("LM kernel checks:", json.dumps(lm_checks), flush=True)
+    print("LM kernel timings:", json.dumps(
+        {str(k): v for k, v in lm_timing.items()}), flush=True)
+    lm = run_lm(dev)
+    torch.cuda.empty_cache()
+    run_lm_f32_check(dev)
+    kernels += lm_kernel_rows(lm_checks, lm_timing, lm)
+    phase_s["lm"] = time.perf_counter() - t0
+    print("phase seconds:", json.dumps(phase_s), flush=True)
     print("wall seconds:", time.perf_counter() - t_start, flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -10,6 +10,10 @@ potential there.
 
 The JAX key is not carried: this package's draws come from a
 ``torch.Generator`` or from a draw source a test injects.
+
+:func:`lm_params_from_reference` carries a JAX ``LM``'s params tree across
+leaf by leaf: both packages declare the same tree, stacked layer dims
+included.
 """
 from __future__ import annotations
 
@@ -89,3 +93,21 @@ def state_from_reference(state, device="cpu"):
         accept_prob=_F32(state.accept_prob),
         mean_accept_prob=_F32(state.mean_accept_prob),
         diverging=bool(state.diverging), adapt_state=port_adapt)
+
+
+def _leaf_tensor(value, device):
+    array = np.asarray(value)
+    if array.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(array.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(array.copy()).to(device)
+
+
+def lm_params_from_reference(tree, device="cpu"):
+    """The port's LM params holding the values of a JAX ``LM``'s params
+    (after ``jax.device_get``: nested dicts of numpy arrays), same keys,
+    shapes and dtypes, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_reference(v, device)
+                for k, v in tree.items()}
+    return _leaf_tensor(tree, torch.device(device))

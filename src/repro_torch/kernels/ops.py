@@ -8,16 +8,20 @@ PyTorch version and the TPU kernel it replaces; a row not ported yet has
 
 For a ported op, tensors on the CPU take the plain version and tensors on a
 card launch the kernel; a kernel that cannot build or launch raises rather
-than falling back.  A ported op whose gradient is a kernel of its own names
-it in ``BACKWARD`` (the JAX package has no row for it: it differentiates
-the jnp reference); its launches are counted with the rest.
+than falling back.  A ref-only row (no TPU kernel in the JAX package) names
+its plain version once ported and runs it on every device.  A ported op
+whose gradient is a kernel of its own names it in ``BACKWARD`` (the JAX
+package has no row for it: it differentiates the jnp reference); its
+launches are counted with the rest.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
 from . import enum_contract as _enum_contract
+from . import flash_attention as _flash
 from . import glm_potential, leapfrog, rwm_mala
+from . import rmsnorm as _rmsnorm
 
 
 class OpSpec(NamedTuple):
@@ -43,10 +47,21 @@ class OpSpec(NamedTuple):
 
 _K = "src/repro/kernels/"
 
+# The bfloat16 parity bound of the LM kernels (``rmsnorm``, ``attention``),
+# elementwise: |kernel - plain| <= BF16_RTOL * |plain| + BF16_ATOL.  Kernel
+# and plain version compute the same float32 value, up to summation order,
+# and round it once to bfloat16, so they may land one bfloat16 step apart
+# (2**-7 of the value at most); BF16_ATOL covers values near zero, where the
+# float32 difference itself shows.  ``tol`` is the float32 bound.
+BF16_RTOL = 2.0 ** -7
+BF16_ATOL = 1e-5
+
 OP_TABLE = (
-    OpSpec("attention", None, None, None,
+    OpSpec("attention", _flash.flash_attention_cuda,
+           _flash.flash_attention_ref, "cuda",
            _K + "flash_attention.py:79", False, 2e-4),
-    OpSpec("decode_attention", None, None, None, None, False, 0.0),
+    OpSpec("decode_attention", None, _flash.decode_attention_ref, None, None,
+           False, 0.0),
     OpSpec("mla_absorbed_decode", None, None, None, None, False, 0.0),
     OpSpec("leapfrog_halfstep", leapfrog.leapfrog_halfstep_cuda,
            leapfrog.leapfrog_halfstep_ref, "cuda", _K + "leapfrog.py:40",
@@ -62,7 +77,8 @@ OP_TABLE = (
     OpSpec("enum_contract", _enum_contract.enum_contract_cuda,
            _enum_contract.enum_contract_ref, "cuda",
            _K + "enum_contract.py:50", True, 0.0),
-    OpSpec("rmsnorm", None, None, None, _K + "rmsnorm.py:49", False, 2e-5),
+    OpSpec("rmsnorm", _rmsnorm.rmsnorm_cuda, _rmsnorm.rmsnorm_ref, "cuda",
+           _K + "rmsnorm.py:49", False, 2e-5),
     OpSpec("softmax_xent", None, None, None,
            _K + "softmax_xent.py:57", False, 1e-4),
     OpSpec("ssd_scan", None, None, None, _K + "ssd_scan.py:64", False, 1e-4),
@@ -83,6 +99,29 @@ def _route(name, tensor):
     """The plain version for a tensor on the CPU, else the kernel."""
     spec = SPECS[name]
     return spec.ref if tensor.device.type == "cpu" else spec.kernel
+
+
+def attention(q, k, v, *, causal=True, scale=None, window=0):
+    """GQA-aware attention over a whole sequence, ``q (B, S, H, dq), k (B,
+    S, K, dq), v (B, S, K, dv) -> (B, S, H, dv)``.  ``window > 0`` (a
+    sliding window) takes the plain version on every device, as the JAX
+    package's ``flash_attention`` hands it to its jnp reference."""
+    if window:
+        return _flash.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                          window=window)[0]
+    return _route("attention", q)(q, k, v, causal=causal, scale=scale)[0]
+
+
+def decode_attention(q, k, v, mask, *, scale=None):
+    """Single-query attention against a masked cache (a ref-only op: the
+    plain version on every device)."""
+    return SPECS["decode_attention"].ref(q, k, v, mask, scale=scale)
+
+
+def rmsnorm(x, weight, eps=1e-6):
+    """RMSNorm over the last axis, float32 statistics, result in x's
+    dtype."""
+    return _route("rmsnorm", x)(x, weight, eps)
 
 
 def leapfrog_halfstep(z, r, grad, m_inv, eps):

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels.enum_contract import (EnumContract,
                                                enum_contract_bwd_cuda,
                                                enum_contract_bwd_ref,
@@ -18,6 +19,7 @@ from repro_torch.kernels.leapfrog import (leapfrog_halfstep_batch_cuda,
                                           leapfrog_halfstep_batch_ref,
                                           leapfrog_halfstep_cuda,
                                           leapfrog_halfstep_ref)
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_ref
 from repro_torch.kernels.rwm_mala import mala_step_cuda, mala_step_ref
 
 TOL = {spec.name: spec.tol for spec in ops.OP_TABLE}
@@ -62,7 +64,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     monkeypatch.setattr(_build, "_LOADED", {})
-    for name in ("leapfrog", "enum_contract", "leapfrog_batch", "mala_step"):
+    for name in ("leapfrog", "enum_contract", "leapfrog_batch", "mala_step",
+                 "rmsnorm", "flash_attention"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.load(name)
 
@@ -184,3 +187,108 @@ def test_ensemble_kernels_match_plain_on_card(dtype):
                                      torch.tensor(0.1, device=dev))
     with pytest.raises(ValueError, match="kick"):
         leapfrog_halfstep_batch_cuda(z, r, g, m_inv, 0.1, 0.25)
+
+
+def test_lm_kernel_wrappers_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_cuda(torch.zeros(3, 8), torch.ones(8))
+    q = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention_cuda(q, q, q)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _assert_close(got, want, tol):
+    """float32: max-abs within ``tol``; bfloat16: elementwise within one
+    bfloat16 rounding step (``ops.BF16_RTOL``)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        assert float(err.max()) <= tol, float(err.max())
+    else:
+        bound = ops.BF16_RTOL * want.float().abs() + ops.BF16_ATOL
+        assert bool((err <= bound).all()), float((err - bound).max())
+
+
+# the LM's rows (prefill and decode norms of Qwen3-8B at B = 4, P = 512,
+# its q/k-norm rows) and ragged ones
+RMSNORM_SHAPES = [(2048, 4096), (4, 1, 4096), (4, 512, 32, 128), (4, 1, 8, 128),
+                  (7, 96), (1, 1), (3, 5, 4097)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain_on_card(dtype):
+    dev = _need_card()
+    ops.reset_launch_counts()
+    for i, shape in enumerate(RMSNORM_SHAPES):
+        rng = np.random.default_rng(i)
+        x = torch.from_numpy(rng.standard_normal(shape)).to(dtype).to(dev)
+        w = torch.from_numpy(rng.uniform(0.5, 1.5, shape[-1])).float().to(dev)
+        _assert_close(rmsnorm_cuda(x, w), rmsnorm_ref(x, w), TOL["rmsnorm"])
+    assert ops.launch_counts()["rmsnorm"] == len(RMSNORM_SHAPES)
+    with pytest.raises(ValueError, match="weight"):
+        rmsnorm_cuda(x, w.to(dtype=torch.float64))
+
+
+# (B, S, H, K, dq, dv, causal): Qwen3-8B's prefill, ragged S, MLA-shaped
+# dq != dv, MQA, bidirectional, gemma's head dim, a sequence under a tile
+FLASH_SHAPES = [(4, 512, 32, 8, 128, 128, True), (2, 200, 4, 2, 64, 64, True),
+                (2, 200, 4, 2, 64, 64, False), (1, 130, 4, 4, 192, 128, True),
+                (2, 96, 8, 1, 64, 64, True), (1, 64, 2, 1, 256, 256, True),
+                (3, 7, 2, 2, 32, 16, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_on_card(dtype):
+    dev = _need_card()
+    ops.reset_launch_counts()
+    for i, (B, S, H, K, dq, dv, causal) in enumerate(FLASH_SHAPES):
+        rng = np.random.default_rng(i)
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+                   .to(dev) for shape in ((B, S, H, dq), (B, S, K, dq),
+                                          (B, S, K, dv)))
+        o, lse = flash.flash_attention_cuda(q, k, v, causal=causal)
+        ro, rlse = flash.flash_attention_ref(q, k, v, causal=causal)
+        _assert_close(o, ro, TOL["attention"])
+        _assert_close(lse, rlse, TOL["attention"])
+    assert ops.launch_counts()["attention"] == len(FLASH_SHAPES)
+
+
+@pytest.mark.cuda
+def test_reduced_qwen3_prefill_on_card():
+    """A reduced float32 Qwen3 prefilled through the kernels against the
+    same prefill through the plain versions on the card (1e-4: the kernels'
+    float32 bounds carried through four layers), with every norm and
+    attention launch counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import LM, reduced
+
+    dev = _need_card()
+    lm = LM(reduced(get_config("qwen3-8b")))
+    w = lm.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        3, lm.cfg.vocab_size, (2, 64))).to(dev)
+    prefill = make_prefill_step(lm)
+    ops.reset_launch_counts()
+    got = prefill(w, {"tokens": toks})
+    counts = ops.launch_counts()
+    L = lm.cfg.num_layers
+    assert counts["rmsnorm"] == 4 * L + 1 and counts["attention"] == L
+    saved = dict(ops.SPECS)
+    try:
+        for name in ("rmsnorm", "attention"):
+            ops.SPECS[name] = saved[name]._replace(kernel=saved[name].ref)
+        want = prefill(w, {"tokens": toks})
+    finally:
+        ops.SPECS.update(saved)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-4

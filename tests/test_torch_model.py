@@ -343,7 +343,9 @@ def test_port_imports_no_jax():
     """The port imports torch and numpy, never jax nor the repro package."""
     code = ("import sys; import repro_torch.core.infer, repro_torch.interop, "
             "repro_torch.bench.models, repro_torch.kernels.ops, "
-            "repro_torch.core.infer.enum, repro_torch.kernels.enum_contract; "
+            "repro_torch.core.infer.enum, repro_torch.kernels.enum_contract, "
+            "repro_torch.models, repro_torch.launch.serve, "
+            "repro_torch.kernels.rmsnorm, repro_torch.kernels.flash_attention; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             " assert not bad, bad")
