@@ -40,7 +40,21 @@ result line if any fails):
    split, device busy share, memory peak; then a full-width 2-layer
    float32 Qwen3 through the kernels against the plain versions: its
    prefill, and 8 decode steps teacher-forced into a fresh cache.
-4. Print one ``{"kernels": [...]}`` line, then the result line
+4. ``train``: hold the ``rmsnorm`` backward, the flash-attention dq and
+   dkv passes and ``softmax_xent`` against their plain versions (float32
+   and bfloat16, causal and not, MHA/GQA/MQA, head dims 128 and 256, dq !=
+   dv, a ragged S, T and V, the xent weight as (d, V) and as a tied (V, d)
+   embedding's transpose) and time them beside SDPA's backward; then the
+   full gemma-2b (bf16, params drawn on the card from seed 0, remat
+   "full"): ``make_train_state`` and ``make_train_step`` (the MAP loss with
+   the handler-scored log-prior, 2 microbatches, AdamW) for 8 steps on one
+   fixed batch of B = 4 x 1024 tokens, the loss falling and 146 ``rmsnorm``,
+   74 ``rmsnorm_bwd``, 72 ``attention``, 36 ``attention_dq``, 36
+   ``attention_dkv`` and 2 ``softmax_xent`` launches per step; a profiled
+   step; ``launch.train.main`` for 2 steps; then a full-width 2-layer
+   float32 gemma's loss and every gradient through the kernels against the
+   plain versions.
+5. Print one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -128,6 +142,36 @@ ATTN_SHAPES = (ATTN_MAIN, (LM_BATCH, LM_PROMPT, 32, 8, 128, 128, False),
                (1, 64, 2, 1, 256, 256, True), (3, 7, 2, 2, 32, 16, False))
 
 
+# the training slice: the full gemma-2b (bf16, remat "full", AdamW), B = 4
+# sequences of 1024 tokens in 2 microbatches, 8 steps on one fixed batch (the
+# loss must fall as the batch is memorized, as tests/test_archs_smoke.py:61
+# asks of the JAX package), then the launcher for 2 steps
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "gemma-2b", 4, 1024
+TRAIN_MICROBATCHES, TRAIN_STEPS, TRAIN_LAUNCHER_STEPS = 2, 8, 2
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
+MB_ROWS = TRAIN_BATCH // TRAIN_MICROBATCHES * TRAIN_SEQ  # rows per microbatch
+# a full-width 2-layer float32 gemma's loss and every gradient leaf through
+# the kernels against the plain versions: 1e-4 of the largest |grad|
+TRAIN_F32_LAYERS, TRAIN_F32_REL_TOL = 2, 1e-4
+# rmsnorm backward checks: gemma's block-norm rows per microbatch (timed),
+# Qwen3's q-norm rows, ragged ones
+RMS_BWD_MAIN = (MB_ROWS, 2048)
+RMS_BWD_SHAPES = (RMS_BWD_MAIN, (LM_BATCH * LM_PROMPT * 32, 128),
+                  (LM_BATCH * LM_PROMPT, 4096), (7, 96), (1, 1), (3, 5, 4097))
+# flash-attention backward checks (B, S, H, K, dq, dv, causal): gemma's
+# microbatch (MQA, head dim 256; timed), Qwen3's prefill shape (GQA), the
+# forward's ragged, bidirectional, MHA, MLA-shaped and tiny cases
+ATTN_BWD_MAIN = (TRAIN_BATCH // TRAIN_MICROBATCHES, TRAIN_SEQ, 8, 1, 256,
+                 256, True)
+ATTN_BWD_SHAPES = (ATTN_BWD_MAIN, ATTN_MAIN) + ATTN_SHAPES[1:]
+# softmax_xent checks (T, d, V, tied): gemma's microbatch against its tied
+# (V, d) embedding (timed), a Qwen3-shaped (d, V) unembedding with its ragged
+# V = 151,936, ragged small ones
+XENT_MAIN = (MB_ROWS, 2048, 256000, True)
+XENT_SHAPES = (XENT_MAIN, (512, 4096, 151936, False), (37, 24, 301, False),
+               (130, 64, 1000, True), (1, 8, 3, True))
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -165,6 +209,35 @@ def device_ms(fn, iters, reps=5):
     with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
+    return _replay_ms(graph, iters, reps)
+
+
+def backward_device_ms(forward, inputs, grad, iters, reps=5):
+    """Device time per backward of ``forward(*inputs)`` (leaves that require
+    grad) for the output gradient ``grad``: the forward runs once on a side
+    stream, so autograd runs its backward on that stream too; ``iters``
+    ``torch.autograd.grad`` calls of that one output are then captured in
+    one CUDA graph on the same stream and replayed as in :func:`device_ms`,
+    so no host cost is in the reading."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = forward(*inputs)
+
+    def backward():
+        return torch.autograd.grad(out, inputs, grad, retain_graph=True)
+
+    with torch.cuda.stream(side):
+        backward()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            backward()
+    torch.cuda.current_stream().wait_stream(side)
+    return _replay_ms(graph, iters, reps)
+
+
+def _replay_ms(graph, iters, reps):
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1264,10 +1337,10 @@ def run_lm_f32_check(dev):
     return out
 
 
-def lm_kernel_rows(checks, timing, lm):
+def lm_kernel_rows(checks, timing, lm, train):
     """The kernel-table rows of ``rmsnorm`` and ``attention``: main-shape
     times and bounds, variants beside them, and the launches of the serving
-    phases."""
+    phases and of the training run."""
     from repro_torch.kernels.ops import SPECS
     rows = []
     for name, source, key in (
@@ -1275,7 +1348,8 @@ def lm_kernel_rows(checks, timing, lm):
             ("attention", "flash_attention.cu", ("attention", ATTN_MAIN))):
         times, (bound_ms, bound_by), err = timing[key]
         by_phase = {"prefill": lm["prefill_launches"][name],
-                    "serve": lm["serve_launches"][name]}
+                    "serve": lm["serve_launches"][name],
+                    "train": train["launches"][name]}
         row = {
             "name": name, "route": SPECS[name].route,
             "source": "src/repro_torch/csrc/" + source,
@@ -1284,6 +1358,7 @@ def lm_kernel_rows(checks, timing, lm):
             "launches_by_phase": by_phase,
             "launches_per_prefill": by_phase["prefill"],
             "launches_per_decode_step": by_phase["serve"] / lm["serve_steps"],
+            "launches_per_train_step": train["launches_per_step"][name],
             "max_abs_err": max(c["max_abs_err"] for c in checks
                                if c["name"] == name),
             "max_abs_err_main_shape": err,
@@ -1304,6 +1379,387 @@ def lm_kernel_rows(checks, timing, lm):
                 for (n, shape), (t, b, _) in timing.items()
                 if n == "rmsnorm" and shape != RMS_TIMED[0]}
         rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the training slice: gemma-2b MAP training
+# ---------------------------------------------------------------------------
+
+def rmsnorm_bwd_bound(rows, d, dtype):
+    """x and g read, dx written once, the weight read and dw written; ~8
+    float32 operations per element."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    return bound(3 * rows * d * itemsize + 8 * d, 8 * rows * d,
+                 torch.float32)
+
+
+def attention_bwd_bound(B, S, H, K, dq, dv, causal, dtype, which):
+    """The dq pass reads q, k, v, o, dO and lse and writes dq and delta;
+    the dkv pass reads q, k, v, dO, lse and delta and writes dk and dv.  Per
+    score entry the mask keeps, the dq pass multiplies 2 dq + dv long
+    vectors (s, dq; dp) and the dkv pass 2 dq + 2 dv (s, dk; dp, dv), 2
+    operations per multiply-add, at the inputs' type's peak rate."""
+    it = torch.tensor([], dtype=dtype).element_size()
+    q, k, v, o = B * S * H * dq, B * S * K * dq, B * S * K * dv, B * S * H * dv
+    rows = 4 * B * H * S
+    entries = B * H * (S * (S + 1) // 2 if causal else S * S)
+    if which == "dq":
+        return bound(it * (q + k + v + 2 * o + q) + 2 * rows,
+                     entries * 2 * (2 * dq + dv), dtype)
+    return bound(it * (q + k + v + o + k + v) + 2 * rows,
+                 entries * 2 * (2 * dq + 2 * dv), dtype)
+
+
+def xent_bound(T, d, V, dtype):
+    """x, W and the labels read once, ce, z_loss and lse written; the
+    logits' 2 T d V operations at the inputs' type's peak rate."""
+    it = torch.tensor([], dtype=dtype).element_size()
+    return bound(it * (T * d + d * V) + 4 * T + 12 * T, 2.0 * T * d * V,
+                 dtype)
+
+
+def _rmsnorm_bwd_case(x, w, g, dtype, kernel, plain, tol):
+    """dx as ``_kernel_case`` holds an output; dw, a float32 sum over every
+    row, within ``tol`` of its largest entry (which grows with the rows)."""
+    (dx, dw), (rdx, rdw) = kernel(x, w, g), plain(x, w, g)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        dx_err = float((dx - rdx).abs().max())
+        ok = dx_err <= tol
+    else:
+        ok, dx_err, _ = _bf16_close(dx, rdx)
+    dw_err = float((dw - rdw).abs().max())
+    ok = ok and dw_err <= tol * max(1.0, float(rdw.abs().max()))
+    return ok, max(dx_err, dw_err)
+
+
+def _xent_inputs(T, d, V, tied, dtype, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(T, d, generator=gen, device=dev).to(dtype)
+    w = (torch.randn((V, d) if tied else (d, V), generator=gen, device=dev)
+         * 0.05).to(dtype)
+    labels = torch.randint(0, V, (T,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    return x, (w.T if tied else w), labels
+
+
+def train_kernel_checks(dev):
+    """``rmsnorm_bwd_cuda``, the flash-attention dq and dkv passes and
+    ``softmax_xent_cuda`` against their plain versions in float32
+    (OP_TABLE's bounds; a dw summed over R rows to 2e-5 sqrt(R)) and
+    bfloat16 (one rounding step of a bfloat16 output): causal and not, MHA,
+    GQA and MQA, head dims 128 and 256, dq != dv, a ragged S, T and V, the
+    xent weight in both layouts; then times at gemma-2b's training shapes in
+    bfloat16 beside the library yardsticks (SDPA's backward for dq/dkv)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import softmax_xent as xe
+    from repro_torch.kernels.ops import BACKWARD, SPECS
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, rmsnorm_bwd_ref
+
+    results, timing = [], {}
+
+    def record(name, shape, dtype, ok, err, **extra):
+        results.append({"name": name, "shape": list(shape),
+                        "dtype": str(dtype), "max_abs_err": err,
+                        "within_bound": ok, **extra})
+        check(ok, f"{name} kernel disagrees at {shape} {dtype}: {err}")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for seed, shape in enumerate(RMS_BWD_SHAPES):
+            gen = torch.Generator().manual_seed(200 + seed)
+            x, g = (torch.randn(shape, generator=gen).to(dtype).to(dev)
+                    for _ in range(2))
+            w = (torch.rand(shape[-1], generator=gen) + 0.5).to(dev)
+            rows = math.prod(shape[:-1])
+            ok, err = _rmsnorm_bwd_case(x, w, g, dtype, rmsnorm_bwd_cuda,
+                                        rmsnorm_bwd_ref,
+                                        BACKWARD["rmsnorm_bwd"].tol)
+            record("rmsnorm_bwd", shape, dtype, ok, err)
+            if dtype == torch.bfloat16 and shape == RMS_BWD_MAIN:
+                t = timings(lambda: rmsnorm_bwd_cuda(x, w, g),
+                            lambda: rmsnorm_bwd_ref(x, w, g), 50)
+                t["library_ms"] = backward_device_ms(
+                    lambda a, b: F.rms_norm(a, (shape[-1],), b, 1e-6),
+                    (x.detach().requires_grad_(),
+                     w.to(dtype).requires_grad_()), g, 50)
+                timing["rmsnorm_bwd"] = (t, rmsnorm_bwd_bound(
+                    rows, shape[-1], dtype), err)
+        for seed, case in enumerate(ATTN_BWD_SHAPES):
+            B, S, H, K, dq, dv, causal = case
+            gen = torch.Generator().manual_seed(300 + seed)
+            q, k, v, do = (torch.randn(s, generator=gen).to(dtype).to(dev)
+                           for s in ((B, S, H, dq), (B, S, K, dq),
+                                     (B, S, K, dv), (B, S, H, dv)))
+            o, lse = (t.contiguous() for t in
+                      fl.flash_attention_ref(q, k, v, causal=causal))
+            delta = fl.flash_attention_dq_ref(q, k, v, o, lse, do,
+                                              causal)[1].contiguous()
+            tol = BACKWARD["attention_dq"].tol
+            dq_kernel = lambda: fl.flash_attention_dq_cuda(  # noqa: E731
+                q, k, v, o, lse, do, causal)
+            dq_plain = lambda: fl.flash_attention_dq_ref(  # noqa: E731
+                q, k, v, o, lse, do, causal)
+            dkv_kernel = lambda: fl.flash_attention_dkv_cuda(  # noqa: E731
+                q, k, v, lse, delta, do, causal)
+            dkv_plain = lambda: fl.flash_attention_dkv_ref(  # noqa: E731
+                q, k, v, lse, delta, do, causal)
+            ok, err = _kernel_case(dq_kernel, dq_plain, dtype, tol)
+            record("attention_dq", [B, S, H, K, dq, dv], dtype, ok, err,
+                   causal=causal)
+            ok, err_kv = _kernel_case(dkv_kernel, dkv_plain, dtype, tol)
+            record("attention_dkv", [B, S, H, K, dq, dv], dtype, ok, err_kv,
+                   causal=causal)
+            if dtype == torch.bfloat16 and case == ATTN_BWD_MAIN:
+                lib = sdpa_backward_ms(q, k, v, do, causal)
+                for name, kern, plain, e in (
+                        ("attention_dq", dq_kernel, dq_plain, err),
+                        ("attention_dkv", dkv_kernel, dkv_plain, err_kv)):
+                    t = timings(kern, plain, 5)
+                    t.update(lib)
+                    timing[name] = (t, attention_bwd_bound(
+                        *case, dtype, name[len("attention_"):]), e)
+        for seed, (T, d, V, tied) in enumerate(XENT_SHAPES):
+            x, w, labels = _xent_inputs(T, d, V, tied, dtype, 400 + seed,
+                                        dev)
+            ok, err = _kernel_case(
+                lambda: xe.softmax_xent_cuda(x, w, labels, 1e-4),
+                lambda: xe.softmax_xent_ref(x, w, labels, 1e-4), dtype,
+                SPECS["softmax_xent"].tol)
+            record("softmax_xent", [T, d, V], dtype, ok, err,
+                   layout="(V, d) transposed" if tied else "(d, V)")
+            if dtype == torch.bfloat16 and (T, d, V, tied) == XENT_MAIN:
+                t = timings(lambda: xe.softmax_xent_cuda(x, w, labels, 1e-4),
+                            lambda: xe.softmax_xent_ref(x, w, labels, 1e-4),
+                            2)
+                t["library_ms"] = None
+                t["logits_matmul_ms"] = device_ms(
+                    lambda: torch.matmul(x, w), 2)
+                timing["softmax_xent"] = (t, xent_bound(T, d, V, dtype), err)
+            del x, w, labels
+    torch.cuda.empty_cache()
+    return results, timing
+
+
+def sdpa_backward_ms(q, k, v, do, causal):
+    """The library yardstick of the two backward passes: the backward of
+    ``F.scaled_dot_product_attention(enable_gqa=True)``, which computes dq,
+    dk and dv in one call (device time, as the kernels beside it)."""
+    import torch.nn.functional as F
+    leaves = tuple(a.transpose(1, 2).detach().requires_grad_()
+                   for a in (q, k, v))
+    return {"library_ms": backward_device_ms(
+        lambda qt, kt, vt: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True),
+        leaves, do.transpose(1, 2), 5)}
+
+
+def run_train(dev):
+    """The full gemma-2b (18 layers, bf16, params drawn on the card from
+    seed 0, ``LM(cfg, remat="full")``): ``make_train_state`` and
+    ``make_train_step`` (MAP loss with the handler-scored log-prior, 2
+    microbatches, clip, AdamW) for TRAIN_STEPS steps on one fixed batch of
+    ``SyntheticLMData``, the launch counters set to 0 before and read
+    after; then a profiled step, and ``launch.train.main`` for 2 steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import LM, count_params
+
+    cfg = get_config(TRAIN_ARCH)
+    lm = LM(cfg, remat="full")
+    hp = steps_mod.TrainHParams(learning_rate=TRAIN_LR,
+                                warmup_steps=TRAIN_WARMUP,
+                                num_microbatches=TRAIN_MICROBATCHES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = steps_mod.make_train_state(
+        lm, hp, rng=torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    batch = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                            seed=0).batch_at(0, device=dev)
+    step = steps_mod.make_train_step(lm, hp, total_tokens=tokens)
+
+    history, step_s = [], []
+    ops.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        history.append({k: float(v) for k, v in m.items()})
+    counts = ops.launch_counts()
+    n_steps = state["step"]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    # every step after the first (which allocates the optimizer's moments
+    # and the allocator's pools)
+    ms = 1e3 * float(np.median(step_s[1:]))
+    L = cfg.num_layers
+    per_mb = {"rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
+              "attention": 2 * L, "attention_dq": L, "attention_dkv": L,
+              "softmax_xent": 1}
+    expected = {k: v * TRAIN_MICROBATCHES * TRAIN_STEPS
+                for k, v in per_mb.items()}
+    out = {"arch": cfg.name, "params": count_params(cfg),
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "microbatches": TRAIN_MICROBATCHES, "steps": n_steps,
+           "init_seconds": init_s, "step_seconds": step_s,
+           "ms_per_step": ms, "tokens_per_s": tokens / (ms / 1e3),
+           "history": history, "launches": counts,
+           "launches_per_step": {k: counts[k] / TRAIN_STEPS
+                                 for k in expected},
+           "peak_mem_gb": peak_gb}
+    print("gemma-2b training:", json.dumps(out), flush=True)
+    check(all(math.isfinite(h[k]) for h in history
+              for k in ("loss", "ce", "z_loss", "log_prior", "grad_norm")),
+          "a training loss, metric or grad norm is not finite")
+    check(history[-1]["ce"] < history[0]["ce"]
+          and history[-1]["loss"] < history[0]["loss"],
+          f"the loss did not fall over {TRAIN_STEPS} steps on a fixed batch: "
+          f"ce {history[0]['ce']} -> {history[-1]['ce']}, MAP loss "
+          f"{history[0]['loss']} -> {history[-1]['loss']}")
+    check(n_steps == TRAIN_STEPS, f"state['step'] is {n_steps}")
+    check(all(counts[k] == v for k, v in expected.items()),
+          f"{TRAIN_STEPS} training steps launched {counts}, not {expected}")
+
+    out["profile"] = device_profile(lambda: step(state, batch), 1)
+    print("gemma-2b training profile:", json.dumps(out["profile"]),
+          flush=True)
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lstate, lhist = train_mod.main([
+        "--arch", TRAIN_ARCH, "--steps", str(TRAIN_LAUNCHER_STEPS),
+        "--seq-len", str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH),
+        "--microbatches", str(TRAIN_MICROBATCHES), "--log-every", "1"])
+    out["launcher"] = {"seconds": time.perf_counter() - t0,
+                       "steps": lstate["step"], "history": lhist,
+                       "launches": ops.launch_counts()}
+    print("train launcher:", json.dumps(out["launcher"]), flush=True)
+    check(lstate["step"] == TRAIN_LAUNCHER_STEPS
+          and all(math.isfinite(h["loss"]) for h in lhist),
+          f"the launcher ran {lstate['step']} steps: {lhist}")
+    del lstate
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_train_f32_check(dev):
+    """A full-width, TRAIN_F32_LAYERS-layer float32 gemma (params from seed 0
+    on the card, remat "full"): the loss and every gradient leaf of one
+    microbatch through the kernels, and again through the plain versions on
+    the card (``ops.SPECS`` and ``ops.BACKWARD`` pointed at them).  In
+    float32 the two differ by the kernels' own rounding: the bound is
+    TRAIN_F32_REL_TOL of the largest |grad| (of |loss| for the loss)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.optim import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_F32_LAYERS, dtype="float32")
+    lm = LM(cfg, remat="full")
+    w = lm.init(torch.Generator(device=dev).manual_seed(0))
+    batch = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ,
+                            TRAIN_BATCH // TRAIN_MICROBATCHES,
+                            seed=0).batch_at(0, device=dev)
+
+    def loss_and_grads():
+        wg = tree_map(lambda p: p.detach().requires_grad_(), w)
+        loss, _ = lm.forward(wg, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(wg))
+        return loss.detach(), grads
+
+    ops.reset_launch_counts()
+    got_loss, got = loss_and_grads()
+    counts = ops.launch_counts()
+    saved, saved_bwd = dict(ops.SPECS), dict(ops.BACKWARD)
+    try:
+        for name in ("rmsnorm", "attention", "softmax_xent"):
+            ops.SPECS[name] = saved[name]._replace(kernel=saved[name].ref)
+        for name in ("rmsnorm_bwd", "attention_dq", "attention_dkv"):
+            ops.BACKWARD[name] = saved_bwd[name]._replace(
+                kernel=saved_bwd[name].ref)
+        want_loss, want = loss_and_grads()
+    finally:
+        ops.SPECS.update(saved)
+        ops.BACKWARD.update(saved_bwd)
+    torch.cuda.synchronize()
+    max_grad = max(float(g.abs().max()) for g in want)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    tol = TRAIN_F32_REL_TOL * max_grad
+    loss_err = float((got_loss - want_loss).abs())
+    loss_tol = TRAIN_F32_REL_TOL * max(1.0, float(want_loss.abs()))
+    L = TRAIN_F32_LAYERS
+    expected = {"rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
+                "attention": 2 * L, "attention_dq": L, "attention_dkv": L,
+                "softmax_xent": 1}
+    out = {"layers": L, "dtype": "float32", "loss": float(want_loss),
+           "loss_abs_err": loss_err, "loss_tol": loss_tol,
+           "grad_max_abs_err": err, "max_abs_grad": max_grad, "grad_tol": tol,
+           "grad_leaves": len(got), "launches": counts}
+    print("gemma 2-layer float32 training kernels vs plain:", json.dumps(out),
+          flush=True)
+    check(math.isfinite(float(got_loss))
+          and all(bool(torch.isfinite(g).all()) for g in got),
+          "a float32 loss or gradient is not finite")
+    check(loss_err <= loss_tol, f"float32 loss through the kernels differs "
+                                f"by {loss_err} > {loss_tol}")
+    check(err <= tol, f"float32 gradients through the kernels differ from "
+                      f"the plain versions by {err} > {tol}")
+    check(all(counts[k] == v for k, v in expected.items()),
+          f"the 2-layer float32 step launched {counts}, not {expected}")
+    return out
+
+
+def train_kernel_rows(timing, checks, train):
+    """The kernel-table rows of the training slice's four kernels: times
+    and bounds at gemma-2b's shapes, and the launches of the 8-step run."""
+    from repro_torch.kernels.ops import BACKWARD, SPECS
+    rows = []
+    libraries = {"rmsnorm_bwd": "backward of torch.nn.functional.rms_norm:"
+                 " dx and dw in one call",
+                 "attention_dq": "backward of torch.nn.functional."
+                 "scaled_dot_product_attention(enable_gqa=True): dq, dk and "
+                 "dv in one call",
+                 "softmax_xent": None}
+    libraries["attention_dkv"] = libraries["attention_dq"]
+    for name, source, shape in (
+            ("rmsnorm_bwd", "rmsnorm.cu", RMS_BWD_MAIN),
+            ("attention_dq", "flash_attention_bwd.cu", ATTN_BWD_MAIN),
+            ("attention_dkv", "flash_attention_bwd.cu", ATTN_BWD_MAIN),
+            ("softmax_xent", "softmax_xent.cu", XENT_MAIN)):
+        times, (bound_ms, bound_by), err = timing[name]
+        spec = SPECS[name] if name in SPECS else BACKWARD[name]
+        rows.append({
+            "name": name, "route": spec.route,
+            "source": "src/repro_torch/csrc/" + source,
+            "replaces": spec.replaces,
+            "launches": train["launches"][name],
+            "launches_per_step": train["launches_per_step"][name],
+            "max_abs_err": max(c["max_abs_err"] for c in checks
+                               if c["name"] == name),
+            "max_abs_err_main_shape": err,
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "call_ms": times["call_ms"],
+            "plain_call_ms": times["plain_call_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": times["library_ms"], "library": libraries[name],
+            **({"logits_matmul_ms": times["logits_matmul_ms"]}
+               if "logits_matmul_ms" in times else {}),
+            "shape": list(shape), "dtype": "bfloat16"})
     return rows
 
 
@@ -1404,7 +1860,8 @@ def main():
     t_start = time.perf_counter()
     build_s = _build.build_all(["leapfrog", "glm_potential",
                                 "enum_contract", "leapfrog_batch",
-                                "mala_step", "rmsnorm", "flash_attention"])
+                                "mala_step", "rmsnorm", "flash_attention",
+                                "flash_attention_bwd", "softmax_xent"])
     print("build seconds:", json.dumps(build_s), flush=True)
     phase_s = {}
     t0 = time.perf_counter()
@@ -1418,8 +1875,18 @@ def main():
     lm = run_lm(dev)
     torch.cuda.empty_cache()
     run_lm_f32_check(dev)
-    kernels += lm_kernel_rows(lm_checks, lm_timing, lm)
+    torch.cuda.empty_cache()
     phase_s["lm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr_checks, tr_timing = train_kernel_checks(dev)
+    print("train kernel checks:", json.dumps(tr_checks), flush=True)
+    print("train kernel timings:", json.dumps(tr_timing), flush=True)
+    train = run_train(dev)
+    torch.cuda.empty_cache()
+    run_train_f32_check(dev)
+    phase_s["train"] = time.perf_counter() - t0
+    kernels += lm_kernel_rows(lm_checks, lm_timing, lm, train)
+    kernels += train_kernel_rows(tr_timing, tr_checks, train)
     print("phase seconds:", json.dumps(phase_s), flush=True)
     print("wall seconds:", time.perf_counter() - t_start, flush=True)
     print(card)

@@ -1,12 +1,15 @@
-// RMSNorm forward over the rows of a (rows, d) matrix:
+// RMSNorm forward and backward over the rows of a (rows, d) matrix:
 //     out[r, :] = x[r, :] * rsqrt(mean(x[r, :]^2) + eps) * w
-// with float32 statistics and a float32 weight, the result cast to x's type
-// (bfloat16 or float32).
+//     dx[r, :]  = rstd * (g * w) - xhat * rstd * mean(g * w * xhat)
+//     dw        = sum_r g[r, :] * xhat[r, :]        (xhat = x * rstd)
+// with float32 statistics and a float32 weight; out and dx in x's type
+// (bfloat16 or float32), dw in float32.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/rmsnorm.py:_fwd_kernel
-// (reached through _fwd, rmsnorm.py:49).  The TPU kernel tiles 256 rows by
-// the full width into VMEM and asserts rows % 256 == 0 above 256 rows; here
-// one warp owns one row, so any row count is taken and nothing is padded.
+// Forward: replaces the Pallas TPU kernel src/repro/kernels/rmsnorm.py:
+// _fwd_kernel (reached through _fwd, rmsnorm.py:49).  The TPU kernel tiles
+// 256 rows by the full width into VMEM and asserts rows % 256 == 0 above 256
+// rows; here one warp owns one row, so any row count is taken and nothing is
+// padded.
 //
 // What bounds it: every element is read and its result written once, so
 // 2 * rows * d * sizeof(T) bytes plus the weight row, with ~4 float32
@@ -16,6 +19,18 @@
 // loads are contiguous; the second pass re-reads the row (16 KB at
 // d = 4096 in bfloat16) from L1/L2 rather than holding it in registers, which
 // keeps the kernel independent of d.  Eight rows (warps) per block.
+//
+// Backward: replaces src/repro/kernels/rmsnorm.py:_bwd_kernel (reached
+// through _bwd, rmsnorm.py:67).  As there, rstd is recomputed from the saved
+// x (cheaper than storing it for the large activations this normalizes) and
+// dw comes out as per-block float32 partials that are summed afterwards.
+// Blocks run in no order on the card, so the partials are summed by a second
+// kernel, one thread per column walking the blocks in order: no atomics, the
+// same bits on every run.  A block owns 8 rows: each warp first reduces one
+// row's sum(x^2) and sum(g * w * x); then the block's threads walk the
+// columns (adjacent threads on adjacent columns: coalesced) and, for each,
+// the 8 rows, writing dx and summing the column's dw partial.  Bound by
+// bytes: x and g read, dx written, plus rows / 8 float32 partial rows.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -72,6 +87,90 @@ cudaError_t launch(const void* x, const void* w, void* out, long long rows,
   return cudaGetLastError();
 }
 
+
+// rows [row0, row0 + WARPS) of one block: each warp reduces one row
+template <typename T>
+__global__ void __launch_bounds__(WARPS * 32)
+    rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                       const T* __restrict__ g, T* __restrict__ dx,
+                       float* __restrict__ dw_part, long long rows, int d,
+                       float eps) {
+  __shared__ float rstd_s[WARPS];
+  __shared__ float c_s[WARPS];  // rstd * mean(g * w * xhat)
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long row0 = (long long)blockIdx.x * WARPS;
+  const long long row = row0 + warp;
+  if (row < rows) {
+    const T* xr = x + row * d;
+    const T* gr = g + row * d;
+    float ss = 0.f, sgwx = 0.f;
+    for (int i = lane; i < d; i += 32) {
+      const float xv = to_f(xr[i]);
+      ss = fmaf(xv, xv, ss);
+      sgwx = fmaf(to_f(gr[i]) * w[i], xv, sgwx);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      sgwx += __shfl_xor_sync(0xffffffffu, sgwx, off);
+    }
+    const float r = rsqrtf(ss / (float)d + eps);
+    if (lane == 0) {
+      rstd_s[warp] = r;
+      // mean(g * w * xhat) = r * sum(g * w * x) / d, times r for dx
+      c_s[warp] = r * (r * sgwx / (float)d);
+    }
+  }
+  __syncthreads();
+  const int nrows = (int)min((long long)WARPS, rows - row0);
+  for (int col = threadIdx.x; col < d; col += WARPS * 32) {
+    const float wc = w[col];
+    float acc = 0.f;
+    for (int i = 0; i < nrows; ++i) {
+      const long long off = (row0 + i) * d + col;
+      const float r = rstd_s[i];
+      const float xv = to_f(x[off]);
+      const float gv = to_f(g[off]);
+      const float xhat = xv * r;
+      dx[off] = from_f<T>(r * (gv * wc) - xhat * c_s[i]);
+      acc = fmaf(gv, xhat, acc);
+    }
+    dw_part[(long long)blockIdx.x * d + col] = acc;
+  }
+}
+
+// dw[col] = sum over the blocks' partials, in block order
+__global__ void rmsnorm_dw_sum_kernel(const float* __restrict__ dw_part,
+                                      float* __restrict__ dw, int nblocks,
+                                      int d) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= d) return;
+  float s = 0.f;
+  for (int b = 0; b < nblocks; ++b) s += dw_part[(long long)b * d + col];
+  dw[col] = s;
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* w, const void* g, void* dx,
+                       void* dw_part, void* dw, long long rows, int d,
+                       float eps, void* stream) {
+  if (d <= 0) return cudaSuccess;
+  const long long blocks = (rows + WARPS - 1) / WARPS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (blocks > 0) {
+    rmsnorm_bwd_kernel<T><<<(unsigned)blocks, WARPS * 32, 0, s>>>(
+        (const T*)x, (const float*)w, (const T*)g, (T*)dx, (float*)dw_part,
+        rows, d, eps);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  rmsnorm_dw_sum_kernel<<<(unsigned)((d + 255) / 256), 256, 0, s>>>(
+      (const float*)dw_part, (float*)dw, (int)blocks, d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int rmsnorm_fwd_f32(const void* x, const void* w, void* out,
@@ -84,4 +183,21 @@ extern "C" int rmsnorm_fwd_bf16(const void* x, const void* w, void* out,
                                 long long rows, int d, float eps,
                                 void* stream) {
   return (int)launch<__nv_bfloat16>(x, w, out, rows, d, eps, stream);
+}
+
+// dw_part holds ceil(rows / 8) * d floats of scratch
+extern "C" int rmsnorm_bwd_f32(const void* x, const void* w, const void* g,
+                               void* dx, void* dw_part, void* dw,
+                               long long rows, int d, float eps,
+                               void* stream) {
+  return (int)launch_bwd<float>(x, w, g, dx, dw_part, dw, rows, d, eps,
+                                stream);
+}
+
+extern "C" int rmsnorm_bwd_bf16(const void* x, const void* w, const void* g,
+                                void* dx, void* dw_part, void* dw,
+                                long long rows, int d, float eps,
+                                void* stream) {
+  return (int)launch_bwd<__nv_bfloat16>(x, w, g, dx, dw_part, dw, rows, d,
+                                        eps, stream);
 }

@@ -13,7 +13,10 @@ The JAX key is not carried: this package's draws come from a
 
 :func:`lm_params_from_reference` carries a JAX ``LM``'s params tree across
 leaf by leaf: both packages declare the same tree, stacked layer dims
-included.
+included.  :func:`train_state_from_reference` carries a JAX train state
+(``{"params", "opt": ((), AdamState(count, mu, nu)), "step"}``, the state
+``repro.launch.steps.make_train_state`` builds for AdamW) across the same
+way.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from .core.infer.ensemble import AdamState, ChEESAdaptState, ChEESState
 from .core.infer.hmc import AdaptState, HMCState
 from .core.infer.hmc_util import DAState, WelfordState
 from .core.infer.mala import MRWAdaptState, MRWState
+from .optim import AdamState as OptAdamState
 
 _F32 = np.float32
 
@@ -111,3 +115,15 @@ def lm_params_from_reference(tree, device="cpu"):
         return {k: lm_params_from_reference(v, device)
                 for k, v in tree.items()}
     return _leaf_tensor(tree, torch.device(device))
+
+
+def train_state_from_reference(state, device="cpu"):
+    """The port's train state holding a JAX AdamW train state's values
+    (after ``jax.device_get``): params, the clip's empty state and the Adam
+    count and moments, and the step as host ints."""
+    clip, adam = state["opt"]
+    return {"params": lm_params_from_reference(state["params"], device),
+            "opt": (tuple(clip), OptAdamState(
+                int(adam.count), lm_params_from_reference(adam.mu, device),
+                lm_params_from_reference(adam.nu, device))),
+            "step": int(state["step"])}

@@ -10,9 +10,12 @@ For a ported op, tensors on the CPU take the plain version and tensors on a
 card launch the kernel; a kernel that cannot build or launch raises rather
 than falling back.  A ref-only row (no TPU kernel in the JAX package) names
 its plain version once ported and runs it on every device.  A ported op
-whose gradient is a kernel of its own names it in ``BACKWARD`` (the JAX
-package has no row for it: it differentiates the jnp reference); its
-launches are counted with the rest.
+whose gradient is a kernel of its own names it in ``BACKWARD``, with its
+plain version, routed the same way: the backward passes of ``rmsnorm`` and
+``attention`` (TPU kernels of their own in the JAX package, reached through
+its ``custom_vjp``s) and of ``enum_contract`` (which the JAX package
+differentiates through its jnp reference).  Their launches are counted with
+the rest.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from . import enum_contract as _enum_contract
 from . import flash_attention as _flash
 from . import glm_potential, leapfrog, rwm_mala
 from . import rmsnorm as _rmsnorm
+from . import softmax_xent as _xent
 
 
 class OpSpec(NamedTuple):
@@ -79,37 +83,54 @@ OP_TABLE = (
            _K + "enum_contract.py:50", True, 0.0),
     OpSpec("rmsnorm", _rmsnorm.rmsnorm_cuda, _rmsnorm.rmsnorm_ref, "cuda",
            _K + "rmsnorm.py:49", False, 2e-5),
-    OpSpec("softmax_xent", None, None, None,
-           _K + "softmax_xent.py:57", False, 1e-4),
+    OpSpec("softmax_xent", _xent.softmax_xent_cuda, _xent.softmax_xent_ref,
+           "cuda", _K + "softmax_xent.py:57", False, 1e-4),
     OpSpec("ssd_scan", None, None, None, _K + "ssd_scan.py:64", False, 1e-4),
     OpSpec("ssd_decode_step", None, None, None, None, False, 0.0),
 )
 
 SPECS = {spec.name: spec for spec in OP_TABLE}
 PORTED = tuple(spec.name for spec in OP_TABLE if spec.kernel is not None)
-# backward kernels of ported ops (name -> CUDA wrapper)
-BACKWARD = {"enum_contract_bwd": _enum_contract.enum_contract_bwd_cuda}
+# backward kernels of ported ops; ``replaces`` is the TPU kernel's function
+# where the JAX package has one
+BACKWARD = {spec.name: spec for spec in (
+    OpSpec("enum_contract_bwd", _enum_contract.enum_contract_bwd_cuda,
+           _enum_contract.enum_contract_bwd_ref, "cuda", None, False, 1e-6),
+    OpSpec("rmsnorm_bwd", _rmsnorm.rmsnorm_bwd_cuda, _rmsnorm.rmsnorm_bwd_ref,
+           "cuda", _K + "rmsnorm.py:67", False, 2e-5),
+    OpSpec("attention_dq", _flash.flash_attention_dq_cuda,
+           _flash.flash_attention_dq_ref, "cuda",
+           _K + "flash_attention.py:184", False, 2e-4),
+    OpSpec("attention_dkv", _flash.flash_attention_dkv_cuda,
+           _flash.flash_attention_dkv_ref, "cuda",
+           _K + "flash_attention.py:184", False, 2e-4),
+)}
 
 
 def _counted():
-    return {**{name: SPECS[name].kernel for name in PORTED}, **BACKWARD}
+    return {**{name: SPECS[name].kernel for name in PORTED},
+            **{name: spec.kernel for name, spec in BACKWARD.items()}}
 
 
 def _route(name, tensor):
     """The plain version for a tensor on the CPU, else the kernel."""
-    spec = SPECS[name]
+    spec = SPECS[name] if name in SPECS else BACKWARD[name]
     return spec.ref if tensor.device.type == "cpu" else spec.kernel
 
 
 def attention(q, k, v, *, causal=True, scale=None, window=0):
     """GQA-aware attention over a whole sequence, ``q (B, S, H, dq), k (B,
-    S, K, dq), v (B, S, K, dv) -> (B, S, H, dv)``.  ``window > 0`` (a
-    sliding window) takes the plain version on every device, as the JAX
-    package's ``flash_attention`` hands it to its jnp reference."""
+    S, K, dq), v (B, S, K, dv) -> (B, S, H, dv)``, differentiable
+    (:class:`~repro_torch.kernels.flash_attention.FlashAttention`).
+    ``window > 0`` (a sliding window) takes the plain version on every
+    device, as the JAX package's ``flash_attention`` hands it to its jnp
+    reference."""
     if window:
         return _flash.flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                           window=window)[0]
-    return _route("attention", q)(q, k, v, causal=causal, scale=scale)[0]
+    return _flash.FlashAttention.apply(
+        q, k, v, causal, scale, _route("attention", q),
+        _route("attention_dq", q), _route("attention_dkv", q))[0]
 
 
 def decode_attention(q, k, v, mask, *, scale=None):
@@ -119,9 +140,19 @@ def decode_attention(q, k, v, mask, *, scale=None):
 
 
 def rmsnorm(x, weight, eps=1e-6):
-    """RMSNorm over the last axis, float32 statistics, result in x's
-    dtype."""
-    return _route("rmsnorm", x)(x, weight, eps)
+    """RMSNorm over the last axis, float32 statistics, result in x's dtype;
+    differentiable (:class:`~repro_torch.kernels.rmsnorm.RMSNorm`)."""
+    return _rmsnorm.RMSNorm.apply(x, weight, eps, _route("rmsnorm", x),
+                                  _route("rmsnorm_bwd", x))
+
+
+def softmax_xent(x, w_unembed, labels, *, z_loss_weight=0.0):
+    """``x (T, d)``, ``w_unembed (d, V)``, ``labels (T,)`` -> ``(ce,
+    z_loss)``, each (T,) float32, without the (T, V) float32 logits kept
+    whole; differentiable in ``x`` and ``w_unembed``
+    (:class:`~repro_torch.kernels.softmax_xent.SoftmaxXent`)."""
+    return _xent.SoftmaxXent.apply(x, w_unembed, labels, z_loss_weight,
+                                   _route("softmax_xent", x))
 
 
 def leapfrog_halfstep(z, r, grad, m_inv, eps):

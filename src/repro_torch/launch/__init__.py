@@ -1,3 +1,4 @@
-"""Launchers of the port: the serving half of the JAX package's
-``repro/launch`` (``steps.make_prefill_step``/``make_serve_step`` and
-``serve.main``).  Training waits for its slice."""
+"""Launchers of the port (``repro/launch`` of the JAX package): the step
+factories of ``steps`` (train, prefill, serve), ``train.main`` and
+``serve.main``.  The multi-pod dry-run and the mesh wait for the multi-GPU
+item (ROADMAP.md)."""

@@ -18,6 +18,7 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import handlers
 from ..core.errors import pending
@@ -130,26 +131,43 @@ def _block_cache(cfg: ModelConfig, spec: LayerSpec, batch, seq_len, dtype,
                                        stacked)}
 
 
-def _layer(tree, i):
-    """Entry ``i`` of every stacked leaf of ``tree``: views, no copies."""
+def _unbind(tree, n):
+    """The ``n`` layers of every stacked leaf of ``tree``, one
+    ``torch.unbind`` per leaf: a list of ``n`` trees of views."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return torch.unbind(tree, 0)
+
+
+def _requires_grad(tree):
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    return tree.requires_grad
 
 
 # ---------------------------------------------------------------------------
 # the LM
 # ---------------------------------------------------------------------------
 
+REMAT_POLICIES = ("none", "full")  # the JAX package's "dots" is not ported
+
+
 class LM:
     """A decoder-only language model built from a :class:`ModelConfig`,
-    expressed with ``param`` effect sites.  (The JAX package's ``remat``
-    policy waits for the training slice: serving keeps no activations.)"""
+    expressed with ``param`` effect sites.  ``remat`` is ``"full"`` (each
+    layer recomputed in the backward, the JAX package's default) or
+    ``"none"``; ``"dots"`` raises ``RPL501``."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, remat: str = "full"):
         check_supported(cfg)
+        if remat == "dots":
+            raise pending("the 'dots' rematerialization policy", "training")
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"remat is one of {REMAT_POLICIES}, got {remat!r}")
         self.cfg = cfg
         self.groups = layer_groups(cfg)
+        self.remat = remat
 
     # -- parameters ---------------------------------------------------------
     def params_fn(self):
@@ -198,29 +216,48 @@ class LM:
     # -- the layer stack ------------------------------------------------------
     def _run_groups(self, w, x, rope):
         cfg = self.cfg
+        remat = self.remat == "full" and torch.is_grad_enabled()
         for g in self.groups:
-            for i in range(g.n):
-                wi = _layer(w[g.name], i)
-                for j, spec in enumerate(g.specs):
+            # recompute in the backward only where a backward can happen:
+            # serving runs with grad enabled but nothing requiring it
+            ckpt = remat and (x.requires_grad or _requires_grad(w[g.name]))
+
+            def body(x, wi, _g=g):
+                for j, spec in enumerate(_g.specs):
                     x = _block_apply(cfg, spec, wi[f"p{j}"], x, rope)
+                return x
+
+            for wi in _unbind(w[g.name], g.n):
+                x = checkpoint(body, x, wi, use_reentrant=False,
+                               preserve_rng_state=False) if ckpt \
+                    else body(x, wi)
         return x
 
-    # -- prefill forward -----------------------------------------------------
+    # -- training / prefill forward ------------------------------------------
     def forward(self, w, batch, return_logits=False):
-        """batch: ``{"tokens": (B, S)}``.  ``return_logits="last"`` gives the
-        next-token logits (B, V) (prefill), ``True`` all of them (B, S, V).
-        The training loss waits for the ``softmax_xent`` kernel."""
-        if not return_logits:
-            raise pending("the training loss (softmax_xent)", "training")
+        """batch: ``{"tokens": (B, S)}`` [+ ``"labels"`` (B, S)].  Returns
+        ``(loss, metrics)``, the next-token logits (B, V) with
+        ``return_logits="last"`` (prefill), or all of them (B, S, V) with
+        ``True``.  The loss is ``mean(ce) + mean(z_loss)`` through
+        ``ops.softmax_xent``; ``metrics`` holds ``ce``, ``z_loss`` and
+        ``loss``."""
+        cfg = self.cfg
         tokens = batch["tokens"]
+        B, S = tokens.shape
         x = self._embed(w, tokens)
-        rope = self._rope(tokens.shape[1], x.device)
+        rope = self._rope(S, x.device)
         x = self._run_groups(w, x, rope)
         x = ops.rmsnorm(x, w["final_norm"])
         uw = self._unembed_w(w)
         if return_logits == "last":   # prefill: logits for the next token
             return torch.matmul(x[:, -1:], uw.to(x.dtype))[:, 0]
-        return torch.matmul(x, uw.to(x.dtype))
+        if return_logits:
+            return torch.matmul(x, uw.to(x.dtype))
+        ce, zl = ops.softmax_xent(x.reshape(B * S, cfg.d_model),
+                                  uw.to(x.dtype), batch["labels"].reshape(-1),
+                                  z_loss_weight=cfg.z_loss_weight)
+        loss = ce.mean() + zl.mean()
+        return loss, {"ce": ce.mean(), "z_loss": zl.mean(), "loss": loss}
 
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch, seq_len, device="cuda"):
@@ -242,8 +279,8 @@ class LM:
         x = self._embed(w, tokens)
         rope = rope_at(pos, cfg.head_dim, base=cfg.rope_base, device=x.device)
         for g in self.groups:
-            for i in range(g.n):
-                wi, ci = _layer(w[g.name], i), _layer(cache[g.name], i)
+            for wi, ci in zip(_unbind(w[g.name], g.n),
+                              _unbind(cache[g.name], g.n)):
                 for j, spec in enumerate(g.specs):
                     x, _ = _block_decode(cfg, spec, wi[f"p{j}"], x,
                                          ci[f"p{j}"], pos, rope)

@@ -19,7 +19,9 @@ from repro_torch.kernels.leapfrog import (leapfrog_halfstep_batch_cuda,
                                           leapfrog_halfstep_batch_ref,
                                           leapfrog_halfstep_cuda,
                                           leapfrog_halfstep_ref)
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+from repro_torch.kernels import softmax_xent as xent
+from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
+                                         rmsnorm_cuda, rmsnorm_ref)
 from repro_torch.kernels.rwm_mala import mala_step_cuda, mala_step_ref
 
 TOL = {spec.name: spec.tol for spec in ops.OP_TABLE}
@@ -292,3 +294,152 @@ def test_reduced_qwen3_prefill_on_card():
         ops.SPECS.update(saved)
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the training slice: rmsnorm backward, flash-attention dq/dkv, softmax_xent
+# ---------------------------------------------------------------------------
+
+def test_train_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros(3, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_bwd_cuda(x, torch.ones(8), x)
+    q = torch.zeros(1, 4, 2, 8)
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention_dq_cuda(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention_dkv_cuda(q, q, q, lse, lse, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        xent.softmax_xent_cuda(x, torch.zeros(8, 5),
+                               torch.zeros(3, dtype=torch.int32))
+
+
+def test_softmax_xent_reads_both_weight_layouts_without_a_copy():
+    """The kernel's two layouts: a row-major (d, V) unembedding and the
+    transpose of a row-major (V, d) embedding; any other strides raise
+    rather than copy the weight."""
+    w = torch.zeros(4, 6)
+    assert xent._layout(w) == 0
+    assert xent._layout(torch.zeros(6, 4).T) == 1
+    with pytest.raises(ValueError, match="strides"):
+        xent._layout(torch.zeros(4, 12)[:, ::2])
+    # a size-1 dimension may have any stride, the other one may not: a
+    # column slice (d, 1) of a wider matrix is not contiguous memory
+    assert xent._layout(torch.zeros(4, 1)) == 0
+    assert xent._layout(torch.zeros(1, 4).T) == 0
+    assert xent._layout(torch.zeros(4, 12)[1:2]) == 0
+    for column in (torch.zeros(4, 12)[:, 3:4], torch.zeros(12, 4)[:, 1:2],
+                   torch.zeros(12, 4)[:, 1:2].T):
+        with pytest.raises(ValueError, match="strides"):
+            xent._layout(column)
+
+
+@pytest.mark.cuda
+def test_train_kernel_wrappers_refuse_bad_operands_on_card():
+    dev = _need_card()
+    x = torch.zeros(3, 8, device=dev)
+    w = torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="g is"):
+        rmsnorm_bwd_cuda(x, w, torch.zeros(3, 7, device=dev))
+    q = torch.zeros(1, 4, 2, 8, device=dev)
+    lse = torch.zeros(1, 2, 4, device=dev)
+    with pytest.raises(ValueError, match="lse is"):
+        flash.flash_attention_dq_cuda(q, q[:, :, :1], q[:, :, :1], q,
+                                      lse[:, :, :3], q)
+    with pytest.raises(ValueError, match="strides"):
+        xent.softmax_xent_cuda(x, torch.zeros(8, 10, device=dev)[:, ::2],
+                               torch.zeros(3, dtype=torch.int32, device=dev))
+    for bad in (-1, 5):
+        labels = torch.tensor([0, bad, 1], dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="labels must lie"):
+            xent.softmax_xent_cuda(x, torch.zeros(8, 5, device=dev), labels)
+    # a captured call cannot read the labels back: the kernel gives NaN
+    w5 = torch.zeros(8, 5, device=dev)
+    xent.softmax_xent_cuda(x, w5, torch.zeros(3, dtype=torch.int32,
+                                              device=dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ce = xent.softmax_xent_cuda(x, w5, labels)[0]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.isnan(ce[1]) and torch.isfinite(ce[[0, 2]]).all()
+
+
+RMSNORM_BWD_SHAPES = [(2048, 2048), (4, 512, 32, 128), (7, 96), (1, 1),
+                      (3, 5, 4097)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_kernel_matches_plain_on_card(dtype):
+    dev = _need_card()
+    ops.reset_launch_counts()
+    for i, shape in enumerate(RMSNORM_BWD_SHAPES):
+        rng = np.random.default_rng(i)
+        x, g = (torch.from_numpy(rng.standard_normal(shape)).to(dtype).to(dev)
+                for _ in range(2))
+        w = torch.from_numpy(rng.uniform(0.5, 1.5, shape[-1])).float().to(dev)
+        dx, dw = rmsnorm_bwd_cuda(x, w, g)
+        rdx, rdw = rmsnorm_bwd_ref(x, w, g)
+        _assert_close(dx, rdx, TOL["rmsnorm"])
+        # dw sums over every row: the bound is relative to its largest entry
+        _assert_close(dw, rdw, TOL["rmsnorm"] * max(1.0,
+                                                    float(rdw.abs().max())))
+    assert ops.launch_counts()["rmsnorm_bwd"] == len(RMSNORM_BWD_SHAPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernels_match_plain_on_card(dtype):
+    dev = _need_card()
+    ops.reset_launch_counts()
+    cases = FLASH_SHAPES + [(2, 1024, 8, 1, 256, 256, True)]
+    for i, (B, S, H, K, dq, dv, causal) in enumerate(cases):
+        rng = np.random.default_rng(i)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+                       .to(dev) for shape in ((B, S, H, dq), (B, S, K, dq),
+                                              (B, S, K, dv), (B, S, H, dv)))
+        o, lse = (t.contiguous() for t in
+                  flash.flash_attention_ref(q, k, v, causal=causal))
+        dq_, delta = flash.flash_attention_dq_cuda(q, k, v, o, lse, do,
+                                                   causal)
+        rdq, rdelta = flash.flash_attention_dq_ref(q, k, v, o, lse, do,
+                                                   causal)
+        rdelta = rdelta.contiguous()
+        _assert_close(dq_, rdq, TOL["attention"])
+        _assert_close(delta, rdelta, TOL["attention"])
+        dk, dv_ = flash.flash_attention_dkv_cuda(q, k, v, lse, rdelta, do,
+                                                 causal)
+        rdk, rdv = flash.flash_attention_dkv_ref(q, k, v, lse, rdelta, do,
+                                                 causal)
+        _assert_close(dk, rdk, TOL["attention"])
+        _assert_close(dv_, rdv, TOL["attention"])
+    counts = ops.launch_counts()
+    assert counts["attention_dq"] == counts["attention_dkv"] == len(cases)
+
+
+# (T, d, V, tied): gemma-2b's microbatch (a tied (V, d) embedding), a
+# Qwen3-shaped (d, V) unembedding with its ragged V, ragged small ones
+XENT_SHAPES = [(2048, 2048, 256000, True), (256, 4096, 151936, False),
+               (37, 24, 301, False), (130, 64, 1000, True), (1, 8, 3, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_xent_kernel_matches_plain_on_card(dtype):
+    dev = _need_card()
+    ops.reset_launch_counts()
+    for i, (T, d, V, tied) in enumerate(XENT_SHAPES):
+        gen = torch.Generator(device=dev).manual_seed(i)
+        x = torch.randn(T, d, generator=gen, device=dev).to(dtype)
+        w = (torch.randn((V, d) if tied else (d, V), generator=gen,
+                         device=dev) * 0.05).to(dtype)
+        w = w.T if tied else w
+        labels = torch.randint(0, V, (T,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        got = xent.softmax_xent_cuda(x, w, labels, 1e-4)
+        want = xent.softmax_xent_ref(x, w, labels, 1e-4)
+        for a, b in zip(got, want):
+            _assert_close(a, b, TOL["softmax_xent"])
+    assert ops.launch_counts()["softmax_xent"] == len(XENT_SHAPES)

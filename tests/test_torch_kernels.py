@@ -48,9 +48,19 @@ def test_op_table_has_the_reference_rows():
             assert text.startswith("def ") or text.startswith("    def ")
     assert ops.PORTED == ("attention", "leapfrog_halfstep",
                           "leapfrog_halfstep_batch", "glm_potential_grad",
-                          "mala_step", "enum_contract", "rmsnorm")
-    # backward kernels are counted with the rest
+                          "mala_step", "enum_contract", "rmsnorm",
+                          "softmax_xent")
+    # backward kernels are counted with the rest; each names its plain
+    # version and, where the JAX package has one, the TPU kernel's function
     assert set(ops.launch_counts()) == set(ops.PORTED) | set(ops.BACKWARD)
+    for name, spec in ops.BACKWARD.items():
+        assert spec.name == name and spec.kernel and spec.ref
+        assert spec.route == "cuda"
+        if spec.replaces is not None:
+            path, line = spec.replaces.split(":")
+            text = open(path).read().splitlines()[int(line) - 1]
+            assert text.startswith("def ")
+    assert ops.BACKWARD["enum_contract_bwd"].replaces is None
 
 
 @pytest.mark.parametrize("D", [1, 54, 4099])
