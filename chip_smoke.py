@@ -54,7 +54,23 @@ result line if any fails):
    step; ``launch.train.main`` for 2 steps; then a full-width 2-layer
    float32 gemma's loss and every gradient through the kernels against the
    plain versions.
-5. Print one ``{"kernels": [...]}`` line, then the result line
+5. ``ssm``: hold ``ssd_scan`` against its plain version (float32 within
+   1e-4; bfloat16 ``y`` within one rounding step and the float32 state
+   within 1e-4 of its largest entry; with and without ``D``, with ``h0``,
+   one and two B/C groups, chunks of 256, 64 and one shorter than 256; a
+   ragged length raises), and ``SsdScan``'s kernel forward and its
+   gradients against autograd of the plain version; time it at
+   mamba2-370m's prefill shape; then the
+   full mamba2-370m (bf16, params drawn on the card from seed 0):
+   ``make_prefill_step`` at B = 4, P = 2048 (48 ``ssd_scan`` and 49
+   ``rmsnorm`` launches), the launcher's serving loop at B = 4, P = 512
+   plus 32 sampled tokens (no ``ssd_scan`` and 49 ``rmsnorm`` launches per
+   step: decode is the O(1) state update), its logits at P - 1 against a
+   prefill's, per-token split, busy share, memory peak; then a full-width
+   2-layer float32 mamba2 through the kernels against the plain versions:
+   its prefill, 8 decode steps teacher-forced into a fresh cache, and the
+   caches.
+6. Print one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -170,6 +186,26 @@ ATTN_BWD_SHAPES = (ATTN_BWD_MAIN, ATTN_MAIN) + ATTN_SHAPES[1:]
 XENT_MAIN = (MB_ROWS, 2048, 256000, True)
 XENT_SHAPES = (XENT_MAIN, (512, 4096, 151936, False), (37, 24, 301, False),
                (130, 64, 1000, True), (1, 8, 3, True))
+
+# the Mamba-2 slice: the full mamba2-370m (bf16, 48 layers), a prefill of
+# B = 4 prompts of 2048 tokens (8 chunks of 256), then the launcher's
+# serving loop over B = 4 prompts of 512 and 32 sampled tokens
+SSM_ARCH, SSM_BATCH, SSM_PREFILL_LEN = "mamba2-370m", 4, 2048
+SSM_PROMPT, SSM_TOKENS, SSM_PREFILL_REPS = 512, 32, 3
+# the 2-layer float32 mamba2 through the kernels against the plain versions:
+# its prefill, then SSM_F32_DECODE_STEPS decode steps and their caches
+SSM_F32_LAYERS, SSM_F32_DECODE_STEPS, SSM_F32_REL_TOL = 2, 8, 1e-4
+# ssd_scan checks (b, l, h, p, g, n, chunk): mamba2-370m's prefill (timed),
+# two B/C groups at chunks of 64, one chunk shorter than 256 (l == chunk),
+# the reduced model's widths, p not a multiple of the kernel's 32 channels
+SSD_MAIN = (SSM_BATCH, SSM_PREFILL_LEN, 32, 64, 1, 128, 256)
+SSD_SHAPES = (SSD_MAIN, (2, 512, 32, 64, 2, 128, 64),
+              (2, 200, 8, 64, 1, 128, 200), (2, 64, 16, 16, 1, 16, 32),
+              (1, 96, 4, 40, 2, 24, 32))
+SSD_BWD_SHAPE = (2, 128, 4, 16, 2, 32, 64)  # the SsdScan backward, float32
+# the rmsnorm checks also cover mamba2-370m's block-norm rows at its prefill
+# and at a decode step
+RMS_SHAPES += ((SSM_BATCH * SSM_PREFILL_LEN, 1024), (SSM_BATCH, 1024))
 
 
 def card_line() -> str:
@@ -1337,10 +1373,10 @@ def run_lm_f32_check(dev):
     return out
 
 
-def lm_kernel_rows(checks, timing, lm, train):
+def lm_kernel_rows(checks, timing, lm, train, ssm):
     """The kernel-table rows of ``rmsnorm`` and ``attention``: main-shape
     times and bounds, variants beside them, and the launches of the serving
-    phases and of the training run."""
+    phases, of the training run and of the mamba2 serving phases."""
     from repro_torch.kernels.ops import SPECS
     rows = []
     for name, source, key in (
@@ -1349,7 +1385,9 @@ def lm_kernel_rows(checks, timing, lm, train):
         times, (bound_ms, bound_by), err = timing[key]
         by_phase = {"prefill": lm["prefill_launches"][name],
                     "serve": lm["serve_launches"][name],
-                    "train": train["launches"][name]}
+                    "train": train["launches"][name],
+                    "mamba2_prefill": ssm["prefill_launches"].get(name, 0),
+                    "mamba2_serve": ssm["serve_launches"].get(name, 0)}
         row = {
             "name": name, "route": SPECS[name].route,
             "source": "src/repro_torch/csrc/" + source,
@@ -1763,6 +1801,397 @@ def train_kernel_rows(timing, checks, train):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the Mamba-2 slice: mamba2-370m prefill (ssd_scan) and O(1) decode
+# ---------------------------------------------------------------------------
+
+def ssd_work(b, l, h, p, g, n, chunk, dtype):
+    """(bytes, operations) of one scan: x, B, C and dt read once, y and the
+    float32 state written once; the multiply-adds this run's chunks need:
+    the causal scores C Bᵀ (c (c + 1) / 2 per chunk, each n long) once per
+    B/C group, their product with x under each head's decay (p long), and
+    each head's entering state's part and state update (c p n each)."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = itemsize * (2 * b * l * h * p + 2 * b * l * g * n) \
+        + 4 * (b * l * h + 2 * h + b * h * p * n)
+    nc, tri = l // chunk, chunk * (chunk + 1) // 2
+    macs = b * g * nc * tri * n + b * h * nc * (tri * p + 2 * chunk * p * n)
+    return nbytes, 2 * macs
+
+
+def ssd_bound(b, l, h, p, g, n, chunk, dtype):
+    """The scan's bound at the peak rate of the inputs' type (bf16 tensor
+    cores for bf16)."""
+    return bound(*ssd_work(b, l, h, p, g, n, chunk, dtype), dtype)
+
+
+def ssm_serving_bounds(cfg, w, cache, batch, length):
+    """The least time of the mamba2 serving phases on this run's tensors.
+    Prefill of ``batch`` x ``length`` tokens: the in- and out-projections'
+    products over every token, the unembedding at the last position and
+    every layer's scan (``ssd_work``) at the bf16 rate, beside every weight
+    read once.  Decode step: every weight but the embedding table (of which
+    it reads ``batch`` rows) read once, the state and conv caches read and
+    written once."""
+    from repro_torch.models.ssm import N_GROUPS
+
+    def nbytes(tree):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+    mixer = w["layers"]["p0"]["mixer"]
+    d, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    d_in, h, n = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
+    tokens = batch * length
+    products = 2 * tokens * (mixer["w_in"].numel() + mixer["w_out"].numel()) \
+        + 2 * batch * d * V
+    _, scan = ssd_work(batch, length, h, d_in // h, N_GROUPS, n,
+                       min(cfg.ssm_chunk, length), cfg.torch_dtype)
+    weights = nbytes(w)
+    prefill = bound(weights, products + L * scan, cfg.torch_dtype)
+    decode_bytes = weights - nbytes(w["embed"]) + 2 * nbytes(cache)
+    decode = bound(decode_bytes, 0, cfg.torch_dtype)
+    return {"prefill_bound_ms": prefill[0], "prefill_bound_by": prefill[1],
+            "prefill_flops": products + L * scan, "prefill_scan_flops": L * scan,
+            "decode_bound_ms": decode[0], "decode_bound_by": decode[1],
+            "decode_bytes": decode_bytes, "weight_bytes": weights,
+            "cache_bytes": nbytes(cache)}
+
+
+def _ssd_inputs(b, l, h, p, g, n, dtype, dev, seed):
+    """Inputs in mamba2's ranges: dt in [1e-3, 0.1], A in [-16, -1], x, B
+    and C in ``dtype``, the rest float32."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+    x = (0.5 * randn(b, l, h, p)).to(dtype)
+    dt = 1e-3 + (0.1 - 1e-3) * rand(b, l, h)
+    A = -(1.0 + 15.0 * rand(h))
+    B = (0.3 * randn(b, l, g, n)).to(dtype)
+    C = (0.3 * randn(b, l, g, n)).to(dtype)
+    return x, dt, A, B, C, 0.5 + rand(h), 0.1 * randn(b, h, p, n)
+
+
+def ssm_kernel_checks(dev):
+    """``ssd_scan_cuda`` against ``ssd_scan_ref`` on the card: float32 y
+    and state within OP_TABLE's 1e-4; bfloat16 y within one rounding step
+    and the float32 state within 1e-4 of its largest entry; without D, with
+    D, with D and h0, on SSD_SHAPES; a ragged length raises; ``SsdScan``
+    launches the kernel once forward and its gradients equal autograd of
+    ``ssd_scan_ref`` (float32, within 1e-4 of each gradient's largest
+    entry); then times at the main
+    shape in bfloat16.  No single PyTorch call computes the scan."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+
+    tol = ops.SPECS["ssd_scan"].tol
+    results, timing = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for seed, shape in enumerate(SSD_SHAPES):
+            b, l, h, p, g, n, chunk = shape
+            x, dt, A, B, C, D, h0 = _ssd_inputs(b, l, h, p, g, n, dtype, dev,
+                                                seed)
+            for label, kw in (("", {}), ("D", {"D": D}),
+                              ("D,h0", {"D": D, "h0": h0})):
+                y, st = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, **kw)
+                ry, rst = ssd.ssd_scan_ref(x, dt, A, B, C, chunk=chunk, **kw)
+                torch.cuda.synchronize()
+                if dtype == torch.float32:
+                    y_err = float((y - ry).abs().max())
+                    y_ok = y_err <= tol
+                else:
+                    y_ok, y_err, _ = _bf16_close(y, ry)
+                st_err = float((st - rst).abs().max())
+                st_tol = tol * (1.0 if dtype == torch.float32
+                                else max(1.0, float(rst.abs().max())))
+                ok = y_ok and st_err <= st_tol and bool(
+                    torch.isfinite(y).all() and torch.isfinite(st).all())
+                results.append({"name": "ssd_scan", "shape": list(shape),
+                                "dtype": str(dtype), "operands": label,
+                                "max_abs_err": max(y_err, st_err),
+                                "y_max_abs_err": y_err,
+                                "state_max_abs_err": st_err,
+                                "state_tol": st_tol, "within_bound": ok})
+                check(ok, f"ssd_scan kernel disagrees at {shape} {dtype} "
+                          f"[{label}]: y {y_err}, state {st_err}")
+                if label == "D":
+                    main_err = y_err
+            if dtype == torch.bfloat16 and shape == SSD_MAIN:
+                t = timings(
+                    lambda: ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk,
+                                              D=D),
+                    lambda: ssd.ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
+                                             D=D), 5)
+                t["library_ms"] = None
+                timing["ssd_scan"] = (t, ssd_bound(*shape, dtype), main_err)
+        b, l, h, p, g, n, chunk = SSD_SHAPES[-1]
+        try:
+            ssd.ssd_scan_cuda(x[:, :l - 1], dt[:, :l - 1], A, B[:, :l - 1],
+                              C[:, :l - 1], chunk=chunk)
+            raised = False
+        except ValueError:
+            raised = True
+        check(raised, "ssd_scan_cuda took a length that is not a whole "
+                      "number of chunks")
+
+    b, l, h, p, g, n, chunk = SSD_BWD_SHAPE
+    args = _ssd_inputs(b, l, h, p, g, n, torch.float32, dev, 99)
+    gen = torch.Generator(device=dev).manual_seed(100)
+    gy = torch.randn((b, l, h, p), generator=gen, device=dev)
+    gs = torch.randn((b, h, p, n), generator=gen, device=dev)
+
+    def grads(scan):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        y, st = scan(*leaves)
+        ((y * gy).sum() + (st * gs).sum()).backward()
+        return [a.grad for a in leaves]
+
+    # the backward recomputes the plain version, so what the card can show
+    # is that SsdScan runs the kernel forward (one launch) and wires the
+    # plain gradient through: autograd of ssd_scan_ref called directly
+    ops.reset_launch_counts()
+    got = grads(lambda *a: ssd.SsdScan.apply(*a, chunk, ssd.ssd_scan_cuda))
+    fwd_launches = ops.launch_counts()["ssd_scan"]
+    want = grads(lambda x, dt, A, B, C, D, h0: ssd.ssd_scan_ref(
+        x, dt, A, B, C, chunk=chunk, D=D, h0=h0))
+    errs = [float((a - r).abs().max()) / max(1.0, float(r.abs().max()))
+            for a, r in zip(got, want)]
+    ok = max(errs) <= tol and fwd_launches == 1
+    results.append({"name": "ssd_scan_backward", "shape": list(SSD_BWD_SHAPE),
+                    "dtype": "torch.float32", "max_rel_err": max(errs),
+                    "kernel_launches": fwd_launches, "within_bound": ok})
+    check(ok, f"SsdScan launched the kernel {fwd_launches} times (not 1) or "
+              f"its gradients differ from autograd of the plain version by "
+              f"{max(errs)} of the largest gradient")
+    return results, timing
+
+
+def run_ssm(dev):
+    """The full mamba2-370m (48 layers, bf16, params drawn on the card from
+    seed 0): ``make_prefill_step`` at B = 4, P = 2048, then the launcher's
+    serving loop (``serve.generate`` over a 512-token prompt, then 32
+    sampled tokens), each with the launch counters set to 0 before and read
+    after."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import LM, count_params
+
+    cfg = get_config(SSM_ARCH)
+    lm = LM(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    w = lm.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S, P, V = SSM_BATCH, SSM_PREFILL_LEN, SSM_PROMPT, cfg.vocab_size
+    long_prompt = _gen_tokens(V, B, S, dev)
+    prompt = long_prompt[:, :P].contiguous()
+    prefill = make_prefill_step(lm)
+
+    ops.reset_launch_counts()
+    long_last = prefill(w, {"tokens": long_prompt})
+    torch.cuda.synchronize()
+    prefill_counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(SSM_PREFILL_REPS):
+        prefill(w, {"tokens": long_prompt})
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0) / SSM_PREFILL_REPS
+
+    ops.reset_launch_counts()
+    result = serve.generate(lm, w, prompt, SSM_TOKENS, temperature=1.0)
+    serve_counts = ops.launch_counts()
+    steps_run = P - 1 + SSM_TOKENS
+    first, seq = result["first_logits"], result["tokens"]
+    last = prefill(w, {"tokens": prompt})
+
+    diff = (first.float() - last.float())
+    rel_rms = float(diff.pow(2).mean().sqrt()
+                    / last.float().pow(2).mean().sqrt())
+    top1 = (first.argmax(-1) == last.argmax(-1)).float().mean()
+    out = {
+        "arch": cfg.name, "params": count_params(cfg), "batch": B,
+        "prefill_len": S, "prompt_len": P, "new_tokens": SSM_TOKENS,
+        "init_seconds": init_s, "prefill_ms": prefill_ms,
+        "prefill_tokens_per_s": B * S / (prefill_ms / 1e3),
+        "prefill_launches": prefill_counts,
+        "teacher_forced_ms_per_step": 1e3 * result["teacher_forced_seconds"]
+        / (P - 1),
+        "sampled_ms_per_token": 1e3 * result["sampled_seconds"] / SSM_TOKENS,
+        "sampled_tokens_per_s": B * SSM_TOKENS / result["sampled_seconds"],
+        "serve_launches": serve_counts, "serve_steps": steps_run,
+        "prefill_vs_decode_logits": {
+            "max_abs_err": float(diff.abs().max()), "rel_rms_err": rel_rms,
+            "rel_rms_bound": LM_REL_RMS_MAX,
+            "top1_agreement": float(top1),
+            "logit_rms": float(last.float().pow(2).mean().sqrt())},
+    }
+    print("mamba2-370m serving:", json.dumps(out), flush=True)
+    check(tuple(long_last.shape) == (B, V) and tuple(last.shape) == (B, V)
+          and tuple(first.shape) == (B, V),
+          f"logits have shapes {tuple(long_last.shape)}, "
+          f"{tuple(last.shape)}, {tuple(first.shape)}")
+    check(bool(torch.isfinite(long_last).all() and torch.isfinite(last).all()
+               and torch.isfinite(first).all()),
+          "a mamba2 prefill or decode logit is not finite")
+    check(tuple(seq.shape) == (B, P + SSM_TOKENS)
+          and bool(((seq >= 0) & (seq < V)).all()),
+          f"tokens of shape {tuple(seq.shape)} or outside [0, {V})")
+    check(torch.equal(seq[:, :P], prompt), "the prompt was not kept")
+    check(rel_rms <= LM_REL_RMS_MAX,
+          f"mamba2 prefill and teacher-forced decode logits at P-1 differ by "
+          f"{rel_rms} (relative rms) > {LM_REL_RMS_MAX}")
+    per_pass = cfg.num_layers + 1
+    check(prefill_counts["ssd_scan"] == cfg.num_layers
+          and prefill_counts["rmsnorm"] == per_pass,
+          f"mamba2 prefill launched ssd_scan {prefill_counts['ssd_scan']} and "
+          f"rmsnorm {prefill_counts['rmsnorm']} times, not {cfg.num_layers} "
+          f"and {per_pass}")
+    check(serve_counts["ssd_scan"] == 0
+          and serve_counts["rmsnorm"] == per_pass * steps_run,
+          f"mamba2 serving launched ssd_scan {serve_counts['ssd_scan']} and "
+          f"rmsnorm {serve_counts['rmsnorm']} times over {steps_run} steps, "
+          f"not 0 and {per_pass} per step")
+
+    out["decode_breakdown"] = decode_breakdown(lm, w, prompt, 16)
+    step = make_serve_step(lm)
+    cache = lm.init_cache(B, P + SSM_TOKENS, device=dev)
+    out["bounds"] = ssm_serving_bounds(cfg, w, cache, B, S)
+    tok = prompt[:, :1]
+
+    def serve_one():
+        step(w, cache, tok, 0, torch.Generator().manual_seed(0))
+    out["decode_breakdown"]["host_syncs_per_step"] = count_syncs(serve_one)
+    out["prefill_host_syncs"] = count_syncs(
+        lambda: prefill(w, {"tokens": long_prompt}))
+    out["decode_profile"] = device_profile(serve_one, 8)
+    out["prefill_profile"] = device_profile(
+        lambda: prefill(w, {"tokens": long_prompt}), 2)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    print("mamba2-370m breakdown:", json.dumps(
+        {k: out[k] for k in ("decode_breakdown", "decode_profile",
+                             "prefill_profile", "prefill_host_syncs",
+                             "peak_mem_gb", "bounds")}), flush=True)
+    return out
+
+
+def run_ssm_f32_check(dev):
+    """A full-width, SSM_F32_LAYERS-layer float32 mamba2 (params from seed 0
+    on the card) through the kernels and through the plain versions on the
+    card (``ops.SPECS`` pointed at them for the second run): the prefill's
+    last logits at B = 4, P = 512, then SSM_F32_DECODE_STEPS decode steps of
+    the prompt teacher-forced into a fresh cache, and that cache's state and
+    conv tail.  In float32 the two differ by the kernels' own rounding: the
+    bound is SSM_F32_REL_TOL of the largest logit (of the largest entry for
+    a cache)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import LM
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=SSM_F32_LAYERS,
+                              dtype="float32")
+    lm = LM(cfg)
+    w = lm.init(torch.Generator(device=dev).manual_seed(0))
+    prompt = _gen_tokens(cfg.vocab_size, SSM_BATCH, SSM_PROMPT, dev)
+    prefill = make_prefill_step(lm)
+    steps = SSM_F32_DECODE_STEPS
+
+    def decode():
+        cache = lm.init_cache(SSM_BATCH, steps, device=dev)
+        logits = []
+        for t in range(steps):
+            lg, cache = lm.decode_step(w, prompt[:, t:t + 1], cache, t)
+            logits.append(lg)
+        return torch.stack(logits), cache["layers"]["p0"]["ssm"]
+
+    ops.reset_launch_counts()
+    got = prefill(w, {"tokens": prompt})
+    prefill_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    got_dec, got_cache = decode()
+    decode_counts = ops.launch_counts()
+    saved = dict(ops.SPECS)
+    try:
+        for name in ("rmsnorm", "ssd_scan"):
+            ops.SPECS[name] = saved[name]._replace(kernel=saved[name].ref)
+        want = prefill(w, {"tokens": prompt})
+        want_dec, want_cache = decode()
+    finally:
+        ops.SPECS.update(saved)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        err = float((a - b).abs().max())
+        return err, SSM_F32_REL_TOL * max(1.0, float(b.abs().max()))
+
+    err, tol = rel(got, want)
+    dec_err, dec_tol = rel(got_dec, want_dec)
+    cache_errs = {k: rel(got_cache[k], want_cache[k]) for k in got_cache}
+    out = {"layers": SSM_F32_LAYERS, "dtype": "float32", "max_abs_err": err,
+           "tol": tol, "max_abs_logit": float(want.abs().max()),
+           "launches": prefill_counts, "decode_steps": steps,
+           "decode_max_abs_err": dec_err, "decode_tol": dec_tol,
+           "cache_max_abs_err": {k: e for k, (e, _) in cache_errs.items()},
+           "cache_tol": {k: t for k, (_, t) in cache_errs.items()},
+           "decode_launches": decode_counts}
+    print("mamba2 2-layer float32 kernels vs plain:", json.dumps(out),
+          flush=True)
+    check(bool(torch.isfinite(got).all() and torch.isfinite(got_dec).all()),
+          "a float32 mamba2 logit is not finite")
+    check(err <= tol, f"float32 mamba2 prefill through the kernels differs "
+                      f"from the plain versions by {err} > {tol}")
+    check(dec_err <= dec_tol, f"float32 mamba2 decode through the kernels "
+                              f"differs from the plain versions by {dec_err}"
+                              f" > {dec_tol}")
+    for k, (e, t) in cache_errs.items():
+        check(e <= t, f"float32 mamba2 decode cache {k} differs by {e} > {t}")
+    L = SSM_F32_LAYERS
+    check(prefill_counts["ssd_scan"] == L
+          and prefill_counts["rmsnorm"] == L + 1,
+          f"{L}-layer mamba2 prefill launched {prefill_counts}")
+    check(decode_counts["ssd_scan"] == 0
+          and decode_counts["rmsnorm"] == (L + 1) * steps,
+          f"{steps} {L}-layer mamba2 decode steps launched {decode_counts}")
+    return out
+
+
+def ssm_kernel_rows(checks, timing, ssm):
+    """The kernel-table row of ``ssd_scan``: its time and bound at
+    mamba2-370m's prefill shape, and the launches of the mamba2 serving
+    phases."""
+    from repro_torch.kernels.ops import SPECS
+    times, (bound_ms, bound_by), err = timing["ssd_scan"]
+    by_phase = {"prefill": ssm["prefill_launches"]["ssd_scan"],
+                "serve": ssm["serve_launches"]["ssd_scan"]}
+    return [{
+        "name": "ssd_scan", "route": SPECS["ssd_scan"].route,
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": SPECS["ssd_scan"].replaces,
+        "launches": sum(by_phase.values()), "launches_by_phase": by_phase,
+        "launches_per_prefill": by_phase["prefill"],
+        "launches_per_decode_step": by_phase["serve"] / ssm["serve_steps"],
+        "max_abs_err": max(c["max_abs_err"] for c in checks
+                           if c["name"] == "ssd_scan"),
+        "max_abs_err_main_shape": err,
+        "ms": times["ms"], "plain_ms": times["plain_ms"],
+        "call_ms": times["call_ms"], "plain_call_ms": times["plain_call_ms"],
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "library": "none: no single PyTorch call computes the SSD scan",
+        "shape": list(SSD_MAIN), "dtype": "bfloat16",
+        "note": "its backward is autograd of the plain version, as the JAX "
+                "package's custom_vjp differentiates its jnp reference; no "
+                "TPU kernel"}]
+
+
 def run_samplers(dev):
     """The kernels of slices 1-3 against their plain versions, then their
     main paths (NUTS logreg, the two HMMs, ChEES, MALA, RWM); returns their
@@ -1861,7 +2290,8 @@ def main():
     build_s = _build.build_all(["leapfrog", "glm_potential",
                                 "enum_contract", "leapfrog_batch",
                                 "mala_step", "rmsnorm", "flash_attention",
-                                "flash_attention_bwd", "softmax_xent"])
+                                "flash_attention_bwd", "softmax_xent",
+                                "ssd_scan"])
     print("build seconds:", json.dumps(build_s), flush=True)
     phase_s = {}
     t0 = time.perf_counter()
@@ -1885,8 +2315,18 @@ def main():
     torch.cuda.empty_cache()
     run_train_f32_check(dev)
     phase_s["train"] = time.perf_counter() - t0
-    kernels += lm_kernel_rows(lm_checks, lm_timing, lm, train)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ssm_checks, ssm_timing = ssm_kernel_checks(dev)
+    print("ssm kernel checks:", json.dumps(ssm_checks), flush=True)
+    print("ssm kernel timings:", json.dumps(ssm_timing), flush=True)
+    ssm = run_ssm(dev)
+    torch.cuda.empty_cache()
+    run_ssm_f32_check(dev)
+    phase_s["ssm"] = time.perf_counter() - t0
+    kernels += lm_kernel_rows(lm_checks, lm_timing, lm, train, ssm)
     kernels += train_kernel_rows(tr_timing, tr_checks, train)
+    kernels += ssm_kernel_rows(ssm_checks, ssm_timing, ssm)
     print("phase seconds:", json.dumps(phase_s), flush=True)
     print("wall seconds:", time.perf_counter() - t_start, flush=True)
     print(card)

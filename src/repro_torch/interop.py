@@ -13,7 +13,10 @@ The JAX key is not carried: this package's draws come from a
 
 :func:`lm_params_from_reference` carries a JAX ``LM``'s params tree across
 leaf by leaf: both packages declare the same tree, stacked layer dims
-included.  :func:`train_state_from_reference` carries a JAX train state
+included, and each leaf keeps its dtype (mamba2's float32 ``A_log``, ``D``,
+``dt_bias`` and ``norm`` beside bfloat16 projections); it carries a JAX
+``LM.init_cache``/``decode_step`` cache (KV caches; SSM states and conv
+tails) the same way.  :func:`train_state_from_reference` carries a JAX train state
 (``{"params", "opt": ((), AdamState(count, mu, nu)), "step"}``, the state
 ``repro.launch.steps.make_train_state`` builds for AdamW) across the same
 way.
@@ -110,7 +113,8 @@ def _leaf_tensor(value, device):
 def lm_params_from_reference(tree, device="cpu"):
     """The port's LM params holding the values of a JAX ``LM``'s params
     (after ``jax.device_get``: nested dicts of numpy arrays), same keys,
-    shapes and dtypes, on ``device``."""
+    shapes and dtypes, on ``device``.  A JAX ``LM.init_cache`` decode cache
+    carries across the same way, leaf by leaf."""
     if isinstance(tree, dict):
         return {k: lm_params_from_reference(v, device)
                 for k, v in tree.items()}

@@ -4,7 +4,7 @@ the tensors lie.
 ``OP_TABLE`` has the same 12 rows as ``repro/kernels/ops.py:OP_TABLE``.  A
 ported row names its hand-written kernel (``route`` ``"cuda"``), its plain
 PyTorch version and the TPU kernel it replaces; a row not ported yet has
-``kernel=None`` and ``ref=None`` and stands in ROADMAP.md, Queue 2.
+``kernel=None`` and ``ref=None``.
 
 For a ported op, tensors on the CPU take the plain version and tensors on a
 card launch the kernel; a kernel that cannot build or launch raises rather
@@ -15,7 +15,14 @@ plain version, routed the same way: the backward passes of ``rmsnorm`` and
 ``attention`` (TPU kernels of their own in the JAX package, reached through
 its ``custom_vjp``s) and of ``enum_contract`` (which the JAX package
 differentiates through its jnp reference).  Their launches are counted with
-the rest.
+the rest.  ``ssd_scan``'s gradient is autograd through its plain version on
+every device, as the JAX package's ``custom_vjp`` differentiates its jnp
+reference.
+
+Every row with a TPU kernel (nine of the 12) names its hand-written kernel
+and its plain version; of the three ref-only rows, ``decode_attention`` and
+``ssd_decode_step`` name their plain versions and ``mla_absorbed_decode``
+waits for the MLA slice (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from . import flash_attention as _flash
 from . import glm_potential, leapfrog, rwm_mala
 from . import rmsnorm as _rmsnorm
 from . import softmax_xent as _xent
+from . import ssd_scan as _ssd
 
 
 class OpSpec(NamedTuple):
@@ -85,8 +93,10 @@ OP_TABLE = (
            _K + "rmsnorm.py:49", False, 2e-5),
     OpSpec("softmax_xent", _xent.softmax_xent_cuda, _xent.softmax_xent_ref,
            "cuda", _K + "softmax_xent.py:57", False, 1e-4),
-    OpSpec("ssd_scan", None, None, None, _K + "ssd_scan.py:64", False, 1e-4),
-    OpSpec("ssd_decode_step", None, None, None, None, False, 0.0),
+    OpSpec("ssd_scan", _ssd.ssd_scan_cuda, _ssd.ssd_scan_ref, "cuda",
+           _K + "ssd_scan.py:64", False, 1e-4),
+    OpSpec("ssd_decode_step", None, _ssd.ssd_decode_step_ref, None, None,
+           False, 0.0),
 )
 
 SPECS = {spec.name: spec for spec in OP_TABLE}
@@ -153,6 +163,27 @@ def softmax_xent(x, w_unembed, labels, *, z_loss_weight=0.0):
     (:class:`~repro_torch.kernels.softmax_xent.SoftmaxXent`)."""
     return _xent.SoftmaxXent.apply(x, w_unembed, labels, z_loss_weight,
                                    _route("softmax_xent", x))
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk, D=None, h0=None):
+    """The Mamba-2 SSD chunked scan, ``x (b, l, h, p)``, ``dt (b, l, h)``,
+    ``A (h,)``, ``B, C (b, l, g, n)`` -> ``(y (b, l, h, p)`` in x's dtype,
+    ``final state (b, h, p, n)`` float32), with an optional ``D (h,)`` and
+    entering state ``h0``; differentiable
+    (:class:`~repro_torch.kernels.ssd_scan.SsdScan`).  ``dt``, ``A``, ``D``
+    and ``h0`` are taken in float32.  A length that is not a whole number of
+    chunks raises on every device, as the reference asserts."""
+    dt, A, D, h0 = (None if t is None else t.float()
+                    for t in (dt, A, D, h0))
+    return _ssd.SsdScan.apply(x, dt, A, B, C, D, h0, chunk,
+                              _route("ssd_scan", x))
+
+
+def ssd_decode_step(state, x, dt, A, B, C, *, D=None):
+    """One token of the SSD recurrence, ``state (b, h, p, n)``, ``x (b, h,
+    p)``, ``dt (b, h)``, ``B, C (b, g, n)`` -> ``(y (b, h, p), new state)``
+    (a ref-only op: the plain version on every device)."""
+    return SPECS["ssd_decode_step"].ref(state, x, dt, A, B, C, D=D)
 
 
 def leapfrog_halfstep(z, r, grad, m_inv, eps):

@@ -3,6 +3,7 @@ with the paper's predictive pattern, the next token drawn through a
 ``sample`` site.
 
     python -m repro_torch.launch.serve --arch qwen3-8b --reduced --device cpu
+    python -m repro_torch.launch.serve --arch mamba2-370m --reduced --device cpu
 
 Parameters are drawn from seed 0 on the serving device, prompts from numpy
 seed 1 in ``[3, vocab)``, and the draw at position ``t`` from a CPU

@@ -1,7 +1,7 @@
 """Model zoo (the port of ``repro/models/zoo.py``): build init, forward and
 decode for the dense GQA families (qwen3-8b, llama3-405b, qwen1.5-32b,
-gemma-2b).  The other families raise ``RPL501``, naming the slice they wait
-for.
+gemma-2b) and the Mamba-2 SSM family (mamba2-370m).  The other families
+raise ``RPL501``, naming the slice they wait for.
 
 As in the JAX package, weights are declared through the ``param`` effect
 primitive, so the same model function runs under ``seed`` (initialization)
@@ -10,7 +10,9 @@ stack dim, so a JAX params tree carries over leaf by leaf
 (``interop.lm_params_from_reference``); where the JAX package runs
 ``lax.scan`` over that dim, the port loops over views of it.  The KV cache
 is one preallocated (L, B, S, K, hd) tensor per k and v, written in place
-one position per decode step.
+one position per decode step; an SSM layer's cache is one (L, B, h, p, n)
+float32 state and one (L, B, width - 1, conv_ch) conv tail, written in place
+each step.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from ..core.primitives import param
 from ..kernels import ops
 from . import attention as attn
 from . import mlp as mlpm
+from . import ssm as ssmm
 from .common import (embedding, normal_init, rmsnorm_weight, rope_at,
                      rope_frequencies)
 from .config import ModelConfig
@@ -85,11 +88,12 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``RPL501`` for a configuration this port cannot build yet."""
     if cfg.is_encoder_decoder:
         raise pending(f"{cfg.name}: encoder-decoder models", "MoE/MLA/enc-dec")
-    if cfg.family in ("ssm", "hybrid"):
-        raise pending(f"{cfg.name}: Mamba-2 SSM layers (ssd_scan)", "mamba2")
+    if cfg.family == "hybrid":
+        raise pending(f"{cfg.name}: the hybrid family's MoE layers beside "
+                      "its SSM and attention layers", "MoE/MLA/enc-dec")
     if cfg.moe or cfg.attn_type == "mla":
         raise pending(f"{cfg.name}: MoE / MLA layers", "MoE/MLA/enc-dec")
-    if cfg.frontend or cfg.mtp or cfg.family != "dense":
+    if cfg.frontend or cfg.mtp or cfg.family not in ("dense", "ssm"):
         raise pending(f"{cfg.name}: the {cfg.family} family's extras "
                       "(multimodal frontend, multi-token prediction)",
                       "MoE/MLA/enc-dec")
@@ -100,33 +104,54 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _block_params(cfg: ModelConfig, prefix: str, spec: LayerSpec, stacked):
-    """A dense block's weights: the families :func:`check_supported` admits
-    have one attention mixer and one gated MLP per layer."""
-    return {
-        "ln1": rmsnorm_weight(f"{prefix}.ln1", cfg.d_model, stacked=stacked),
-        "mixer": attn.attn_params(cfg, f"{prefix}.attn", stacked),
-        "ln2": rmsnorm_weight(f"{prefix}.ln2", cfg.d_model, stacked=stacked),
-        "ffn": mlpm.mlp_params(cfg, f"{prefix}.mlp", stacked, d_ff=spec.d_ff),
-    }
+    """A block's weights: ``ln1`` and the mixer (attention or SSM), then
+    ``ln2`` and the gated MLP where the block has an FFN (mamba2's have
+    none)."""
+    w = {"ln1": rmsnorm_weight(f"{prefix}.ln1", cfg.d_model, stacked=stacked)}
+    if spec.mixer == "ssm":
+        w["mixer"] = ssmm.ssm_params(cfg, f"{prefix}.ssm", stacked)
+    else:
+        w["mixer"] = attn.attn_params(cfg, f"{prefix}.attn", stacked)
+    if spec.ffn is not None:
+        w["ln2"] = rmsnorm_weight(f"{prefix}.ln2", cfg.d_model,
+                                  stacked=stacked)
+        w["ffn"] = mlpm.mlp_params(cfg, f"{prefix}.mlp", stacked,
+                                   d_ff=spec.d_ff)
+    return w
 
 
 def _block_apply(cfg: ModelConfig, spec: LayerSpec, w, x, rope):
     """Full-sequence block: x (B, S, d) -> x."""
-    x = x + attn.attn_apply(cfg, w["mixer"], ops.rmsnorm(x, w["ln1"]), rope)
-    return x + mlpm.mlp_apply(cfg, w["ffn"], ops.rmsnorm(x, w["ln2"]))
+    h = ops.rmsnorm(x, w["ln1"])
+    if spec.mixer == "ssm":
+        h = ssmm.ssm_apply(cfg, w["mixer"], h)
+    else:
+        h = attn.attn_apply(cfg, w["mixer"], h, rope)
+    x = x + h
+    if spec.ffn is not None:
+        x = x + mlpm.mlp_apply(cfg, w["ffn"], ops.rmsnorm(x, w["ln2"]))
+    return x
 
 
 def _block_decode(cfg: ModelConfig, spec: LayerSpec, w, x, cache, pos, rope):
     """Single-token decode: x (B, 1, d) -> (x, cache), the cache written in
     place."""
-    h, _ = attn.attn_decode(cfg, w["mixer"], ops.rmsnorm(x, w["ln1"]),
-                            cache["kv"], pos, rope)
+    h = ops.rmsnorm(x, w["ln1"])
+    if spec.mixer == "ssm":
+        h, _ = ssmm.ssm_decode(cfg, w["mixer"], h, cache["ssm"])
+    else:
+        h, _ = attn.attn_decode(cfg, w["mixer"], h, cache["kv"], pos, rope)
     x = x + h
-    return x + mlpm.mlp_apply(cfg, w["ffn"], ops.rmsnorm(x, w["ln2"])), cache
+    if spec.ffn is not None:
+        x = x + mlpm.mlp_apply(cfg, w["ffn"], ops.rmsnorm(x, w["ln2"]))
+    return x, cache
 
 
 def _block_cache(cfg: ModelConfig, spec: LayerSpec, batch, seq_len, dtype,
                  device, stacked: int = 0):
+    if spec.mixer == "ssm":
+        return {"ssm": ssmm.ssm_init_cache(cfg, batch, dtype, device,
+                                           stacked)}
     return {"kv": attn.attn_init_cache(cfg, batch, seq_len, dtype, device,
                                        stacked)}
 
@@ -261,8 +286,11 @@ class LM:
 
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch, seq_len, device="cuda"):
-        """Zeroed decode caches, one stacked (n, B, S, K, hd) k and v per
-        group, on ``device`` (default the card; ``RPL502`` without one)."""
+        """Zeroed decode caches on ``device`` (default the card; ``RPL502``
+        without one), stacked over each group's layers: a (n, B, S, K, hd) k
+        and v for attention layers, a (n, B, h, p, n) float32 state and a
+        (n, B, width - 1, conv_ch) conv tail for SSM layers (``seq_len`` is
+        then unused)."""
         device = resolve_device(device)
         cfg = self.cfg
         return {g.name: {f"p{j}": _block_cache(cfg, spec, batch, seq_len,

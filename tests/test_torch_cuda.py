@@ -23,6 +23,7 @@ from repro_torch.kernels import softmax_xent as xent
 from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
                                          rmsnorm_cuda, rmsnorm_ref)
 from repro_torch.kernels.rwm_mala import mala_step_cuda, mala_step_ref
+from repro_torch.kernels import ssd_scan as ssd
 
 TOL = {spec.name: spec.tol for spec in ops.OP_TABLE}
 
@@ -67,7 +68,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     monkeypatch.setattr(_build, "_LOADED", {})
     for name in ("leapfrog", "enum_contract", "leapfrog_batch", "mala_step",
-                 "rmsnorm", "flash_attention"):
+                 "rmsnorm", "flash_attention", "ssd_scan"):
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.load(name)
 
@@ -443,3 +444,146 @@ def test_softmax_xent_kernel_matches_plain_on_card(dtype):
         for a, b in zip(got, want):
             _assert_close(a, b, TOL["softmax_xent"])
     assert ops.launch_counts()["softmax_xent"] == len(XENT_SHAPES)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 slice: ssd_scan
+
+
+def _ssd_operands(b, l, h, p, g, n, dtype, dev, seed):
+    """Inputs in mamba2's ranges (dt in [1e-3, 0.1], A in [-16, -1]),
+    x, B, C in ``dtype``, the rest float32."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+    x = (0.5 * randn(b, l, h, p)).to(dtype)
+    dt = 1e-3 + (0.1 - 1e-3) * rand(b, l, h)
+    A = -(1.0 + 15.0 * rand(h))
+    B = (0.3 * randn(b, l, g, n)).to(dtype)
+    C = (0.3 * randn(b, l, g, n)).to(dtype)
+    D = 0.5 + rand(h)
+    h0 = 0.1 * randn(b, h, p, n)
+    return x, dt, A, B, C, D, h0
+
+
+def test_ssd_scan_wrapper_refuses_cpu_tensors_and_ragged_lengths():
+    x, dt, A, B, C, D, h0 = _ssd_operands(1, 64, 2, 8, 1, 16, torch.float32,
+                                          torch.device("cpu"), 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=32)
+    with pytest.raises(ValueError, match="whole number of chunks"):
+        ops.ssd_scan(x, dt, A, B, C, chunk=48)
+
+
+# (b, l, h, p, g, n, chunk): mamba2-370m's prefill heads at a shorter
+# length, two B/C groups, chunks of 64, one chunk shorter than 256, the
+# reduced model's widths, p not a multiple of 32
+SSD_CASES = [(2, 512, 32, 64, 1, 128, 256), (2, 256, 8, 64, 2, 128, 64),
+             (3, 100, 4, 64, 1, 128, 100), (2, 64, 16, 16, 1, 16, 32),
+             (1, 96, 4, 40, 2, 24, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain_on_card(dtype):
+    """y within 1e-4 (float32) or one bfloat16 step, the float32 state
+    within 1e-4 of its largest entry, with and without D and h0."""
+    dev = _need_card()
+    ops.reset_launch_counts()
+    launches = 0
+    for i, (b, l, h, p, g, n, chunk) in enumerate(SSD_CASES):
+        x, dt, A, B, C, D, h0 = _ssd_operands(b, l, h, p, g, n, dtype, dev, i)
+        for kw in ({}, {"D": D}, {"D": D, "h0": h0}):
+            y, st = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, **kw)
+            ry, rst = ssd.ssd_scan_ref(x, dt, A, B, C, chunk=chunk, **kw)
+            launches += 1
+            _assert_close(y, ry, TOL["ssd_scan"])
+            scale = max(1.0, float(rst.abs().max()))
+            assert float((st - rst).abs().max()) <= TOL["ssd_scan"] * scale
+    assert ops.launch_counts()["ssd_scan"] == launches
+    with pytest.raises(ValueError, match="whole number of chunks"):
+        ssd.ssd_scan_cuda(x[:, :l - 1], dt[:, :l - 1], A, B[:, :l - 1],
+                          C[:, :l - 1], chunk=chunk)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_reads_projection_slices_in_place_on_card():
+    """x, B and C as slices of one wider (b, l, width) tensor, as the mixer
+    hands them over: the kernel reads them through their strides and gives
+    the contiguous copies' result."""
+    dev = _need_card()
+    b, l, h, p, n = 2, 128, 4, 16, 32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    wide = 0.4 * torch.randn((b, l, h * p + 2 * n + 8), generator=gen,
+                             device=dev)
+    x = wide[..., :h * p].reshape(b, l, h, p)
+    B = wide[..., h * p:h * p + n].reshape(b, l, 1, n)
+    C = wide[..., h * p + n:h * p + 2 * n].reshape(b, l, 1, n)
+    assert not x.is_contiguous()
+    _, dt, A, _, _, D, _ = _ssd_operands(b, l, h, p, 1, n, torch.float32,
+                                         dev, 1)
+    got = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=64, D=D)
+    want = ssd.ssd_scan_cuda(x.contiguous(), dt, A, B.contiguous(),
+                             C.contiguous(), chunk=64, D=D)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_ssd_scan_backward_through_kernel_on_card():
+    """``SsdScan`` with the kernel's forward: the forward is the kernel's
+    (one launch), and its gradients equal autograd of ``ssd_scan_ref``
+    called directly."""
+    dev = _need_card()
+    args = _ssd_operands(2, 128, 4, 16, 2, 32, torch.float32, dev, 3)
+    gy = torch.randn((2, 128, 4, 16), device=dev)
+    gs = torch.randn((2, 4, 16, 32), device=dev)
+
+    def grads(scan):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        y, st = scan(*leaves)
+        ((y * gy).sum() + (st * gs).sum()).backward()
+        return [a.grad for a in leaves]
+
+    ops.reset_launch_counts()
+    got = grads(lambda *a: ssd.SsdScan.apply(*a, 64, ssd.ssd_scan_cuda))
+    assert ops.launch_counts()["ssd_scan"] == 1
+    want = grads(lambda x, dt, A, B, C, D, h0: ssd.ssd_scan_ref(
+        x, dt, A, B, C, chunk=64, D=D, h0=h0))
+    for a, b in zip(got, want):
+        scale = max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= TOL["ssd_scan"] * scale
+
+
+@pytest.mark.cuda
+def test_reduced_mamba2_prefill_on_card():
+    """A reduced float32 mamba2 prefilled through the kernels against the
+    same prefill through the plain versions on the card, one ``ssd_scan``
+    per layer and one ``rmsnorm`` per layer plus the final norm."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import LM, reduced
+
+    dev = _need_card()
+    lm = LM(reduced(get_config("mamba2-370m")))
+    w = lm.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        3, lm.cfg.vocab_size, (2, 64))).to(dev)
+    prefill = make_prefill_step(lm)
+    ops.reset_launch_counts()
+    got = prefill(w, {"tokens": toks})
+    counts = ops.launch_counts()
+    L = lm.cfg.num_layers
+    assert counts["ssd_scan"] == L and counts["rmsnorm"] == L + 1
+    saved = dict(ops.SPECS)
+    try:
+        for name in ("rmsnorm", "ssd_scan"):
+            ops.SPECS[name] = saved[name]._replace(kernel=saved[name].ref)
+        want = prefill(w, {"tokens": toks})
+    finally:
+        ops.SPECS.update(saved)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-4

@@ -49,7 +49,9 @@ def test_op_table_has_the_reference_rows():
     assert ops.PORTED == ("attention", "leapfrog_halfstep",
                           "leapfrog_halfstep_batch", "glm_potential_grad",
                           "mala_step", "enum_contract", "rmsnorm",
-                          "softmax_xent")
+                          "softmax_xent", "ssd_scan")
+    # every row with a TPU kernel is ported
+    assert set(ops.PORTED) == {s.name for s in jops.OP_TABLE if s.pallas}
     # backward kernels are counted with the rest; each names its plain
     # version and, where the JAX package has one, the TPU kernel's function
     assert set(ops.launch_counts()) == set(ops.PORTED) | set(ops.BACKWARD)

@@ -33,7 +33,8 @@ from repro_torch.models.config import SHAPES
 LOGIT_TOL = 1e-4
 CACHE_TOL = 1e-5
 DENSE = ("qwen3-8b", "gemma-2b", "qwen1.5-32b", "llama3-405b")
-PENDING_ARCHS = tuple(a for a in ARCHS if a not in DENSE)
+# mamba2-370m builds too: tests/test_torch_ssm.py holds it to the reference
+PENDING_ARCHS = tuple(a for a in ARCHS if a not in DENSE + ("mamba2-370m",))
 B, T = 2, 8
 
 
