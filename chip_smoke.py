@@ -7,7 +7,10 @@ result line if any fails):
 
 1. Print the card (``nvidia-smi --query-gpu=name,power.limit``) and build
    the hand-written kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all started together).
+   source, all started together); print the bf16 tensor-core kernels'
+   registers, shared memory, stack and spill (``cuobjdump -res-usage``) and
+   their count of ``HGMMA``/``HMMA`` instructions (``cuobjdump -sass``),
+   each of which must have at least one.
 2. ``samplers``: hold each kernel of slices 1-3 against its plain PyTorch
    version on the card, at the main paths' shapes and at ragged ones, and
    time kernel and plain version with CUDA events (``enum_contract`` also
@@ -31,7 +34,9 @@ result line if any fails):
 3. ``lm``: hold ``rmsnorm`` and ``flash_attention`` against their plain
    versions (float32 and bfloat16, causal and not, MHA/GQA/MQA, dq != dv,
    ragged) and time them beside ``F.rms_norm`` and
-   ``F.scaled_dot_product_attention``; then the full Qwen3-8B (bf16,
+   ``F.scaled_dot_product_attention`` (the attention also at gemma-2b's
+   training shape, the forward of its 72 launches a step); then the full
+   Qwen3-8B (bf16,
    params drawn on the card from seed 0): ``make_prefill_step`` at B = 4,
    P = 512 (145 ``rmsnorm`` and 36 ``attention`` launches), and the
    launcher's serving loop (``serve.generate``: the prompt teacher-forced,
@@ -206,6 +211,79 @@ SSD_BWD_SHAPE = (2, 128, 4, 16, 2, 32, 64)  # the SsdScan backward, float32
 # the rmsnorm checks also cover mamba2-370m's block-norm rows at its prefill
 # and at a decode step
 RMS_SHAPES += ((SSM_BATCH * SSM_PREFILL_LEN, 1024), (SSM_BATCH, 1024))
+
+
+# the bf16 tensor-core kernels: library -> (kernel function as cuobjdump
+# names it, the C function that reports its dynamic shared memory and CTAs
+# per SM at given head dims)
+TC_KERNELS = {"flash_attention": ("flash_fwd_tc_kernel",
+                                  "flash_attention_fwd_bf16_info"),
+              "flash_attention_bwd": ("dkv_tc_kernel",
+                                      "flash_attention_dkv_bf16_info")}
+
+
+def _cuobjdump(flag, path):
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    return subprocess.run([tool, flag, str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+
+
+def tc_kernel_usage():
+    """Registers, static shared memory, stack and local (spill) bytes of
+    each instantiation of the bf16 tensor-core kernels, from ``cuobjdump
+    -res-usage`` on the built libraries, and its count of tensor-core
+    instructions (``HGMMA``/``HMMA``) from ``cuobjdump -sass``; fails unless
+    each kernel is there and every instantiation has at least one.  Beside
+    them, each kernel's dynamic shared memory and resident CTAs per SM at
+    head dims 128 and 256 (Qwen3-8B's and gemma-2b's)."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import _build
+    usage, at_dims = {}, {}
+    for lib, (func, info) in TC_KERNELS.items():
+        fn = getattr(_build.load(lib), info)
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        for d in (128, 256):
+            smem, ctas = ctypes.c_int(), ctypes.c_int()
+            rc = fn(d, d, ctypes.byref(smem), ctypes.byref(ctas))
+            check(rc == 0, f"{info}({d}, {d}) failed: cudaError {rc}")
+            at_dims[f"{func} at dq = dv = {d}"] = {
+                "dynamic_smem_bytes": smem.value, "ctas_per_sm": ctas.value}
+        path = _build.library_path(lib)
+        current = None
+        for line in _cuobjdump("-res-usage", path).splitlines():
+            found = re.search(r"Function (\S+):", line)
+            if found:
+                current = found.group(1) if func in found.group(1) else None
+            elif current and "REG:" in line:
+                args = ",".join(
+                    v if t == "i" else ("false", "true")[int(v)]
+                    for t, v in re.findall(r"L([ib])(\d+)E", current))
+                key = f"{func}<{args}>"
+                usage[key] = {k: int(v) for k, v in
+                              re.findall(r"(\w+):(\d+)", line)
+                              if k in ("REG", "STACK", "SHARED", "LOCAL")}
+                usage[key]["mangled"] = current
+        current = None
+        for line in _cuobjdump("-sass", path).splitlines():
+            found = re.search(r"Function : (\S+)", line)
+            if found:
+                current = next((k for k, u in usage.items()
+                                if u["mangled"] == found.group(1)), None)
+                if current:
+                    usage[current].update(HGMMA=0, HMMA=0)
+            elif current:
+                for op in ("HGMMA", "HMMA"):
+                    usage[current][op] += bool(re.search(rf"\b{op}\.", line))
+        check(any(k.startswith(func + "<") for k in usage),
+              f"cuobjdump found no {func} in {path.name}")
+    for key, u in usage.items():
+        check(u.get("HGMMA", 0) + u.get("HMMA", 0) > 0,
+              f"{key} has no tensor-core instruction: {u}")
+        del u["mangled"]
+    return {"instantiations": usage, "at_head_dims": at_dims}
 
 
 def card_line() -> str:
@@ -1053,7 +1131,8 @@ def lm_kernel_checks(dev):
     rounding step) on the LM's shapes and ragged ones: causal and not, MHA,
     GQA and MQA, dq != dv, S not a multiple of the tile; timings and the
     library yardsticks (``F.rms_norm``, ``F.scaled_dot_product_attention``)
-    at the main path's shapes in bfloat16."""
+    at the main path's shapes in bfloat16, the attention also at gemma-2b's
+    training shape (``ATTN_BWD_MAIN``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -1108,6 +1187,27 @@ def lm_kernel_checks(dev):
                 timing[("attention", ATTN_MAIN)] = (
                     t, attention_bound(B, S, H, K, dq, dv, causal, dtype),
                     err)
+    # the forward at gemma-2b's training shape (72 launches a step), bf16
+    B, S, H, K, dq, dv, causal = ATTN_BWD_MAIN
+    gen = torch.Generator().manual_seed(100 + len(ATTN_SHAPES))
+    q, k, v = (torch.randn(s, generator=gen).to(torch.bfloat16).to(dev)
+               for s in ((B, S, H, dq), (B, S, K, dq), (B, S, K, dv)))
+    ok, err = _kernel_case(
+        lambda: flash_attention_cuda(q, k, v, causal=causal),
+        lambda: flash_attention_ref(q, k, v, causal=causal), torch.bfloat16,
+        SPECS["attention"].tol)
+    results.append({"name": "attention", "shape": list(ATTN_BWD_MAIN[:6]),
+                    "causal": causal, "dtype": str(torch.bfloat16),
+                    "max_abs_err": err, "within_bound": ok})
+    check(ok, f"flash_attention kernel disagrees at {ATTN_BWD_MAIN}: {err}")
+    t = timings(lambda: flash_attention_cuda(q, k, v, causal=causal),
+                lambda: flash_attention_ref(q, k, v, causal=causal), 10)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    t["library_ms"] = device_ms(
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
+    timing[("attention", ATTN_BWD_MAIN)] = (
+        t, attention_bound(B, S, H, K, dq, dv, causal, torch.bfloat16), err)
     return results, timing
 
 
@@ -1409,13 +1509,12 @@ def lm_kernel_rows(checks, timing, lm, train, ssm):
                         "attention": "torch.nn.functional."
                         "scaled_dot_product_attention(enable_gqa=True)"}[name],
             "shape": list(key[1]), "dtype": "bfloat16"}
-        if name == "rmsnorm":
-            row["variants"] = {
-                str(list(shape)): {"ms": t["ms"], "plain_ms": t["plain_ms"],
-                                   "library_ms": t["library_ms"],
-                                   "bound_ms": b[0], "bound_by": b[1]}
-                for (n, shape), (t, b, _) in timing.items()
-                if n == "rmsnorm" and shape != RMS_TIMED[0]}
+        row["variants"] = {
+            str(list(shape)): {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                               "library_ms": t["library_ms"],
+                               "bound_ms": b[0], "bound_by": b[1]}
+            for (n, shape), (t, b, _) in timing.items()
+            if n == name and shape != key[1]}
         rows.append(row)
     return rows
 
@@ -2293,6 +2392,8 @@ def main():
                                 "flash_attention_bwd", "softmax_xent",
                                 "ssd_scan"])
     print("build seconds:", json.dumps(build_s), flush=True)
+    print("tensor-core kernels (cuobjdump):", json.dumps(tc_kernel_usage()),
+          flush=True)
     phase_s = {}
     t0 = time.perf_counter()
     kernels = run_samplers(dev)

@@ -22,25 +22,65 @@
 // by a small kernel before the dq pass (the TPU computes it with an einsum
 // outside its kernels) and handed to the dkv pass.
 //
-// Layout (256 threads, 16 row groups x 16 column lanes, as in the forward
-// kernel csrc/flash_attention.cu): thread (g, c) owns 4 rows of its tile and
-// the columns c, c + 16 of the 32-wide tile it walks, and the output columns
-// c, c + 16, ... (head dims up to 256) of its 4 rows.  Every operand is
-// staged in shared memory as float32 with odd strides (dim + 1, 33), so a
-// half-warp reading one column of a row-major tile, or one row of a
-// transposed one, touches 16 banks.  At dq = dv = 256 a CTA holds 207 KB:
-// its 64-row tile of two operands and the 32-wide tile of two others, each
-// transposed, plus the 64 x 32 probabilities; one CTA per SM.
-//
 // What bounds it: at gemma-2b's training shapes (B = 2, S = 1024, H = 8,
 // KH = 1, 256/256, causal) the dq pass needs 3 and the dkv pass 4 products of
 // (S^2 / 2) x 256 per head, ~12.9 and ~17.2 GFLOP, against ~21 MB of
 // operands: bound by operations (13 and 17 us at the bf16 tensor-core rate).
-// This first version multiplies on the CUDA cores in float32 (tensor cores
-// are for a later PR), so it is bound by the FMA rate and shared-memory
-// loads, one CTA per SM.
+// Three kernels do the work, chosen by pass and dtype:
+//
+// dkv pass, bfloat16: dkv_tc_kernel, on the tensor cores (replaces the
+// _dkv_kernel behind the pallas_call at flash_attention.py:231).
+//   - Grid: one CTA per (query head, batch, 64-key tile), 256 CTAs at
+//     gemma's microbatch (one per kv head would give 32), walking 32-query
+//     tiles; per-head float32 partials and the in-order group sum as below,
+//     so no atomics and the same bits on every run.
+//   - Products: mma.sync.m16n8k16 bf16 -> f32 (HMMA) with ldmatrix (see
+//     flash_attention.cu for why not wgmma yet).  S^T = K Q^T and dP^T =
+//     V dO^T take bf16 operands and are exact in float32; P = exp(S scale -
+//     lse) and dS = P (dP - delta) scale are formed in float32 registers;
+//     dV += P^T dO and dK += dS^T Q each take the float32 operand as P_hi =
+//     bf16(P), P_lo = bf16(P - P_hi) (likewise dS), two products each, from
+//     the registers (the accumulator fragment of S^T is the A fragment of
+//     P^T dO).  Why: the TPU kernel computes these products in float32 and
+//     the port holds bf16 dk, dv to one bf16 step of the float32-computed
+//     value (kernels/ops.py BF16_RTOL); P and dS rounded once to bf16 miss
+//     that by 160x (dk, summed over 8 heads) and 239x (dv), the split keeps
+//     it (0.97 and 0.95 of the bound; B = 1, S = 512, 8 heads of 128 over
+//     one kv head, causal; tests/test_torch_flash_tc.py).  6 products where
+//     FlashAttention-2 has 4.
+//   - Warps: 8, warp w owning keys 16 (w % 4) .. + 15 and half (w / 4) of
+//     the 16-column groups of dk and of dv: at head dim 256 the dk and dv
+//     accumulators of 16 keys would take 256 registers a thread; split, 128
+//     (248 registers in all at 256/256, no spill).  Both halves form the key
+//     rows' S^T and dP^T, 2 of 8 products done twice.
+//   - Head dims 128/128 and 256/256 have exact instantiations with no
+//     head-dim guard in the unrolled loops (see flash_attention.cu): 0.291
+//     -> 0.204 ms at gemma-2b's microbatch (chip_smoke.py, NVIDIA H100 80GB
+//     HBM3, 700 W).
+//   - Copies: K and V loaded once; Q, dO, lse and delta double-buffered by
+//     cp.async, so tile j + 1 arrives while j is computed.  bf16 tiles padded
+//     by 16 bytes a row (conflict-free ldmatrix), 135 KB at 256/256, one CTA
+//     per SM.  Head dims not a multiple of 16 are zero-padded in shared
+//     memory.
+//
+// dkv pass, float32, and the dq pass in both dtypes: dkv_kernel and
+// dq_kernel, on the CUDA cores in float32.  float32 q and k are not exact
+// in bf16, so the tensor cores' bf16 products would not give the float32
+// function the 2-layer float32 models are held to (1e-4); the bf16 dq pass
+// is a later PR's.  Layout (256 threads, 16 row groups x 16 column lanes, as
+// in the forward kernel csrc/flash_attention.cu): thread (g, c) owns 4 rows
+// of its tile and the columns c, c + 16 of the 32-wide tile it walks, and
+// the output columns c, c + 16, ... (head dims up to 256) of its 4 rows.
+// Every operand is staged in shared memory as float32 with odd strides (dim
+// + 1, 33), so a half-warp reading one column of a row-major tile, or one
+// row of a transposed one, touches 16 banks.  At dq = dv = 256 a CTA holds
+// 207 KB: its 64-row tile of two operands and the 32-wide tile of two
+// others, each transposed, plus the 64 x 32 probabilities; one CTA per SM,
+// bound by the FMA rate and shared-memory loads.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tc_mma.cuh"
 
 namespace {
 
@@ -388,6 +428,213 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the bfloat16 dkv pass on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_THREADS = 256;  // 8 warps: 4 key-row groups x 2 halves
+constexpr int TC_BN = 32;        // queries per walked tile
+
+// One CTA per (query head h, batch b, 64-key tile), walking 32-query tiles
+// (from the diagonal on when causal; the grid puts the key tiles last, so
+// the longest CTAs, the first key tiles, start first); writes the head's
+// float32 partials dk_h (B, S, H, dq) and dv_h (B, S, H, dv) as dkv_kernel
+// does.  Warp w owns keys 16 (w % 4) .. + 15 and one half (w / 4) of the
+// 16-column groups of dk and of dv; the two halves of a key-row group both
+// form its S^T and dP^T.  DMAX bounds the padded head dims; FULL: both are
+// DMAX, so every head-dim guard folds (see flash_fwd_tc_kernel).
+template <int DMAX, bool FULL>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    dkv_tc_kernel(const tc::bf16* __restrict__ q,
+                  const tc::bf16* __restrict__ k,
+                  const tc::bf16* __restrict__ v,
+                  const tc::bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dk_h,
+                  float* __restrict__ dv_h, int S, int H, int KH, int dqd,
+                  int dvd, float scale, int causal, int vec) {
+  using tc::bf16;
+  constexpr int NG = DMAX / 32;  // 16-column groups per half (at most)
+  constexpr int SN = TC_BN / 8;  // 8-query score tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (FULL) dqd = dvd = DMAX;
+  const int dqp = (dqd + 15) & ~15, dvp = (dvd + 15) & ~15;
+  const int qs = dqp + 8, vs = dvp + 8;  // row strides (16 bytes of pad)
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BM][qs]
+  bf16* Vs = Ks + BM * qs;                        // [BM][vs]
+  bf16* Qs = Vs + BM * vs;                        // [2][TC_BN][qs]
+  bf16* Gs = Qs + 2 * TC_BN * qs;                 // dO [2][TC_BN][vs]
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * TC_BN * vs);  // lse [2][BN]
+  float* Ds = Ls + 2 * TC_BN;                                 // delta
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kr = (warp & 3) * 16;  // the warp's key rows in the tile
+  const int half = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * BM;
+  const int kh = h / (H / KH);
+  const long long q_row = (long long)H * dqd, o_row = (long long)H * dvd;
+  const long long k_row = (long long)KH * dqd, v_row = (long long)KH * dvd;
+  const bf16* qb = q + (long long)b * S * q_row + (long long)h * dqd;
+  const bf16* gb = dout + (long long)b * S * o_row + (long long)h * dvd;
+  const bf16* kb = k + (long long)b * S * k_row + (long long)kh * dqd;
+  const bf16* vb = v + (long long)b * S * v_row + (long long)kh * dvd;
+  const float* lseb = lse + ((long long)b * H + h) * S;
+  const float* deltab = delta + ((long long)b * H + h) * S;
+
+  // this half's 16-column groups: [kg0, kg1) of dk, [vg0, vg1) of dv
+  const int kgs = dqp / 16, vgs = dvp / 16;
+  const int kg0 = half ? (kgs + 1) / 2 : 0, kg1 = half ? kgs : (kgs + 1) / 2;
+  const int vg0 = half ? (vgs + 1) / 2 : 0, vg1 = half ? vgs : (vgs + 1) / 2;
+  const int nkg = kg1 - kg0, nvg = vg1 - vg0;  // constants when FULL
+
+  const int nq = (S + TC_BN - 1) / TC_BN;
+  const int first = causal ? k0 / TC_BN : 0;
+
+  auto load_q_tile = [&](int qt, int stage) {
+    const int q0 = qt * TC_BN;
+    tc::load_tile(Qs + stage * TC_BN * qs, qs, qb, q_row, q0, TC_BN, dqd, dqp,
+                  S, vec, tid, TC_THREADS);
+    tc::load_tile(Gs + stage * TC_BN * vs, vs, gb, o_row, q0, TC_BN, dvd, dvp,
+                  S, vec, tid, TC_THREADS);
+    if (tid < 2 * TC_BN) {
+      const int i = tid & (TC_BN - 1);
+      const int qpos = q0 + i;
+      const bool full = qpos < S;
+      const float* src = tid < TC_BN ? lseb : deltab;
+      float* dst = (tid < TC_BN ? Ls : Ds) + stage * TC_BN + i;
+      tc::cp_async4(dst, full ? src + qpos : src, full);
+    }
+  };
+
+  tc::load_tile(Ks, qs, kb, k_row, k0, BM, dqd, dqp, S, vec, tid, TC_THREADS);
+  tc::load_tile(Vs, vs, vb, v_row, k0, BM, dvd, dvp, S, vec, tid, TC_THREADS);
+  if (first < nq) load_q_tile(first, 0);
+  tc::cp_async_commit();
+
+  float dk[NG][2][4], dv[NG][2][4];
+#pragma unroll
+  for (int i = 0; i < NG; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[i][j][e] = dv[i][j][e] = 0.f;
+  const int kpos[2] = {k0 + kr + g, k0 + kr + g + 8};
+
+  for (int qt = first; qt < nq; ++qt) {
+    const int stage = (qt - first) & 1;
+    const int q0 = qt * TC_BN;
+    if (qt + 1 < nq) load_q_tile(qt + 1, stage ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // all but the newest group: this tile (and K, V)
+    __syncthreads();
+    const bf16* Qt = Qs + stage * TC_BN * qs;
+    const bf16* Gt = Gs + stage * TC_BN * vs;
+    const float* Lt = Ls + stage * TC_BN;
+    const float* Dt = Ds + stage * TC_BN;
+
+    // S^T = K Q^T and dP^T = V dO^T (keys x queries), exact in float32
+    float st[SN][4], dpt[SN][4];
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DMAX; kk += 16)
+      if (kk < dqp) {
+        uint32_t a[4];
+        tc::ldsm_x4(a, tc::a_addr(Ks, qs, kr, kk, lane));
+#pragma unroll
+        for (int np = 0; np < SN / 2; ++np) {
+          uint32_t bb[4];
+          tc::ldsm_x4(bb, tc::b_addr(Qt, qs, np * 16, kk, lane));
+          tc::mma(st[2 * np], a, bb[0], bb[1]);
+          tc::mma(st[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+#pragma unroll
+    for (int kk = 0; kk < DMAX; kk += 16)
+      if (kk < dvp) {
+        uint32_t a[4];
+        tc::ldsm_x4(a, tc::a_addr(Vs, vs, kr, kk, lane));
+#pragma unroll
+        for (int np = 0; np < SN / 2; ++np) {
+          uint32_t bb[4];
+          tc::ldsm_x4(bb, tc::b_addr(Gt, vs, np * 16, kk, lane));
+          tc::mma(dpt[2 * np], a, bb[0], bb[1]);
+          tc::mma(dpt[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+
+    // p = exp(s scale - lse) (0 where masked), ds = p (dp - delta) scale, in
+    // float32: st becomes p^T, dpt becomes ds^T
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * t + (e & 1);
+        const int qpos = q0 + col;
+        const int kp = kpos[e >> 1];
+        float p = 0.f;
+        if (qpos < S && kp < S && !(causal && kp > qpos))
+          p = expf(st[n][e] * scale - Lt[col]);
+        st[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] - Dt[col]) * scale;
+      }
+
+    // dV += P^T dO and dK += dS^T Q, each from its hi and lo halves
+#pragma unroll
+    for (int kc = 0; kc < SN / 2; ++kc) {
+      uint32_t hi[4], lo[4];
+      tc::split_frag(st[2 * kc], st[2 * kc + 1], hi, lo);
+#pragma unroll
+      for (int i = 0; i < NG; ++i)
+        if (i < nvg) {
+          uint32_t bb[4];
+          tc::ldsm_x4_t(bb, tc::a_addr(Gt, vs, kc * 16, (vg0 + i) * 16, lane));
+          tc::mma(dv[i][0], hi, bb[0], bb[1]);
+          tc::mma(dv[i][1], hi, bb[2], bb[3]);
+          tc::mma(dv[i][0], lo, bb[0], bb[1]);
+          tc::mma(dv[i][1], lo, bb[2], bb[3]);
+        }
+      tc::split_frag(dpt[2 * kc], dpt[2 * kc + 1], hi, lo);
+#pragma unroll
+      for (int i = 0; i < NG; ++i)
+        if (i < nkg) {
+          uint32_t bb[4];
+          tc::ldsm_x4_t(bb, tc::a_addr(Qt, qs, kc * 16, (kg0 + i) * 16, lane));
+          tc::mma(dk[i][0], hi, bb[0], bb[1]);
+          tc::mma(dk[i][1], hi, bb[2], bb[3]);
+          tc::mma(dk[i][0], lo, bb[0], bb[1]);
+          tc::mma(dk[i][1], lo, bb[2], bb[3]);
+        }
+    }
+    __syncthreads();  // this tile is consumed before its stage is refilled
+  }
+  tc::cp_async_wait<0>();  // no copy outlives the CTA (S below the diagonal)
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kpos[r] >= S) continue;
+    const long long base = ((long long)b * S + kpos[r]) * H + h;
+#pragma unroll
+    for (int i = 0; i < NG; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kcol = (kg0 + i) * 16 + j * 8 + 2 * t + e;
+          const int vcol = (vg0 + i) * 16 + j * 8 + 2 * t + e;
+          if (i < nkg && kcol < dqd)
+            dk_h[base * dqd + kcol] = dk[i][j][2 * r + e];
+          if (i < nvg && vcol < dvd)
+            dv_h[base * dvd + vcol] = dv[i][j][2 * r + e];
+        }
+  }
+}
+
 // out[b, s, kh, c] = sum_{g < G} part[b, s, kh * G + g, c], in head order
 template <typename T>
 __global__ void group_sum_kernel(const float* __restrict__ part,
@@ -453,6 +700,23 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// dk, dv in T from the per-head float32 partials, the G heads in order
+template <typename T>
+cudaError_t group_sums(const void* dk_h, const void* dv_h, void* dk, void* dv,
+                       int B, int S, int H, int KH, int dqd, int dvd,
+                       cudaStream_t st) {
+  const int G = H / KH;
+  const long long nk = (long long)B * S * KH * dqd;
+  const long long nv = (long long)B * S * KH * dvd;
+  group_sum_kernel<T><<<(unsigned)((nk + 255) / 256), 256, 0, st>>>(
+      (const float*)dk_h, (T*)dk, nk, G, dqd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  group_sum_kernel<T><<<(unsigned)((nv + 255) / 256), 256, 0, st>>>(
+      (const float*)dv_h, (T*)dv, nv, G, dvd);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
@@ -473,16 +737,81 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       H, KH, dqd, dvd, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int G = H / KH;
-  const long long nk = (long long)B * S * KH * dqd;
-  const long long nv = (long long)B * S * KH * dvd;
-  group_sum_kernel<T><<<(unsigned)((nk + 255) / 256), 256, 0, st>>>(
-      (const float*)dk_h, (T*)dk, nk, G, dqd);
-  err = cudaGetLastError();
+  return group_sums<T>(dk_h, dv_h, dk, dv, B, S, H, KH, dqd, dvd, st);
+}
+
+size_t dkv_tc_smem(int dq, int dv) {
+  const size_t qs = ((dq + 15) & ~15) + 8, vs = ((dv + 15) & ~15) + 8;
+  return sizeof(tc::bf16) * (BM + 2 * TC_BN) * (qs + vs) +
+         sizeof(float) * 4 * TC_BN;
+}
+
+template <int DMAX, bool FULL>
+size_t dkv_tc_configured = 0;  // see allow_smem: raised, never lowered
+
+template <int DMAX, bool FULL>
+cudaError_t dkv_tc_info_inst(int dqd, int dvd, int* smem, int* ctas_per_sm) {
+  const size_t bytes = dkv_tc_smem(dqd, dvd);
+  *smem = (int)bytes;
+  cudaError_t err = allow_smem(dkv_tc_kernel<DMAX, FULL>, bytes,
+                               &dkv_tc_configured<DMAX, FULL>);
   if (err != cudaSuccess) return err;
-  group_sum_kernel<T><<<(unsigned)((nv + 255) / 256), 256, 0, st>>>(
-      (const float*)dv_h, (T*)dv, nv, G, dvd);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, dkv_tc_kernel<DMAX, FULL>, TC_THREADS, bytes);
+}
+
+template <int DMAX, bool FULL>
+cudaError_t launch_dkv_tc_inst(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dk_h, void* dv_h,
+                               int B, int S, int H, int KH, int dqd, int dvd,
+                               float scale, int causal, int vec,
+                               cudaStream_t st) {
+  const size_t bytes = dkv_tc_smem(dqd, dvd);
+  cudaError_t err = allow_smem(dkv_tc_kernel<DMAX, FULL>, bytes,
+                               &dkv_tc_configured<DMAX, FULL>);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)H, (unsigned)B, (unsigned)((S + BM - 1) / BM));
+  dkv_tc_kernel<DMAX, FULL><<<grid, TC_THREADS, bytes, st>>>(
+      (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v,
+      (const tc::bf16*)dout, (const float*)lse, (const float*)delta,
+      (float*)dk_h, (float*)dv_h, S, H, KH, dqd, dvd, scale, causal, vec);
   return cudaGetLastError();
+}
+
+// The bf16 dkv pass: the tensor-core kernel, then the in-order group sums
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk_h, void* dv_h, void* dk,
+                          void* dv, int B, int S, int H, int KH, int dqd,
+                          int dvd, float scale, int causal, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return cudaSuccess;
+  if (bad_shape(B, H, KH, dqd, dvd)) return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int vec = dqd % 8 == 0 && dvd % 8 == 0 && tc::aligned16(q) &&
+                  tc::aligned16(k) && tc::aligned16(v) &&
+                  tc::aligned16(dout);
+  // exact instantiations (FULL) for 128/128 and 256/256, else the bucket's
+  cudaError_t err;
+  if (dqd == 128 && dvd == 128)
+    err = launch_dkv_tc_inst<128, true>(q, k, v, dout, lse, delta, dk_h, dv_h,
+                                        B, S, H, KH, dqd, dvd, scale, causal,
+                                        vec, st);
+  else if (dqd <= 128 && dvd <= 128)
+    err = launch_dkv_tc_inst<128, false>(q, k, v, dout, lse, delta, dk_h,
+                                         dv_h, B, S, H, KH, dqd, dvd, scale,
+                                         causal, vec, st);
+  else if (dqd == 256 && dvd == 256)
+    err = launch_dkv_tc_inst<256, true>(q, k, v, dout, lse, delta, dk_h, dv_h,
+                                        B, S, H, KH, dqd, dvd, scale, causal,
+                                        vec, st);
+  else
+    err = launch_dkv_tc_inst<256, false>(q, k, v, dout, lse, delta, dk_h,
+                                         dv_h, B, S, H, KH, dqd, dvd, scale,
+                                         causal, vec, st);
+  if (err != cudaSuccess) return err;
+  return group_sums<__nv_bfloat16>(dk_h, dv_h, dk, dv, B, S, H, KH, dqd, dvd,
+                                   st);
 }
 
 }  // namespace
@@ -529,7 +858,21 @@ extern "C" int flash_attention_dkv_bf16(const void* q, const void* k,
                                         void* dv, int B, int S, int H, int KH,
                                         int dqd, int dvd, float scale,
                                         int causal, void* stream) {
-  return (int)launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk_h, dv_h,
-                                        dk, dv, B, S, H, KH, dqd, dvd, scale,
-                                        causal, stream);
+  return (int)launch_dkv_tc(q, k, v, dout, lse, delta, dk_h, dv_h, dk, dv, B,
+                            S, H, KH, dqd, dvd, scale, causal, stream);
+}
+
+// The bf16 dkv kernel's dynamic shared memory (bytes) and resident CTAs per
+// SM at these head dims
+extern "C" int flash_attention_dkv_bf16_info(int dqd, int dvd, int* smem,
+                                             int* ctas_per_sm) {
+  if (dqd <= 0 || dvd <= 0 || dqd > 16 * MAXC || dvd > 16 * MAXC)
+    return (int)cudaErrorInvalidValue;
+  if (dqd == 128 && dvd == 128)
+    return (int)dkv_tc_info_inst<128, true>(dqd, dvd, smem, ctas_per_sm);
+  if (dqd <= 128 && dvd <= 128)
+    return (int)dkv_tc_info_inst<128, false>(dqd, dvd, smem, ctas_per_sm);
+  if (dqd == 256 && dvd == 256)
+    return (int)dkv_tc_info_inst<256, true>(dqd, dvd, smem, ctas_per_sm);
+  return (int)dkv_tc_info_inst<256, false>(dqd, dvd, smem, ctas_per_sm);
 }

@@ -3,8 +3,9 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and compiles
 on its own into ``build/lib<name>-<hash>.so`` under this package (the
-directory is listed in ``.gitignore``).  The hash is of the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+directory is listed in ``.gitignore``).  The hash is of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and a stale library is never loaded.
 A build takes a few seconds; :func:`build_all` starts one ``nvcc`` per
 source at once.  Nothing is built at import: the first launch builds.
 """
@@ -43,8 +44,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

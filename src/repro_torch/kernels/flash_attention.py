@@ -22,7 +22,11 @@
 ``ops.attention`` hands :class:`FlashAttention` the plain versions for
 tensors on the CPU and the kernels (``csrc/flash_attention.cu``,
 ``csrc/flash_attention_bwd.cu``) for tensors on a card; it never falls back
-from one to the other.
+from one to the other.  On the card the dtype picks the kernel: bfloat16
+forward and dkv passes run on the tensor cores (``mma.sync`` bf16 -> f32,
+the float32 P and dS fed as a bf16 hi and lo part, so they compute the
+float32 function to one bf16 step); float32 ones, and the dq pass, on the
+CUDA cores in float32.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ _DQ = {torch.float32: "flash_attention_dq_f32",
        torch.bfloat16: "flash_attention_dq_bf16"}
 _DKV = {torch.float32: "flash_attention_dkv_f32",
         torch.bfloat16: "flash_attention_dkv_bf16"}
-MAX_HEAD_DIM = 256  # 16 output columns per thread; 214 KB of shared memory
+MAX_HEAD_DIM = 256  # every kernel holds a row's output columns on chip
 
 
 def _scores(q, k, scale):
@@ -132,7 +136,8 @@ def _check(name, q, k, v, **rest):
 
 def flash_attention_cuda(q, k, v, causal=True, scale=None):
     """Launch ``csrc/flash_attention.cu`` on the current stream: one CTA per
-    (batch, head, 64-query tile).  Takes contiguous float32 or bfloat16 CUDA
+    (head, batch, query tile), on the tensor cores for bfloat16 and the CUDA
+    cores for float32.  Takes contiguous float32 or bfloat16 CUDA
     tensors of one dtype with ``H % K == 0`` and head dims up to 256; raises
     on anything else and on a failed build or launch.  Returns ``(o,
     lse)``."""
@@ -259,8 +264,9 @@ flash_attention_dq_cuda.launches = 0
 def flash_attention_dkv_cuda(q, k, v, lse, delta, do, causal=True,
                              scale=None):
     """Launch the dkv pass of ``csrc/flash_attention_bwd.cu``: one CTA per
-    (batch, query head, 64-key tile) writes the head's float32 partials,
-    then the G heads of each kv head are summed in order and rounded once.
+    (batch, query head, 64-key tile) writes the head's float32 partials (on
+    the tensor cores for bfloat16, the CUDA cores for float32), then the G
+    heads of each kv head are summed in order and rounded once.
     ``lse`` and ``delta`` are (B, H, S) float32.  Returns ``(dk, dv)``;
     raises on a bad operand and on a failed build or launch."""
     B, S, H, dq = _check("flash_attention_dkv_cuda", q, k, v, do=do, lse=lse,

@@ -246,6 +246,17 @@ FLASH_SHAPES = [(4, 512, 32, 8, 128, 128, True), (2, 200, 4, 2, 64, 64, True),
                 (2, 200, 4, 2, 64, 64, False), (1, 130, 4, 4, 192, 128, True),
                 (2, 96, 8, 1, 64, 64, True), (1, 64, 2, 1, 256, 256, True),
                 (3, 7, 2, 2, 32, 16, False)]
+# bf16 only: S at the edges of the tensor-core kernels' tiles (128 queries
+# up to head dim 128, 64 above, and 64 keys; the dkv pass's 64 keys and 32
+# queries) at both head-dim buckets, and gemma-2b's sequence
+TILE_EDGE_SHAPES = [(1, S, 4, 2, 128, 128, True)
+                    for S in (63, 64, 65, 127, 129, 1024)] + \
+    [(1, S, 2, 1, 256, 256, False) for S in (63, 64, 65, 127, 129, 1024)]
+
+
+def _flash_cases(dtype):
+    return FLASH_SHAPES + (TILE_EDGE_SHAPES if dtype == torch.bfloat16
+                           else [])
 
 
 @pytest.mark.cuda
@@ -253,7 +264,8 @@ FLASH_SHAPES = [(4, 512, 32, 8, 128, 128, True), (2, 200, 4, 2, 64, 64, True),
 def test_flash_attention_kernel_matches_plain_on_card(dtype):
     dev = _need_card()
     ops.reset_launch_counts()
-    for i, (B, S, H, K, dq, dv, causal) in enumerate(FLASH_SHAPES):
+    cases = _flash_cases(dtype)
+    for i, (B, S, H, K, dq, dv, causal) in enumerate(cases):
         rng = np.random.default_rng(i)
         q, k, v = (torch.from_numpy(rng.standard_normal(shape)).to(dtype)
                    .to(dev) for shape in ((B, S, H, dq), (B, S, K, dq),
@@ -262,7 +274,7 @@ def test_flash_attention_kernel_matches_plain_on_card(dtype):
         ro, rlse = flash.flash_attention_ref(q, k, v, causal=causal)
         _assert_close(o, ro, TOL["attention"])
         _assert_close(lse, rlse, TOL["attention"])
-    assert ops.launch_counts()["attention"] == len(FLASH_SHAPES)
+    assert ops.launch_counts()["attention"] == len(cases)
 
 
 @pytest.mark.cuda
@@ -395,7 +407,7 @@ def test_rmsnorm_bwd_kernel_matches_plain_on_card(dtype):
 def test_flash_attention_bwd_kernels_match_plain_on_card(dtype):
     dev = _need_card()
     ops.reset_launch_counts()
-    cases = FLASH_SHAPES + [(2, 1024, 8, 1, 256, 256, True)]
+    cases = _flash_cases(dtype) + [(2, 1024, 8, 1, 256, 256, True)]
     for i, (B, S, H, K, dq, dv, causal) in enumerate(cases):
         rng = np.random.default_rng(i)
         q, k, v, do = (torch.from_numpy(rng.standard_normal(shape)).to(dtype)
@@ -418,6 +430,40 @@ def test_flash_attention_bwd_kernels_match_plain_on_card(dtype):
         _assert_close(dv_, rdv, TOL["attention"])
     counts = ops.launch_counts()
     assert counts["attention_dq"] == counts["attention_dkv"] == len(cases)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_matches_plain_on_card():
+    """``FlashAttention.apply`` with the kernels, through autograd, at a
+    small bf16 MQA shape of head dim 256 against autograd of the plain
+    version: o and dv within one bf16 step; dq and dk within 2^-6 of their
+    largest entry, because the flash backward's delta is dO . o from the
+    bf16 o (as the JAX package's ``_flash_bwd``) where autograd
+    differentiates the float32 softmax (the plain passes differ from it by
+    up to 0.7 % of the largest entry at these shapes on the CPU)."""
+    dev = _need_card()
+    rng = np.random.default_rng(7)
+    B, S, H, K, d = 2, 130, 4, 1, 256
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape)).to(
+        torch.bfloat16).to(dev) for shape in ((B, S, H, d), (B, S, K, d),
+                                              (B, S, K, d), (B, S, H, d)))
+    ops.reset_launch_counts()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = flash.FlashAttention.apply(
+        *leaves, True, None, flash.flash_attention_cuda,
+        flash.flash_attention_dq_cuda, flash.flash_attention_dkv_cuda)[0]
+    got = torch.autograd.grad(o, leaves, do)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    ro = flash.flash_attention_ref(*plain, causal=True)[0]
+    want = torch.autograd.grad(ro, plain, do)
+    counts = ops.launch_counts()
+    assert counts["attention"] == counts["attention_dq"] \
+        == counts["attention_dkv"] == 1
+    _assert_close(o.detach(), ro.detach(), TOL["attention"])
+    _assert_close(got[2], want[2], TOL["attention"])
+    for a, b in zip(got[:2], want[:2]):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= 2.0 ** -6 * float(b.float().abs().max()), err
 
 
 # (T, d, V, tied): gemma-2b's microbatch (a tied (V, d) embedding), a
