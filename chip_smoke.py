@@ -10,7 +10,9 @@ result line if any fails):
    source, all started together); print the bf16 tensor-core kernels'
    registers, shared memory, stack and spill (``cuobjdump -res-usage``) and
    their count of ``HGMMA``/``HMMA`` instructions (``cuobjdump -sass``),
-   each of which must have at least one.
+   each of which must have at least one; then the device time of each
+   kernel inside one bf16 dq pass (its delta kernel) and one rmsnorm
+   backward (its two kernels) at gemma-2b's shapes.
 2. ``samplers``: hold each kernel of slices 1-3 against its plain PyTorch
    version on the card, at the main paths' shapes and at ragged ones, and
    time kernel and plain version with CUDA events (``enum_contract`` also
@@ -213,13 +215,15 @@ SSD_BWD_SHAPE = (2, 128, 4, 16, 2, 32, 64)  # the SsdScan backward, float32
 RMS_SHAPES += ((SSM_BATCH * SSM_PREFILL_LEN, 1024), (SSM_BATCH, 1024))
 
 
-# the bf16 tensor-core kernels: library -> (kernel function as cuobjdump
+# the bf16 tensor-core kernels: library -> [(kernel function as cuobjdump
 # names it, the C function that reports its dynamic shared memory and CTAs
-# per SM at given head dims)
-TC_KERNELS = {"flash_attention": ("flash_fwd_tc_kernel",
-                                  "flash_attention_fwd_bf16_info"),
-              "flash_attention_bwd": ("dkv_tc_kernel",
-                                      "flash_attention_dkv_bf16_info")}
+# per SM at given head dims)]
+TC_KERNELS = {"flash_attention": [("flash_fwd_tc_kernel",
+                                   "flash_attention_fwd_bf16_info")],
+              "flash_attention_bwd": [("dkv_tc_kernel",
+                                       "flash_attention_dkv_bf16_info"),
+                                      ("dq_tc_kernel",
+                                       "flash_attention_dq_bf16_info")]}
 
 
 def _cuobjdump(flag, path):
@@ -229,60 +233,77 @@ def _cuobjdump(flag, path):
                           text=True, check=True, timeout=300).stdout
 
 
-def tc_kernel_usage():
+def kernel_usage(path, func):
     """Registers, static shared memory, stack and local (spill) bytes of
-    each instantiation of the bf16 tensor-core kernels, from ``cuobjdump
-    -res-usage`` on the built libraries, and its count of tensor-core
-    instructions (``HGMMA``/``HMMA``) from ``cuobjdump -sass``; fails unless
-    each kernel is there and every instantiation has at least one.  Beside
-    them, each kernel's dynamic shared memory and resident CTAs per SM at
-    head dims 128 and 256 (Qwen3-8B's and gemma-2b's)."""
-    import ctypes
+    each instantiation of kernel ``func`` in the library at ``path``
+    (``cuobjdump -res-usage``) and its count of tensor-core instructions
+    (``HGMMA``/``HMMA``, ``cuobjdump -sass``), keyed ``func<args>``."""
     import re
+    usage, current = {}, None
+    for line in _cuobjdump("-res-usage", path).splitlines():
+        found = re.search(r"Function (\S+):", line)
+        if found:
+            current = found.group(1) if func in found.group(1) else None
+        elif current and "REG:" in line:
+            args = ",".join(
+                v if t == "i" else ("false", "true")[int(v)]
+                for t, v in re.findall(r"L([ib])(\d+)E", current))
+            key = f"{func}<{args}>"
+            usage[key] = {k: int(v) for k, v in
+                          re.findall(r"(\w+):(\d+)", line)
+                          if k in ("REG", "STACK", "SHARED", "LOCAL")}
+            usage[key]["mangled"] = current
+    current = None
+    for line in _cuobjdump("-sass", path).splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            current = next((k for k, u in usage.items()
+                            if u["mangled"] == found.group(1)), None)
+            if current:
+                usage[current].update(HGMMA=0, HMMA=0)
+        elif current:
+            for op in ("HGMMA", "HMMA"):
+                usage[current][op] += bool(re.search(rf"\b{op}\.", line))
+    for u in usage.values():
+        del u["mangled"]
+    return usage
 
+
+def kernel_at_dims(lib, info, dims=(128, 256)):
+    """Dynamic shared memory and resident CTAs per SM of a tensor-core
+    kernel at dq = dv = d, from its library's ``info`` export."""
+    import ctypes
+    fn = getattr(lib, info)
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    out = {}
+    for d in dims:
+        smem, ctas = ctypes.c_int(), ctypes.c_int()
+        rc = fn(d, d, ctypes.byref(smem), ctypes.byref(ctas))
+        check(rc == 0, f"{info}({d}, {d}) failed: cudaError {rc}")
+        out[d] = {"dynamic_smem_bytes": smem.value,
+                  "ctas_per_sm": ctas.value}
+    return out
+
+
+def tc_kernel_usage():
+    """:func:`kernel_usage` of every bf16 tensor-core kernel on the built
+    libraries; fails unless each kernel is there and every instantiation
+    has at least one tensor-core instruction.  Beside them, each kernel's
+    dynamic shared memory and resident CTAs per SM at head dims 128 and 256
+    (Qwen3-8B's and gemma-2b's)."""
     from repro_torch.kernels import _build
     usage, at_dims = {}, {}
-    for lib, (func, info) in TC_KERNELS.items():
-        fn = getattr(_build.load(lib), info)
-        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-        for d in (128, 256):
-            smem, ctas = ctypes.c_int(), ctypes.c_int()
-            rc = fn(d, d, ctypes.byref(smem), ctypes.byref(ctas))
-            check(rc == 0, f"{info}({d}, {d}) failed: cudaError {rc}")
-            at_dims[f"{func} at dq = dv = {d}"] = {
-                "dynamic_smem_bytes": smem.value, "ctas_per_sm": ctas.value}
+    for lib, kernels in TC_KERNELS.items():
         path = _build.library_path(lib)
-        current = None
-        for line in _cuobjdump("-res-usage", path).splitlines():
-            found = re.search(r"Function (\S+):", line)
-            if found:
-                current = found.group(1) if func in found.group(1) else None
-            elif current and "REG:" in line:
-                args = ",".join(
-                    v if t == "i" else ("false", "true")[int(v)]
-                    for t, v in re.findall(r"L([ib])(\d+)E", current))
-                key = f"{func}<{args}>"
-                usage[key] = {k: int(v) for k, v in
-                              re.findall(r"(\w+):(\d+)", line)
-                              if k in ("REG", "STACK", "SHARED", "LOCAL")}
-                usage[key]["mangled"] = current
-        current = None
-        for line in _cuobjdump("-sass", path).splitlines():
-            found = re.search(r"Function : (\S+)", line)
-            if found:
-                current = next((k for k, u in usage.items()
-                                if u["mangled"] == found.group(1)), None)
-                if current:
-                    usage[current].update(HGMMA=0, HMMA=0)
-            elif current:
-                for op in ("HGMMA", "HMMA"):
-                    usage[current][op] += bool(re.search(rf"\b{op}\.", line))
-        check(any(k.startswith(func + "<") for k in usage),
-              f"cuobjdump found no {func} in {path.name}")
+        for func, info in kernels:
+            for d, u in kernel_at_dims(_build.load(lib), info).items():
+                at_dims[f"{func} at dq = dv = {d}"] = u
+            found = kernel_usage(path, func)
+            check(found, f"cuobjdump found no {func} in {path.name}")
+            usage.update(found)
     for key, u in usage.items():
         check(u.get("HGMMA", 0) + u.get("HMMA", 0) > 0,
               f"{key} has no tensor-core instruction: {u}")
-        del u["mangled"]
     return {"instantiations": usage, "at_head_dims": at_dims}
 
 
@@ -864,9 +885,9 @@ def hmm_theta_gate(theta_draws, true_theta, z_max=4.0):
 
 
 def run_hmm(dev):
-    """The paper's semi-supervised HMM: a hand-written forward pass (a
-    plain PyTorch loop of logsumexp steps, as the JAX model's lax.scan is
-    plain jnp) under NUTS."""
+    """The paper's semi-supervised HMM: a hand-written forward pass (plain
+    PyTorch logsumexp products, as the JAX model's lax.scan is plain jnp)
+    under NUTS."""
     from repro_torch.bench.models import hmm_data, hmm_model
     from repro_torch.core.infer import MCMC, NUTS, effective_sample_size
     from repro_torch.kernels import ops
@@ -1246,6 +1267,38 @@ def device_profile(fn, calls):
             {"name": k[:80], "ms_per_call": t / 1e3 / calls,
              "launches_per_call": c / calls}
             for t, c, k in sorted(rows, reverse=True)[:8]]}
+
+
+def kernel_split(fn, calls):
+    """Device ms and launches per call of each kernel that ``fn`` launches,
+    from :func:`device_profile` (the top 8); launches below the kernel's
+    own count per call mean the profiler lost records."""
+    prof = device_profile(fn, calls)
+    return {k["name"]: {"ms": k["ms_per_call"],
+                        "launches": k["launches_per_call"]}
+            for k in prof.get("top_device_kernels", [])}
+
+
+def backward_kernel_split(dev):
+    """The device time of each kernel inside one bf16 call of the dq pass
+    (the delta kernel and ``dq_tc_kernel``) at ``ATTN_BWD_MAIN`` and of the
+    rmsnorm backward (the partials kernel and their sum) at
+    ``RMS_BWD_MAIN``.  Run right after the build: later in the process the
+    profiler lost records of such short calls."""
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, S, H, K, dq, dv, causal = ATTN_BWD_MAIN
+    q, k, v, do = (torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16) for s in ((B, S, H, dq), (B, S, K, dq), (B, S, K, dv),
+                                  (B, S, H, dv)))
+    o, lse = fl.flash_attention_cuda(q, k, v, causal=causal)
+    x, g = (torch.randn(RMS_BWD_MAIN, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    w = torch.rand(RMS_BWD_MAIN[-1], generator=gen, device=dev) + 0.5
+    return {"attention_dq": kernel_split(
+        lambda: fl.flash_attention_dq_cuda(q, k, v, o, lse, do, causal), 50),
+        "rmsnorm_bwd": kernel_split(lambda: rmsnorm_bwd_cuda(x, w, g), 200)}
 
 
 def count_syncs(fn):
@@ -2294,7 +2347,8 @@ def ssm_kernel_rows(checks, timing, ssm):
 def run_samplers(dev):
     """The kernels of slices 1-3 against their plain versions, then their
     main paths (NUTS logreg, the two HMMs, ChEES, MALA, RWM); returns their
-    rows of the kernel table."""
+    rows of the kernel table and prints the seconds of each part."""
+    part_s, t0 = {}, time.perf_counter()
     lf_checks, lf_timing = leapfrog_checks(dev)
     glm_checks_, glm_timing = glm_checks(dev)
     enum_checks_, enum_timings = enum_checks(dev)
@@ -2309,17 +2363,29 @@ def run_samplers(dev):
     print("ensemble kernel timings:", json.dumps(
         {str(k): v for k, v in ens_timing.items()}), flush=True)
 
+
+    def lap(name):
+        nonlocal t0
+        part_s[name], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    lap("kernel checks")
     from repro_torch.bench.models import covtype_data
-    t0 = time.perf_counter()
     data = covtype_data(seed=0, n=N, d=D)
     data_s = time.perf_counter() - t0
     path, counts = run_main_path(dev, data, data_s)
+    lap("NUTS logreg")
     enum_path, enum_counts = run_enum_hmm(dev)
+    lap("enumerated HMM")
     run_hmm(dev)
+    lap("semi-supervised HMM")
     chees, chees_counts = run_chees(dev, data)
+    lap("ChEES")
     mala, mala_counts, mala_mean = run_mrw(dev, data, "MALA")
+    lap("MALA")
     rwm, rwm_counts, _ = run_mrw(dev, data, "RWM",
                                  init_w=torch.from_numpy(mala_mean))
+    lap("RWM")
+    print("sampler part seconds:", json.dumps(part_s), flush=True)
 
     from repro_torch.kernels.ops import SPECS
     kernels = []
@@ -2394,6 +2460,8 @@ def main():
     print("build seconds:", json.dumps(build_s), flush=True)
     print("tensor-core kernels (cuobjdump):", json.dumps(tc_kernel_usage()),
           flush=True)
+    print("backward kernels by device time (ms per call):",
+          json.dumps(backward_kernel_split(dev)), flush=True)
     phase_s = {}
     t0 = time.perf_counter()
     kernels = run_samplers(dev)

@@ -8,7 +8,8 @@ features ~ N(0, 1), ``true_w ~ N(0, 0.5^2)``, ``y ~ Bernoulli(sigmoid(x @
 true_w))``; HMM chains started in state 0 with Dirichlet-drawn transition
 and emission matrices.  Each data function also returns the parameters that
 generated it (``true_*``).  The model code mirrors the JAX models line for
-line.  SKIM waits for its slice.
+line, but for the semi-supervised HMM's forward pass, which multiplies the
+same steps out as a tree (see ``hmm_model``).  SKIM waits for its slice.
 """
 from __future__ import annotations
 
@@ -96,10 +97,21 @@ def hmm_model(data):
     # indexing with a 0-d device tensor would read it back to the host)
     init = log_theta[z_sup[-1:]][0] + log_phi[:, w[T_sup - 1:T_sup]][:, 0]
     emissions = log_phi[:, w[T_sup:]].T       # row t: log_phi[:, w[T_sup + t]]
+    # The JAX model's lax.scan steps log_alpha <- logsumexp(log_alpha[:, None]
+    # + log_theta, 0) + emit_t.  Step t is the log-space product with
+    # log_theta + emit_t[None, :], so the chain of T - T_sup steps is
+    # multiplied out as a balanced tree: ceil(log2 n) rounds of batched
+    # products rather than n sequential ones (eager PyTorch pays per launch).
+    mats = log_theta + emissions[:, None, :]  # (n, K, K)
+    while mats.shape[0] > 1:
+        n = mats.shape[0]
+        pairs = mats[:n - n % 2].reshape(n // 2, 2, K, K)
+        prod = torch.logsumexp(pairs[:, 0, :, :, None]
+                               + pairs[:, 1, None, :, :], dim=2)
+        mats = torch.cat([prod, mats[n - 1:]]) if n % 2 else prod
     log_alpha = init
-    for emit in emissions.unbind(0):          # the JAX model's lax.scan
-        log_alpha = torch.logsumexp(log_alpha[:, None] + log_theta, dim=0)
-        log_alpha = log_alpha + emit
+    if mats.shape[0]:
+        log_alpha = torch.logsumexp(log_alpha[:, None] + mats[0], dim=0)
     pc.sample("marginal", dist.Delta(
         log_alpha.new_zeros(()), log_density=torch.logsumexp(log_alpha, 0)),
         obs=log_alpha.new_zeros(()))

@@ -26,7 +26,7 @@
 // KH = 1, 256/256, causal) the dq pass needs 3 and the dkv pass 4 products of
 // (S^2 / 2) x 256 per head, ~12.9 and ~17.2 GFLOP, against ~21 MB of
 // operands: bound by operations (13 and 17 us at the bf16 tensor-core rate).
-// Three kernels do the work, chosen by pass and dtype:
+// Four kernels do the work, chosen by pass and dtype:
 //
 // dkv pass, bfloat16: dkv_tc_kernel, on the tensor cores (replaces the
 // _dkv_kernel behind the pallas_call at flash_attention.py:231).
@@ -63,20 +63,55 @@
 //     per SM.  Head dims not a multiple of 16 are zero-padded in shared
 //     memory.
 //
-// dkv pass, float32, and the dq pass in both dtypes: dkv_kernel and
-// dq_kernel, on the CUDA cores in float32.  float32 q and k are not exact
-// in bf16, so the tensor cores' bf16 products would not give the float32
-// function the 2-layer float32 models are held to (1e-4); the bf16 dq pass
-// is a later PR's.  Layout (256 threads, 16 row groups x 16 column lanes, as
-// in the forward kernel csrc/flash_attention.cu): thread (g, c) owns 4 rows
-// of its tile and the columns c, c + 16 of the 32-wide tile it walks, and
-// the output columns c, c + 16, ... (head dims up to 256) of its 4 rows.
-// Every operand is staged in shared memory as float32 with odd strides (dim
-// + 1, 33), so a half-warp reading one column of a row-major tile, or one
-// row of a transposed one, touches 16 banks.  At dq = dv = 256 a CTA holds
-// 207 KB: its 64-row tile of two operands and the 32-wide tile of two
-// others, each transposed, plus the 64 x 32 probabilities; one CTA per SM,
-// bound by the FMA rate and shared-memory loads.
+// dq pass, bfloat16: dq_tc_kernel, on the tensor cores (replaces the
+// _dq_kernel behind the pallas_call at flash_attention.py:207).
+//   - Grid: one CTA per (query head, batch, 64-query tile), the query tiles
+//     last and, when causal, the heaviest first (as the forward), walking
+//     the key tiles up to the diagonal; no atomics.
+//   - Products: S = Q K^T and dP = dO V^T take bf16 operands and are exact
+//     in float32; dS = P (dP - delta) scale is formed in float32 registers
+//     and dQ += dS K takes it as dS_hi + dS_lo from the registers (the
+//     accumulator fragments of S are the A fragments of dS K), K through
+//     ldmatrix.trans.  dS rounded once to bf16 misses the bf16 gate 110x
+//     (B = 1, S = 512, 8 heads of 128 over one kv head, causal), the split
+//     keeps it (0.98 of the bound; tests/test_torch_flash_tc.py).  4
+//     products where FlashAttention-2 has 3.
+//   - Warps: above head dim 128, 8 in two key groups: warp w owns query
+//     rows 16 (w % 4) .. + 15 and keys 32 (w / 4) .. + 31 of each 64-key
+//     tile, so its dq accumulator (16 x 256 float32, 128 registers a
+//     thread) sits beside 32-key-wide S and dP tiles rather than 64-wide
+//     ones (242 registers, no spill, where one group of 4 warps takes 255
+//     and spills); nothing is computed twice (splitting the dq columns
+//     instead, as the dkv pass does, forms S and dP twice).  At the end the
+//     second group's accumulators pass through shared memory and are added
+//     to the first's, in that order, so every run gives the same bits.  Up
+//     to head dim 128, one group of 4 warps over 64 keys, two CTAs per SM.
+//     At gemma-2b's microbatch the kernel takes 0.089 ms (0.105 with one
+//     group of 64 keys, 0.113 of 32), at Qwen3-8B's prefill shape the pass
+//     0.112 ms (0.136 with two groups); src/repro_torch/bench/bwd_kernels.py
+//     (NVIDIA H100 80GB HBM3, 700 W) builds and times the choices
+//     (DQ_TILES_128 / DQ_TILES_256 below).
+//   - Copies: Q and dO loaded once; K and V through a two-stage cp.async
+//     ring, so key tile j + 1 arrives while j is computed; rows padded by 16
+//     bytes, head dims not a multiple of 16 zero-padded, as in the forward.
+//     203 KB at 256/256 (one CTA per SM), 104 KB at 128/128 (two).
+//   - Head dims 128/128 and 256/256 have exact instantiations; others take
+//     the guarded bucket's.
+//
+// dkv pass, float32, and the dq pass, float32: dkv_kernel and dq_kernel, on
+// the CUDA cores in float32.  float32 q and k are not exact in bf16, so the
+// tensor cores' bf16 products would not give the float32 function the
+// 2-layer float32 models are held to (1e-4).  Layout (256 threads, 16 row
+// groups x 16 column lanes, as in the forward kernel
+// csrc/flash_attention.cu): thread (g, c) owns 4 rows of its tile and the
+// columns c, c + 16 of the 32-wide tile it walks, and the output columns c,
+// c + 16, ... (head dims up to 256) of its 4 rows.  Every operand is staged
+// in shared memory as float32 with odd strides (dim + 1, 33), so a
+// half-warp reading one column of a row-major tile, or one row of a
+// transposed one, touches 16 banks.  At dq = dv = 256 a CTA holds 207 KB:
+// its 64-row tile of two operands and the 32-wide tile of two others, each
+// transposed, plus the 64 x 32 probabilities; one CTA per SM, bound by the
+// FMA rate and shared-memory loads.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -635,6 +670,222 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the bfloat16 dq pass on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int DQ_BM = 64;  // query rows of a CTA: 4 warps of 16 per key group
+
+// Keys per tile and key groups of the dq pass at head dims up to 128 (4
+// warps, each 16 query rows x 64 keys, two CTAs per SM) and up to 256 (8
+// warps, each 16 query rows x 32 keys of every 64-key tile);
+// src/repro_torch/bench/bwd_kernels.py builds copies with other values
+#define DQ_TILES_128 64, 1
+#define DQ_TILES_256 64, 2
+
+// One CTA per (query head h, batch b, 64-query tile), the query tiles last
+// and, when causal, the heaviest first, walking KT-key tiles up to the
+// diagonal.  Warp w owns query rows 16 (w % 4) .. + 15 and, in each key
+// tile, the keys (w / 4) KT / KSPLIT .. + KT / KSPLIT - 1; with KSPLIT = 2
+// the second key group's dq accumulators are added to the first's through
+// shared memory at the end.  DMAX bounds the padded head dims; FULL: both
+// are DMAX, so every head-dim guard folds (see flash_fwd_tc_kernel).
+template <int DMAX, int KT, int KSPLIT, bool FULL>
+__global__ void __launch_bounds__(128 * KSPLIT, 1)
+    dq_tc_kernel(const tc::bf16* __restrict__ q,
+                 const tc::bf16* __restrict__ k,
+                 const tc::bf16* __restrict__ v,
+                 const tc::bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, tc::bf16* __restrict__ dq,
+                 int S, int H, int KH, int dqd, int dvd, float scale,
+                 int causal, int vec) {
+  using tc::bf16;
+  static_assert(KSPLIT == 1 || KSPLIT == 2, "one or two key groups");
+  constexpr int NTH = 128 * KSPLIT;
+  constexpr int NT = DMAX / 8;       // 8-column dq tiles (at most)
+  constexpr int KW = KT / KSPLIT;    // a warp's keys in each tile
+  constexpr int SN = KW / 8;         // its 8-key score tiles
+  static_assert(KW % 16 == 0, "a warp's keys are whole 16-key steps");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (FULL) dqd = dvd = DMAX;
+  const int dqp = (dqd + 15) & ~15, dvp = (dvd + 15) & ~15;
+  const int qs = dqp + 8, vs = dvp + 8;  // row strides (16 bytes of pad)
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [DQ_BM][qs]
+  bf16* Gs = Qs + DQ_BM * qs;                     // dO [DQ_BM][vs]
+  bf16* Ks = Gs + DQ_BM * vs;                     // [2][KT][qs]
+  bf16* Vs = Ks + 2 * KT * qs;                    // [2][KT][vs]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = (warp & 3) * 16;  // the warp's query rows in the tile
+  const int kw0 = (warp >> 2) * KW;  // its keys in each key tile
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z) * DQ_BM;
+  const int kh = h / (H / KH);
+  const long long q_row = (long long)H * dqd, o_row = (long long)H * dvd;
+  const long long k_row = (long long)KH * dqd, v_row = (long long)KH * dvd;
+  const bf16* qb = q + (long long)b * S * q_row + (long long)h * dqd;
+  const bf16* gb = dout + (long long)b * S * o_row + (long long)h * dvd;
+  const bf16* kb = k + (long long)b * S * k_row + (long long)kh * dqd;
+  const bf16* vb = v + (long long)b * S * v_row + (long long)kh * dvd;
+
+  int nk = (S + KT - 1) / KT;
+  if (causal) nk = min(nk, (min(q0 + DQ_BM, S) - 1) / KT + 1);
+
+  tc::load_tile(Qs, qs, qb, q_row, q0, DQ_BM, dqd, dqp, S, vec, tid, NTH);
+  tc::load_tile(Gs, vs, gb, o_row, q0, DQ_BM, dvd, dvp, S, vec, tid, NTH);
+  tc::load_tile(Ks, qs, kb, k_row, 0, KT, dqd, dqp, S, vec, tid, NTH);
+  tc::load_tile(Vs, vs, vb, v_row, 0, KT, dvd, dvp, S, vec, tid, NTH);
+  tc::cp_async_commit();
+
+  // the thread's rows g and g + 8 of the warp: position, lse, delta
+  int qpos[2];
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qpos[r] = q0 + row0 + r * 8 + g;
+    const long long li = ((long long)b * H + h) * S + qpos[r];
+    lse_r[r] = qpos[r] < S ? lse[li] : 0.f;
+    delta_r[r] = qpos[r] < S ? delta[li] : 0.f;
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int ntq = dqp / 8;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * KT;
+    if (kt + 1 < nk) {  // the next stage was consumed in iteration kt - 1
+      const int nxt = (kt + 1) & 1;
+      tc::load_tile(Ks + nxt * KT * qs, qs, kb, k_row, k0 + KT, KT, dqd, dqp,
+                    S, vec, tid, NTH);
+      tc::load_tile(Vs + nxt * KT * vs, vs, vb, v_row, k0 + KT, KT, dvd, dvp,
+                    S, vec, tid, NTH);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // all but the newest group: tile kt (and Q, dO)
+    __syncthreads();
+    const bf16* Kt = Ks + (kt & 1) * KT * qs;
+    const bf16* Vt = Vs + (kt & 1) * KT * vs;
+
+    // S = Q K^T and dP = dO V^T (the warp's rows x its keys), exact in
+    // float32
+    float s[SN][4], dp[SN][4];
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DMAX; kk += 16)
+      if (kk < dqp) {
+        uint32_t a[4];
+        tc::ldsm_x4(a, tc::a_addr(Qs, qs, row0, kk, lane));
+#pragma unroll
+        for (int np = 0; np < SN / 2; ++np) {
+          uint32_t bb[4];
+          tc::ldsm_x4(bb, tc::b_addr(Kt, qs, kw0 + np * 16, kk, lane));
+          tc::mma(s[2 * np], a, bb[0], bb[1]);
+          tc::mma(s[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+#pragma unroll
+    for (int kk = 0; kk < DMAX; kk += 16)
+      if (kk < dvp) {
+        uint32_t a[4];
+        tc::ldsm_x4(a, tc::a_addr(Gs, vs, row0, kk, lane));
+#pragma unroll
+        for (int np = 0; np < SN / 2; ++np) {
+          uint32_t bb[4];
+          tc::ldsm_x4(bb, tc::b_addr(Vt, vs, kw0 + np * 16, kk, lane));
+          tc::mma(dp[2 * np], a, bb[0], bb[1]);
+          tc::mma(dp[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+
+    // p = exp(s scale - lse) (0 where masked), ds = p (dp - delta) scale in
+    // float32, in place of s
+    const bool edge = k0 + KT > S || (causal && k0 + KT - 1 > q0);
+#pragma unroll
+    for (int n = 0; n < SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kpos = k0 + kw0 + n * 8 + 2 * t + (e & 1);
+        float p = 0.f;
+        if (!edge || !(kpos >= S || (causal && kpos > qpos[r])))
+          p = expf(s[n][e] * scale - lse_r[r]);
+        s[n][e] = p * (dp[n][e] - delta_r[r]) * scale;
+      }
+
+    // dQ += dS_hi K + dS_lo K, 16 keys a step
+#pragma unroll
+    for (int kc = 0; kc < SN / 2; ++kc) {
+      uint32_t hi[4], lo[4];
+      tc::split_frag(s[2 * kc], s[2 * kc + 1], hi, lo);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np)
+        if (2 * np < ntq) {
+          uint32_t bb[4];
+          tc::ldsm_x4_t(bb, tc::a_addr(Kt, qs, kw0 + kc * 16, np * 16, lane));
+          tc::mma(acc[2 * np], hi, bb[0], bb[1]);
+          tc::mma(acc[2 * np + 1], hi, bb[2], bb[3]);
+          tc::mma(acc[2 * np], lo, bb[0], bb[1]);
+          tc::mma(acc[2 * np + 1], lo, bb[2], bb[3]);
+        }
+    }
+    __syncthreads();  // tile kt is consumed before its stage is refilled
+  }
+  tc::cp_async_wait<0>();
+
+  if (KSPLIT == 2) {
+    // the second key group's accumulators, then the first's plus them, in
+    // that order; the ring is free (every copy landed, every warp passed
+    // the loop's last barrier).  [tile, element][thread of the group]:
+    // consecutive lanes, consecutive words
+    float* red = reinterpret_cast<float*>(Ks);
+    const int gt = tid & 127;
+    if (warp >= 4) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        if (n < ntq)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) red[(n * 4 + e) * 128 + gt] = acc[n][e];
+    }
+    __syncthreads();
+    if (warp >= 4) return;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      if (n < ntq)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += red[(n * 4 + e) * 128 + gt];
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] >= S) continue;
+    bf16* drow = dq + (((long long)b * S + qpos[r]) * H + h) * dqd;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      if (n < ntq) {
+        const int col = n * 8 + 2 * t;
+        if (vec) {  // dqd % 8 == 0, so col + 1 < dqd with col
+          if (col < dqd)
+            *reinterpret_cast<__nv_bfloat162*>(drow + col) =
+                __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (col + e < dqd)
+              drow[col + e] = __float2bfloat16_rn(acc[n][2 * r + e]);
+        }
+      }
+  }
+}
+
 // out[b, s, kh, c] = sum_{g < G} part[b, s, kh * G + g, c], in head order
 template <typename T>
 __global__ void group_sum_kernel(const float* __restrict__ part,
@@ -673,6 +924,19 @@ cudaError_t allow_smem(Kern kernel, size_t bytes, size_t* configured) {
   return cudaSuccess;
 }
 
+bool bad_dq_grid(int S) { return (S + DQ_BM - 1) / DQ_BM > 65535; }
+
+// delta = rowsum(dO o), written for this pass and the dkv pass
+template <typename T>
+cudaError_t launch_delta(const void* o, const void* dout, void* delta, int B,
+                         int S, int H, int dvd, cudaStream_t st) {
+  const long long rows = (long long)B * S * H;
+  const int warps = THREADS / 32;
+  delta_kernel<T><<<(unsigned)((rows + warps - 1) / warps), THREADS, 0, st>>>(
+      (const T*)o, (const T*)dout, (float*)delta, rows, S, H, dvd);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const void* lse,
@@ -682,11 +946,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   if (B <= 0 || S <= 0 || H <= 0) return cudaSuccess;
   if (bad_shape(B, H, KH, dqd, dvd)) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const long long rows = (long long)B * S * H;
-  const int warps = THREADS / 32;
-  delta_kernel<T><<<(unsigned)((rows + warps - 1) / warps), THREADS, 0, st>>>(
-      (const T*)o, (const T*)dout, (float*)delta, rows, S, H, dvd);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<T>(o, dout, delta, B, S, H, dvd, st);
   if (err != cudaSuccess) return err;
   const size_t bytes = dq_smem(dqd, dvd);
   static size_t configured = 0;
@@ -698,6 +958,82 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       (const float*)lse, (const float*)delta, (T*)dq, S, H, KH, dqd, dvd,
       scale, causal);
   return cudaGetLastError();
+}
+
+// Q and dO, the K/V ring, or the second key group's accumulators in its
+// place, whichever is larger
+size_t dq_tc_smem(int dq, int dv, int kt, int ksplit) {
+  const size_t dqp = (dq + 15) & ~15, dvp = (dv + 15) & ~15;
+  const size_t qs = dqp + 8, vs = dvp + 8;
+  const size_t ring = sizeof(tc::bf16) * 2 * kt * (qs + vs);
+  const size_t red = ksplit > 1 ? sizeof(float) * 4 * 128 * (dqp / 8) : 0;
+  return sizeof(tc::bf16) * DQ_BM * (qs + vs) + (ring > red ? ring : red);
+}
+
+template <int DMAX, int KT, int KSPLIT, bool FULL>
+size_t dq_tc_configured = 0;  // see allow_smem: raised, never lowered
+
+template <int DMAX, int KT, int KSPLIT, bool FULL>
+cudaError_t dq_tc_info_inst(int dqd, int dvd, int* smem, int* ctas_per_sm) {
+  const size_t bytes = dq_tc_smem(dqd, dvd, KT, KSPLIT);
+  *smem = (int)bytes;
+  cudaError_t err = allow_smem(dq_tc_kernel<DMAX, KT, KSPLIT, FULL>, bytes,
+                               &dq_tc_configured<DMAX, KT, KSPLIT, FULL>);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, dq_tc_kernel<DMAX, KT, KSPLIT, FULL>, 128 * KSPLIT, bytes);
+}
+
+template <int DMAX, int KT, int KSPLIT, bool FULL>
+cudaError_t launch_dq_tc_inst(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* delta, void* dq, int B, int S,
+                              int H, int KH, int dqd, int dvd, float scale,
+                              int causal, int vec, cudaStream_t st) {
+  const size_t bytes = dq_tc_smem(dqd, dvd, KT, KSPLIT);
+  cudaError_t err = allow_smem(dq_tc_kernel<DMAX, KT, KSPLIT, FULL>, bytes,
+                               &dq_tc_configured<DMAX, KT, KSPLIT, FULL>);
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)H, (unsigned)B, (unsigned)((S + DQ_BM - 1) / DQ_BM));
+  dq_tc_kernel<DMAX, KT, KSPLIT, FULL><<<grid, 128 * KSPLIT, bytes, st>>>(
+      (const tc::bf16*)q, (const tc::bf16*)k, (const tc::bf16*)v,
+      (const tc::bf16*)dout, (const float*)lse, (const float*)delta,
+      (tc::bf16*)dq, S, H, KH, dqd, dvd, scale, causal, vec);
+  return cudaGetLastError();
+}
+
+// The bf16 dq pass: the delta kernel, then the tensor-core kernel
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
+                         const void* o, const void* dout, const void* lse,
+                         void* delta, void* dq, int B, int S, int H, int KH,
+                         int dqd, int dvd, float scale, int causal,
+                         void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return cudaSuccess;
+  if (bad_shape(B, H, KH, dqd, dvd) || bad_dq_grid(S))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = launch_delta<__nv_bfloat16>(o, dout, delta, B, S, H, dvd,
+                                                st);
+  if (err != cudaSuccess) return err;
+  const int vec = dqd % 8 == 0 && dvd % 8 == 0 && tc::aligned16(q) &&
+                  tc::aligned16(k) && tc::aligned16(v) &&
+                  tc::aligned16(dout) && tc::aligned16(dq);
+  // exact instantiations (FULL) for 128/128 and 256/256, else the bucket's
+  if (dqd == 128 && dvd == 128)
+    return launch_dq_tc_inst<128, DQ_TILES_128, true>(
+        q, k, v, dout, lse, delta, dq, B, S, H, KH, dqd, dvd, scale, causal,
+        vec, st);
+  if (dqd <= 128 && dvd <= 128)
+    return launch_dq_tc_inst<128, DQ_TILES_128, false>(
+        q, k, v, dout, lse, delta, dq, B, S, H, KH, dqd, dvd, scale, causal,
+        vec, st);
+  if (dqd == 256 && dvd == 256)
+    return launch_dq_tc_inst<256, DQ_TILES_256, true>(
+        q, k, v, dout, lse, delta, dq, B, S, H, KH, dqd, dvd, scale, causal,
+        vec, st);
+  return launch_dq_tc_inst<256, DQ_TILES_256, false>(
+      q, k, v, dout, lse, delta, dq, B, S, H, KH, dqd, dvd, scale, causal,
+      vec, st);
 }
 
 // dk, dv in T from the per-head float32 partials, the G heads in order
@@ -834,9 +1170,8 @@ extern "C" int flash_attention_dq_bf16(const void* q, const void* k,
                                        int H, int KH, int dqd, int dvd,
                                        float scale, int causal,
                                        void* stream) {
-  return (int)launch_dq<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, B,
-                                       S, H, KH, dqd, dvd, scale, causal,
-                                       stream);
+  return (int)launch_dq_tc(q, k, v, o, dout, lse, delta, dq, B, S, H, KH,
+                           dqd, dvd, scale, causal, stream);
 }
 
 // dk_h (B, S, H, dq) and dv_h (B, S, H, dv) float32 are scratch
@@ -875,4 +1210,23 @@ extern "C" int flash_attention_dkv_bf16_info(int dqd, int dvd, int* smem,
   if (dqd == 256 && dvd == 256)
     return (int)dkv_tc_info_inst<256, true>(dqd, dvd, smem, ctas_per_sm);
   return (int)dkv_tc_info_inst<256, false>(dqd, dvd, smem, ctas_per_sm);
+}
+
+// The bf16 dq kernel's dynamic shared memory (bytes) and resident CTAs per
+// SM at these head dims
+extern "C" int flash_attention_dq_bf16_info(int dqd, int dvd, int* smem,
+                                            int* ctas_per_sm) {
+  if (dqd <= 0 || dvd <= 0 || dqd > 16 * MAXC || dvd > 16 * MAXC)
+    return (int)cudaErrorInvalidValue;
+  if (dqd == 128 && dvd == 128)
+    return (int)dq_tc_info_inst<128, DQ_TILES_128, true>(dqd, dvd, smem,
+                                                         ctas_per_sm);
+  if (dqd <= 128 && dvd <= 128)
+    return (int)dq_tc_info_inst<128, DQ_TILES_128, false>(dqd, dvd, smem,
+                                                          ctas_per_sm);
+  if (dqd == 256 && dvd == 256)
+    return (int)dq_tc_info_inst<256, DQ_TILES_256, true>(dqd, dvd, smem,
+                                                         ctas_per_sm);
+  return (int)dq_tc_info_inst<256, DQ_TILES_256, false>(dqd, dvd, smem,
+                                                        ctas_per_sm);
 }

@@ -22,11 +22,11 @@
 ``ops.attention`` hands :class:`FlashAttention` the plain versions for
 tensors on the CPU and the kernels (``csrc/flash_attention.cu``,
 ``csrc/flash_attention_bwd.cu``) for tensors on a card; it never falls back
-from one to the other.  On the card the dtype picks the kernel: bfloat16
-forward and dkv passes run on the tensor cores (``mma.sync`` bf16 -> f32,
-the float32 P and dS fed as a bf16 hi and lo part, so they compute the
-float32 function to one bf16 step); float32 ones, and the dq pass, on the
-CUDA cores in float32.
+from one to the other.  On the card the dtype picks the kernel: the
+bfloat16 forward, dq and dkv passes run on the tensor cores (``mma.sync``
+bf16 -> f32, the float32 P and dS fed as a bf16 hi and lo part, so they
+compute the float32 function to one bf16 step); float32 ones on the CUDA
+cores in float32.
 """
 from __future__ import annotations
 
@@ -235,7 +235,8 @@ def _bwd_fn(table, dtype, nptr):
 
 def flash_attention_dq_cuda(q, k, v, o, lse, do, causal=True, scale=None):
     """Launch the dq pass of ``csrc/flash_attention_bwd.cu`` (a delta
-    kernel, then one CTA per (batch, head, 64-query tile)).  ``o`` and
+    kernel, then one CTA per (head, batch, 64-query tile), on the tensor
+    cores for bfloat16 and the CUDA cores for float32).  ``o`` and
     ``do`` are (B, S, H, dv) of q's dtype, ``lse`` (B, H, S) float32, all
     contiguous on one card.  Returns ``(dq, delta)``; raises on anything
     else and on a failed build or launch."""

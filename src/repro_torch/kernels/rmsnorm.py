@@ -24,7 +24,7 @@ from . import _build
 _DTYPES = {torch.float32: "rmsnorm_fwd_f32",
            torch.bfloat16: "rmsnorm_fwd_bf16"}
 _BWD = {torch.float32: "rmsnorm_bwd_f32", torch.bfloat16: "rmsnorm_bwd_bf16"}
-_ROWS_PER_BLOCK = 8  # csrc/rmsnorm.cu: WARPS, the rows of one dw partial
+_PARTIALS = 128  # csrc/rmsnorm.cu: BWD_BLOCKS, the most dw partial rows
 
 
 def rmsnorm_ref(x, weight, eps=1e-6):
@@ -100,8 +100,9 @@ rmsnorm_cuda.launches = 0
 def rmsnorm_bwd_cuda(x, weight, g, eps=1e-6):
     """Launch the backward of ``csrc/rmsnorm.cu`` on the current stream:
     ``g`` is the gradient of the output, of x's dtype and shape, all
-    contiguous on one card.  Returns ``(dx, dw float32 (d,))``; the per-block
-    ``dw`` partials are summed on the card in a fixed order.  Raises on
+    contiguous on one card.  Returns ``(dx, dw float32 (d,))``; the ``dw``
+    partials (at most 128 rows of them, a function of the shape) are summed
+    on the card in a fixed order, so two calls give the same bits.  Raises on
     anything else and on a failed build or launch."""
     d = _check("rmsnorm_bwd_cuda", x, weight, (("g", g),))
     fn = getattr(_build.load("rmsnorm"), _BWD[x.dtype])
@@ -112,9 +113,8 @@ def rmsnorm_bwd_cuda(x, weight, g, eps=1e-6):
         fn.restype = ctypes.c_int
     rows = x.numel() // d if d else 0
     dx = torch.empty_like(x)
-    blocks = -(-rows // _ROWS_PER_BLOCK)
-    dw_part = torch.empty((max(blocks, 1), d), dtype=torch.float32,
-                          device=x.device)
+    dw_part = torch.empty((max(min(rows, _PARTIALS), 1), d),
+                          dtype=torch.float32, device=x.device)
     dw = torch.empty((d,), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):

@@ -380,7 +380,12 @@ def test_train_kernel_wrappers_refuse_bad_operands_on_card():
 
 
 RMSNORM_BWD_SHAPES = [(2048, 2048), (4, 512, 32, 128), (7, 96), (1, 1),
-                      (3, 5, 4097)]
+                      (3, 5, 4097),
+                      # d not a multiple of 8 (bf16's vector) or of 4, rows
+                      # not a multiple of the partition (128 blocks of 4 or
+                      # 8 row teams), rows wider than the registers hold
+                      (300, 100), (1000, 2048), (129, 4096), (37, 30),
+                      (5, 10000)]
 
 
 @pytest.mark.cuda
@@ -402,12 +407,63 @@ def test_rmsnorm_bwd_kernel_matches_plain_on_card(dtype):
     assert ops.launch_counts()["rmsnorm_bwd"] == len(RMSNORM_BWD_SHAPES)
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 2 bytes past a 16-byte
+    boundary (the kernels then take scalar loads)."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+def test_bf16_backward_kernels_repeat_bitwise_on_card():
+    """Two calls of the bf16 dq pass and of ``rmsnorm_bwd_cuda`` on the same
+    inputs give the same bits (dw and dq are summed in a fixed order, with
+    no atomics), also when the operands are not 16-byte aligned."""
+    dev = _need_card()
+    rng = np.random.default_rng(11)
+    for shape in ((2048, 2048), (1000, 2048), (300, 100), (5, 10000)):
+        x, g = (torch.from_numpy(rng.standard_normal(shape)).to(
+            torch.bfloat16).to(dev) for _ in range(2))
+        w = torch.from_numpy(rng.uniform(0.5, 1.5, shape[-1])).float().to(dev)
+        for xs, gs in ((x, g), (_misaligned(x), _misaligned(g))):
+            (dx, dw), (dx2, dw2) = (rmsnorm_bwd_cuda(xs, w, gs)
+                                    for _ in range(2))
+            assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+            _assert_close(dx, rmsnorm_bwd_ref(x, w, g)[0], TOL["rmsnorm"])
+    for B, S, H, K, dq, dv, causal in ((2, 1024, 8, 1, 256, 256, True),
+                                       (1, 200, 4, 2, 128, 128, False)):
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(shape)).to(
+            torch.bfloat16).to(dev) for shape in ((B, S, H, dq),
+                                                  (B, S, K, dq),
+                                                  (B, S, K, dv),
+                                                  (B, S, H, dv)))
+        o, lse = (t.contiguous() for t in
+                  flash.flash_attention_ref(q, k, v, causal=causal))
+        first, second = (flash.flash_attention_dq_cuda(q, k, v, o, lse, do,
+                                                       causal)
+                         for _ in range(2))
+        assert torch.equal(first[0], second[0])
+        assert torch.equal(first[1], second[1])
+
+
+# bf16 only: each dq_tc_kernel instantiation (the exact 128/128 and
+# 256/256, the guarded buckets up to 128 and 256) at ragged S, causal and
+# not, and head dims that are not a multiple of 8 (scalar loads)
+DQ_TC_SHAPES = [(1, 200, 4, 4, 128, 128, True), (2, 130, 4, 1, 256, 256, False),
+                (1, 130, 4, 2, 192, 128, True), (2, 65, 4, 2, 96, 64, False),
+                (1, 70, 2, 1, 36, 20, True), (1, 97, 2, 1, 200, 136, False)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_kernels_match_plain_on_card(dtype):
     dev = _need_card()
     ops.reset_launch_counts()
     cases = _flash_cases(dtype) + [(2, 1024, 8, 1, 256, 256, True)]
+    if dtype == torch.bfloat16:
+        cases += DQ_TC_SHAPES
     for i, (B, S, H, K, dq, dv, causal) in enumerate(cases):
         rng = np.random.default_rng(i)
         q, k, v, do = (torch.from_numpy(rng.standard_normal(shape)).to(dtype)

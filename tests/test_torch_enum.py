@@ -414,6 +414,31 @@ def test_enum_hmm_run_launches_one_contraction_per_step_and_gradient(
     assert torch.allclose(theta.sum(-1), torch.ones(5, 2))
 
 
+@pytest.mark.parametrize("T,T_sup", [(60, 20), (101, 100), (100, 100),
+                                     (600, 100)])
+def test_hmm_potential_matches_reference(T, T_sup):
+    """The semi-supervised HMM's potential and gradient against the JAX
+    model's: its forward pass multiplies the chain's log-space transfer
+    matrices as a balanced tree where the reference scans them in order
+    (an even chain, one step, none, and the paper's 500).  The gradient is
+    held to 5e-4 of its largest entry: float32 over 500 chained steps,
+    taken in either order, drifts ~2e-4 of it (the in-order loop does as
+    much); a wrong step or transposed matrix moves it by O(1)."""
+    data = hmm_data(seed=0, T=T, T_sup=T_sup)
+    pot, jpot = _potentials(hmm_model, j_hmm_model, (_torch_data(data),),
+                            (_jax_data(data),))
+    j_value_and_grad = jax.jit(jax.value_and_grad(jpot))
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        z = (0.7 * rng.standard_normal(3 * 2 + 3 * 9)).astype(np.float32)
+        pe, g = value_and_grad(pot)(torch.from_numpy(z))
+        jpe, jg = j_value_and_grad(jnp.asarray(z))
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(float(pe), float(jpe), rtol=1e-5)
+        np.testing.assert_allclose(g.numpy(), jg, rtol=0,
+                                   atol=5e-4 * np.max(np.abs(jg)))
+
+
 def test_hmm_posterior_matches_reference_run():
     data = hmm_data(seed=0, T=60, T_sup=20)
     m = MCMC(NUTS(hmm_model, device="cpu"), num_warmup=80, num_samples=80)

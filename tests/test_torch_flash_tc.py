@@ -1,11 +1,13 @@
 """The numerical design of the bf16 tensor-core flash-attention kernels
 (``csrc/flash_attention.cu:flash_fwd_tc_kernel``,
-``csrc/flash_attention_bwd.cu:dkv_tc_kernel``), emulated in plain torch on
-the CPU: bf16 operands, products accumulated in float32, the float32 P and
-dS fed to their products as a bf16 hi part plus a bf16 lo part, the keys
-walked in the kernel's tiles with the online softmax rescaled per tile, the
-dkv pass walking 32-query tiles and summing the G query heads of a kv head
-in order.  Held against the plain versions under the port's bf16 gate
+``csrc/flash_attention_bwd.cu:dq_tc_kernel`` and ``dkv_tc_kernel``),
+emulated in plain torch on the CPU: bf16 operands, products accumulated in
+float32, the float32 P and dS fed to their products as a bf16 hi part plus
+a bf16 lo part, the keys walked in the kernel's tiles with the online
+softmax rescaled per tile, the dq pass accumulating each key group's half
+of every key tile apart and adding the two at the end, the dkv pass
+walking 32-query tiles and summing the G query heads of a kv head in
+order.  Held against the plain versions under the port's bf16 gate
 (``ops.BF16_RTOL``/``BF16_ATOL``: one bf16 step of the float32-computed
 value).  No card and no JAX."""
 import numpy as np
@@ -16,12 +18,9 @@ from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30  # the kernels' masked score
+FWD_KTILE = 64   # keys per tile the forward walks, at both head-dim buckets
+DQ_KTILE = 64    # keys per tile the dq pass walks
 DKV_QTILE = 32   # queries per tile the dkv pass walks
-
-
-def _kt(dq, dv):
-    """The forward kernel's k-tile: 64 keys up to head dim 128, else 32."""
-    return 64 if dq <= 128 and dv <= 128 else 32
 
 
 def _split(x):
@@ -63,7 +62,7 @@ def emulate_fwd(q, k, v, causal, split=True):
     l = torch.zeros_like(m)
     acc = torch.zeros(B, K, H // K, S, dv)
     qpos = torch.arange(S)[:, None]
-    bk = _kt(dq, dv)
+    bk = FWD_KTILE
     for k0 in range(0, S, bk):
         kt, vt = kh[:, :, k0:k0 + bk], vh[:, :, None, k0:k0 + bk]
         s = torch.einsum("bkgsd,bktd->bkgst", qh, kt) * scale
@@ -81,6 +80,47 @@ def emulate_fwd(q, k, v, causal, split=True):
     li = l.clamp_min(1e-30)
     o = (acc / li[..., None]).permute(0, 3, 1, 2, 4).reshape(B, S, H, dv)
     return o.to(torch.bfloat16), (m + torch.log(li)).reshape(B, H, S)
+
+
+def _dq_groups(dq, dv):
+    """The dq kernel's key groups: one up to head dim 128, else two."""
+    return 1 if dq <= 128 and dv <= 128 else 2
+
+
+def emulate_dq(q, k, v, lse, delta, do, causal, split=True):
+    """The dq kernel's arithmetic: ``dq`` in bf16.  With two key groups,
+    group ``j`` of every 64-key tile (keys 32 j .. 32 j + 31) accumulates
+    apart and the two accumulators are added at the end, the first plus
+    the second."""
+    B, S, H, dq = q.shape
+    K, G = k.shape[2], H // k.shape[2]
+    groups = _dq_groups(dq, v.shape[3])
+    scale = dq ** -0.5
+    qh, gh = _heads(q, K), _heads(do, K)
+    kh, vh = k.float().transpose(1, 2)[:, :, None], \
+        v.float().transpose(1, 2)[:, :, None]
+    lse_h = lse.reshape(B, K, G, S)[..., None]
+    delta_h = delta.reshape(B, K, G, S)[..., None]
+    acc = [torch.zeros(B, K, G, S, dq) for _ in range(groups)]
+    qpos = torch.arange(S)[:, None]
+    kw = DQ_KTILE // groups
+    for k0 in range(0, S, DQ_KTILE):
+        for j in range(groups):
+            sl = slice(k0 + j * kw, k0 + (j + 1) * kw)
+            kt, vt = kh[..., sl, :], vh[..., sl, :]
+            s = qh @ kt.transpose(-1, -2)
+            dp = gh @ vt.transpose(-1, -2)
+            p = torch.exp(s * scale - lse_h)
+            if causal:
+                p = p.masked_fill(torch.arange(S)[None, sl] > qpos, 0.0)
+            ds = p * (dp - delta_h) * scale
+            for term in _feed(ds, split):
+                acc[j] = acc[j] + term @ kt
+    total = acc[0]
+    for part in acc[1:]:
+        total = total + part
+    return total.permute(0, 3, 1, 2, 4).reshape(B, S, H, dq) \
+        .to(torch.bfloat16)
 
 
 def emulate_dkv(q, k, v, lse, delta, do, causal, split=True):
@@ -149,6 +189,16 @@ def test_forward_emulation_within_bf16_gate(case):
 
 
 @pytest.mark.parametrize("case", CASES, ids=str)
+def test_dq_emulation_within_bf16_gate(case):
+    *shape, causal = case
+    q, k, v, do = _inputs(shape, seed=2 * len(CASES) + CASES.index(case),
+                          with_do=True)
+    o, lse = flash.flash_attention_ref(q, k, v, causal=causal)
+    rdq, delta = flash.flash_attention_dq_ref(q, k, v, o, lse, do, causal)
+    assert _gate(emulate_dq(q, k, v, lse, delta, do, causal), rdq) <= 1.0
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
 def test_dkv_emulation_within_bf16_gate(case):
     *shape, causal = case
     q, k, v, do = _inputs(shape, seed=CASES.index(case), with_do=True)
@@ -192,3 +242,16 @@ def test_p_rounded_once_to_bf16_breaks_the_gate():
     assert _gate(dk, rdk) <= 1.0 and _gate(dv, rdv) <= 1.0
     dk1, dv1 = emulate_dkv(q, k, v, lse, delta, do, True, split=False)
     assert _gate(dk1, rdk) > 10.0 and _gate(dv1, rdv) > 10.0
+
+
+def test_ds_rounded_once_to_bf16_breaks_the_dq_gate():
+    """dQ += dS K with dS once rounded to bf16 misses the gate (110x at the
+    record shape), so the dq kernel feeds dS as hi + lo (0.98 of the bound
+    there).  A kernel that drops the split needs this test changed."""
+    q, k, v, do = _inputs(RECORD, seed=0, with_do=True)
+    o, lse = flash.flash_attention_ref(q, k, v, causal=True)
+    rdq, delta = flash.flash_attention_dq_ref(q, k, v, o, lse, do, True)
+    assert _gate(emulate_dq(q, k, v, lse, delta, do, True, split=True),
+                 rdq) <= 1.0
+    assert _gate(emulate_dq(q, k, v, lse, delta, do, True, split=False),
+                 rdq) > 10.0
