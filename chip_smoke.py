@@ -37,7 +37,9 @@ result line if any fails):
    versions (float32 and bfloat16, causal and not, MHA/GQA/MQA, dq != dv,
    ragged) and time them beside ``F.rms_norm`` and
    ``F.scaled_dot_product_attention`` (the attention also at gemma-2b's
-   training shape, the forward of its 72 launches a step); then the full
+   training shape, the forward of its 72 launches a step; ``rmsnorm`` and
+   ``F.rms_norm`` at (2048, 4096) also cold, the input rotated over copies
+   that overflow L2); then the full
    Qwen3-8B (bf16,
    params drawn on the card from seed 0): ``make_prefill_step`` at B = 4,
    P = 512 (145 ``rmsnorm`` and 36 ``attention`` launches), and the
@@ -67,7 +69,8 @@ result line if any fails):
    one and two B/C groups, chunks of 256, 64 and one shorter than 256; a
    ragged length raises), and ``SsdScan``'s kernel forward and its
    gradients against autograd of the plain version; time it at
-   mamba2-370m's prefill shape; then the
+   mamba2-370m's prefill shape, with its achieved TFLOP/s on the
+   operations the scan needs (``ssd_work``); then the
    full mamba2-370m (bf16, params drawn on the card from seed 0):
    ``make_prefill_step`` at B = 4, P = 2048 (48 ``ssd_scan`` and 49
    ``rmsnorm`` launches), the launcher's serving loop at B = 4, P = 512
@@ -84,6 +87,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -155,6 +159,9 @@ RMS_TIMED = ((LM_BATCH * LM_PROMPT, 4096), (LM_BATCH * LM_PROMPT * 32, 128),
              (LM_BATCH, 4096))
 RMS_SHAPES = RMS_TIMED + ((LM_BATCH * LM_PROMPT * 8, 128), (LM_BATCH * 32, 128),
                           (LM_BATCH * 8, 128), (7, 96), (1, 1), (3, 5, 4097))
+# the cold timing rotates its input over copies holding this many bytes:
+# three times the H100's 50 MB L2
+COLD_BYTES = 150 * 10 ** 6
 # attention checks (B, S, H, K, dq, dv, causal): Qwen3-8B's prefill (timed),
 # bidirectional, ragged S with GQA and MHA, MLA-shaped dq != dv, MQA,
 # gemma's head dim 256, and a sequence shorter than one tile
@@ -204,11 +211,12 @@ SSM_PROMPT, SSM_TOKENS, SSM_PREFILL_REPS = 512, 32, 3
 SSM_F32_LAYERS, SSM_F32_DECODE_STEPS, SSM_F32_REL_TOL = 2, 8, 1e-4
 # ssd_scan checks (b, l, h, p, g, n, chunk): mamba2-370m's prefill (timed),
 # two B/C groups at chunks of 64, one chunk shorter than 256 (l == chunk),
-# the reduced model's widths, p not a multiple of the kernel's 32 channels
+# the reduced model's widths, p not a multiple of the kernel's 32 channels,
+# the widest state the kernels take (n = 256)
 SSD_MAIN = (SSM_BATCH, SSM_PREFILL_LEN, 32, 64, 1, 128, 256)
 SSD_SHAPES = (SSD_MAIN, (2, 512, 32, 64, 2, 128, 64),
               (2, 200, 8, 64, 1, 128, 200), (2, 64, 16, 16, 1, 16, 32),
-              (1, 96, 4, 40, 2, 24, 32))
+              (1, 96, 4, 40, 2, 24, 32), (1, 128, 4, 32, 1, 256, 64))
 SSD_BWD_SHAPE = (2, 128, 4, 16, 2, 32, 64)  # the SsdScan backward, float32
 # the rmsnorm checks also cover mamba2-370m's block-norm rows at its prefill
 # and at a decode step
@@ -217,13 +225,21 @@ RMS_SHAPES += ((SSM_BATCH * SSM_PREFILL_LEN, 1024), (SSM_BATCH, 1024))
 
 # the bf16 tensor-core kernels: library -> [(kernel function as cuobjdump
 # names it, the C function that reports its dynamic shared memory and CTAs
-# per SM at given head dims)]
+# per SM at two given dims, what those dims are, their values)]: the
+# attention kernels at Qwen3-8B's and gemma-2b's head dims, the scan at
+# mamba2-370m's (p = 64, n = 128) and at the other two instantiations'
+_HEAD_DIMS = ("dq = dv", ((128, 128), (256, 256)))
 TC_KERNELS = {"flash_attention": [("flash_fwd_tc_kernel",
-                                   "flash_attention_fwd_bf16_info")],
+                                   "flash_attention_fwd_bf16_info",
+                                   *_HEAD_DIMS)],
               "flash_attention_bwd": [("dkv_tc_kernel",
-                                       "flash_attention_dkv_bf16_info"),
+                                       "flash_attention_dkv_bf16_info",
+                                       *_HEAD_DIMS),
                                       ("dq_tc_kernel",
-                                       "flash_attention_dq_bf16_info")]}
+                                       "flash_attention_dq_bf16_info",
+                                       *_HEAD_DIMS)],
+              "ssd_scan": [("ssd_tc_kernel", "ssd_scan_bf16_info", "p, n",
+                            ((64, 128), (64, 16), (64, 256)))]}
 
 
 def _cuobjdump(flag, path):
@@ -269,19 +285,20 @@ def kernel_usage(path, func):
     return usage
 
 
-def kernel_at_dims(lib, info, dims=(128, 256)):
+def kernel_at_dims(lib, info, dims=((128, 128), (256, 256))):
     """Dynamic shared memory and resident CTAs per SM of a tensor-core
-    kernel at dq = dv = d, from its library's ``info`` export."""
+    kernel at each pair of dims (dq, dv for the attention kernels, p, n for
+    the scan), from its library's ``info`` export, keyed ``"a, b"``."""
     import ctypes
     fn = getattr(lib, info)
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
     out = {}
-    for d in dims:
+    for a, b in dims:
         smem, ctas = ctypes.c_int(), ctypes.c_int()
-        rc = fn(d, d, ctypes.byref(smem), ctypes.byref(ctas))
-        check(rc == 0, f"{info}({d}, {d}) failed: cudaError {rc}")
-        out[d] = {"dynamic_smem_bytes": smem.value,
-                  "ctas_per_sm": ctas.value}
+        rc = fn(a, b, ctypes.byref(smem), ctypes.byref(ctas))
+        check(rc == 0, f"{info}({a}, {b}) failed: cudaError {rc}")
+        out[f"{a}, {b}"] = {"dynamic_smem_bytes": smem.value,
+                            "ctas_per_sm": ctas.value}
     return out
 
 
@@ -289,15 +306,16 @@ def tc_kernel_usage():
     """:func:`kernel_usage` of every bf16 tensor-core kernel on the built
     libraries; fails unless each kernel is there and every instantiation
     has at least one tensor-core instruction.  Beside them, each kernel's
-    dynamic shared memory and resident CTAs per SM at head dims 128 and 256
-    (Qwen3-8B's and gemma-2b's)."""
+    dynamic shared memory and resident CTAs per SM at the dims
+    ``TC_KERNELS`` names."""
     from repro_torch.kernels import _build
     usage, at_dims = {}, {}
     for lib, kernels in TC_KERNELS.items():
         path = _build.library_path(lib)
-        for func, info in kernels:
-            for d, u in kernel_at_dims(_build.load(lib), info).items():
-                at_dims[f"{func} at dq = dv = {d}"] = u
+        for func, info, label, dims in kernels:
+            for ab, u in kernel_at_dims(_build.load(lib), info,
+                                        dims).items():
+                at_dims[f"{func} at {label} = {ab}"] = u
             found = kernel_usage(path, func)
             check(found, f"cuobjdump found no {func} in {path.name}")
             usage.update(found)
@@ -1146,18 +1164,25 @@ def attention_bound(B, S, H, K, dq, dv, causal, dtype):
     return bound(nbytes, entries * (2 * dq + 2 * dv), dtype)
 
 
-def lm_kernel_checks(dev):
-    """``rmsnorm_cuda`` and ``flash_attention_cuda`` against their plain
-    versions in float32 (OP_TABLE's 2e-5 and 2e-4) and bfloat16 (one
-    rounding step) on the LM's shapes and ragged ones: causal and not, MHA,
-    GQA and MQA, dq != dv, S not a multiple of the tile; timings and the
-    library yardsticks (``F.rms_norm``, ``F.scaled_dot_product_attention``)
-    at the main path's shapes in bfloat16, the attention also at gemma-2b's
-    training shape (``ATTN_BWD_MAIN``)."""
+def cold_device_ms(fn, x, iters):
+    """:func:`device_ms` of ``fn(x_k)`` with the input rotated over copies
+    ``x_k`` of ``x`` that together hold at least ``COLD_BYTES``, so every
+    replayed call finds its input out of the 50 MB L2 and reads it from
+    HBM (a warm replay of one 16 MB input reads it from L2)."""
+    copies = [x.clone() for _ in range(
+        max(2, -(-COLD_BYTES // (x.numel() * x.element_size()))))]
+    turn = itertools.count()
+    return device_ms(lambda: fn(copies[next(turn) % len(copies)]), iters)
+
+
+def rms_kernel_checks(dev):
+    """``rmsnorm_cuda`` against its plain version in float32 (OP_TABLE's
+    2e-5) and bfloat16 (one rounding step) on ``RMS_SHAPES``; times and
+    ``F.rms_norm``'s (the library yardstick) at ``RMS_TIMED`` in bfloat16,
+    warm (the input in L2 across replays), and at the main shape also cold
+    (:func:`cold_device_ms`), kernel and library alike."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_ref)
     from repro_torch.kernels.ops import SPECS
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_ref
 
@@ -1181,8 +1206,32 @@ def lm_kernel_checks(dev):
                 wl = w.to(dtype)
                 t["library_ms"] = device_ms(
                     lambda: F.rms_norm(x, (d,), wl, 1e-6), 100)
+                if shape == RMS_TIMED[0]:
+                    t["cold_ms"] = cold_device_ms(
+                        lambda a: rmsnorm_cuda(a, w), x, 100)
+                    t["library_cold_ms"] = cold_device_ms(
+                        lambda a: F.rms_norm(a, (d,), wl, 1e-6), x, 100)
                 timing[("rmsnorm", shape)] = (t, rmsnorm_bound(rows, d,
                                                                dtype), err)
+    return results, timing
+
+
+def lm_kernel_checks(dev):
+    """:func:`rms_kernel_checks`, then ``flash_attention_cuda`` against its
+    plain version in float32 (OP_TABLE's 2e-4) and bfloat16 (one rounding
+    step) on the LM's shapes and ragged ones: causal and not, MHA, GQA and
+    MQA, dq != dv, S not a multiple of the tile; timed beside
+    ``F.scaled_dot_product_attention`` (the library yardstick) at the main
+    path's shape in bfloat16 and at gemma-2b's training shape
+    (``ATTN_BWD_MAIN``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.ops import SPECS
+
+    results, timing = rms_kernel_checks(dev)
+    for dtype in (torch.float32, torch.bfloat16):
         for seed, (B, S, H, K, dq, dv, causal) in enumerate(ATTN_SHAPES):
             gen = torch.Generator().manual_seed(100 + seed)
             q, k, v = (torch.randn(s, generator=gen).to(dtype).to(dev)
@@ -1562,6 +1611,9 @@ def lm_kernel_rows(checks, timing, lm, train, ssm):
                         "attention": "torch.nn.functional."
                         "scaled_dot_product_attention(enable_gqa=True)"}[name],
             "shape": list(key[1]), "dtype": "bfloat16"}
+        if name == "rmsnorm":  # the input read from HBM, not L2
+            row["cold_ms"] = times["cold_ms"]
+            row["library_cold_ms"] = times["library_cold_ms"]
         row["variants"] = {
             str(list(shape)): {"ms": t["ms"], "plain_ms": t["plain_ms"],
                                "library_ms": t["library_ms"],
@@ -2079,6 +2131,10 @@ def ssm_kernel_checks(dev):
                     lambda: ssd.ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
                                              D=D), 5)
                 t["library_ms"] = None
+                # the rate on the operations the function needs (C B^T
+                # once per group), not on the kernel's own HMMA work
+                t["work_flops"] = ssd_work(*shape, dtype)[1]
+                t["achieved_tflops"] = t["work_flops"] / t["ms"] / 1e9
                 timing["ssd_scan"] = (t, ssd_bound(*shape, dtype), main_err)
         b, l, h, p, g, n, chunk = SSD_SHAPES[-1]
         try:
@@ -2337,6 +2393,7 @@ def ssm_kernel_rows(checks, timing, ssm):
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "call_ms": times["call_ms"], "plain_call_ms": times["plain_call_ms"],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "achieved_tflops": times["achieved_tflops"],
         "library": "none: no single PyTorch call computes the SSD scan",
         "shape": list(SSD_MAIN), "dtype": "bfloat16",
         "note": "its backward is autograd of the plain version, as the JAX "

@@ -8,17 +8,26 @@
 // Forward: replaces the Pallas TPU kernel src/repro/kernels/rmsnorm.py:
 // _fwd_kernel (reached through _fwd, rmsnorm.py:49).  The TPU kernel tiles
 // 256 rows by the full width into VMEM and asserts rows % 256 == 0 above 256
-// rows; here one warp owns one row, so any row count is taken and nothing is
-// padded.
+// rows; here a team of threads owns a row, so any row count is taken and
+// nothing is padded.
 //
 // What bounds it: every element is read and its result written once, so
-// 2 * rows * d * sizeof(T) bytes plus the weight row, with ~4 float32
+// 2 * rows * d * sizeof(T) bytes plus the weight row, with ~3 float32
 // operations per element: bound by bytes at every width the LM uses
-// (d = 4096 for the block norms, 128 for Qwen3's per-head q/k norms).  A
-// lane reads the elements lane, lane + 32, ... of its warp's row, so a warp's
-// loads are contiguous; the second pass re-reads the row (16 KB at
-// d = 4096 in bfloat16) from L1/L2 rather than holding it in registers, which
-// keeps the kernel independent of d.  Eight rows (warps) per block.
+// (d = 4096 for the block norms, 1024 for mamba2's, 128 for Qwen3's
+// per-head q/k norms).
+//   - A team of TPR threads (a power of two, 4 to 256) owns a row; thread
+//     i of a team loads the 16-byte vectors i, i + TPR, ... (at most
+//     FWD_NV = 4) and holds them in registers between the sum of squares
+//     and the write, so the row is read once.  TPR is the smallest that
+//     covers the row: 128 at d = 4096 in bf16 (two teams a block), 4 at
+//     d = 128 (eight rows a warp).  Rows wider than 256 FWD_NV vectors take
+//     a second kernel that reads the row again (from L2) for the write.
+//   - A team has FWD_RB rows in flight (their loads issued together; one,
+//     as measured fastest: more rows a team cost registers and blocks per
+//     SM); its weight vectors (float4s) are loaded once, after the row's.
+//   - Scalar loads where d is not a multiple of the vector or a pointer is
+//     not 16-byte aligned.
 //
 // Backward: replaces src/repro/kernels/rmsnorm.py:_bwd_kernel (reached
 // through _bwd, rmsnorm.py:67).  As there, rstd is recomputed from the saved
@@ -50,12 +59,6 @@
 
 namespace {
 
-constexpr int WARPS = 8;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
@@ -67,43 +70,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
-    rmsnorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                       T* __restrict__ out, long long rows, int d, float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (row >= rows) return;  // the whole warp leaves together
-  const T* xr = x + row * d;
-  T* orow = out + row * d;
-  float ss = 0.f;
-  for (int i = lane; i < d; i += 32) {
-    const float v = to_f(xr[i]);
-    ss = fmaf(v, v, ss);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  const float r = rsqrtf(ss / (float)d + eps);
-  for (int i = lane; i < d; i += 32)
-    orow[i] = from_f<T>((to_f(xr[i]) * r) * w[i]);
-}
-
-template <typename T>
-cudaError_t launch(const void* x, const void* w, void* out, long long rows,
-                   int d, float eps, void* stream) {
-  if (rows <= 0 || d <= 0) return cudaSuccess;
-  const long long blocks = (rows + WARPS - 1) / WARPS;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  rmsnorm_fwd_kernel<T><<<(unsigned)blocks, WARPS * 32, 0,
-                          (cudaStream_t)stream>>>(
-      (const T*)x, (const float*)w, (T*)out, rows, d, eps);
-  return cudaGetLastError();
-}
-
-
 // ---------------------------------------------------------------------------
-// backward
+// vector loads and stores shared by the forward and the backward
 // ---------------------------------------------------------------------------
 
 constexpr int BWD_THREADS = 256;
@@ -226,6 +194,177 @@ __device__ __forceinline__ float warp_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// The 16-byte vectors of a row a thread holds and the rows a team has in
+// flight (FWD_NV, FWD_RB); chosen on the card (PERF.md §6): 4, 1 (80
+// registers at bf16) beat 4, 2 (123), 4, 4, 8, 2 and 2, 4 at every timed
+// shape.
+#ifndef RMS_FWD_TILES
+#define RMS_FWD_TILES 4, 1
+#endif
+constexpr int FWD_THREADS = 256;
+constexpr int FWD_NV_RB[2] = {RMS_FWD_TILES};
+constexpr int FWD_NV = FWD_NV_RB[0];
+constexpr int FWD_RB = FWD_NV_RB[1];
+
+// Teams of tpr threads (a power of two, 4 to 256), each owning FWD_RB rows
+// (first, first + stride, ...): thread i of a team loads the vectors i,
+// i + tpr, ... of each, holds them between the sum of squares and the
+// write, and multiplies by its weight vectors, loaded once.  A team
+// narrower than a warp reduces by shuffles inside its lanes; a wider one
+// adds its warps' sums in shared memory in warp order.
+template <typename T, int V>
+__global__ void __launch_bounds__(FWD_THREADS)
+    rmsnorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                       T* __restrict__ out, long long rows, int d, float eps,
+                       int tpr) {
+  __shared__ float red[FWD_THREADS / 32][FWD_RB];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int teams = FWD_THREADS / tpr;
+  const int team = tid / tpr, ti = tid - team * tpr;
+  const int nvec = d / V;
+  const long long stride = (long long)gridDim.x * teams;
+  const long long first = (long long)blockIdx.x * teams + team;
+
+  Vec<T, V> xr[FWD_RB][FWD_NV];
+#pragma unroll
+  for (int rb = 0; rb < FWD_RB; ++rb) {
+    const long long row = first + rb * stride;
+#pragma unroll
+    for (int i = 0; i < FWD_NV; ++i) {
+      const int j = ti + i * tpr;
+      xr[rb][i] = (row < rows && j < nvec) ? load_v<T, V>(x + row * d + j * V)
+                                           : zero_v<T, V>();
+    }
+  }
+  float wv[FWD_NV][V];
+#pragma unroll
+  for (int i = 0; i < FWD_NV; ++i) {
+    const int j = ti + i * tpr;
+    if (j < nvec) load_w<V>(w + j * V, wv[i]);
+  }
+  float ss[FWD_RB];
+#pragma unroll
+  for (int rb = 0; rb < FWD_RB; ++rb) {
+    ss[rb] = 0.f;
+#pragma unroll
+    for (int i = 0; i < FWD_NV; ++i) {
+      float xv[V];
+      unpack(xr[rb][i], xv);
+#pragma unroll
+      for (int e = 0; e < V; ++e) ss[rb] = fmaf(xv[e], xv[e], ss[rb]);
+    }
+    // the team's lanes (all of the warp's lanes take part)
+    for (int off = min(tpr, 32) >> 1; off > 0; off >>= 1)
+      ss[rb] += __shfl_xor_sync(0xffffffffu, ss[rb], off);
+  }
+  if (tpr > 32) {  // the team's warps, in order
+    if (lane == 0)
+#pragma unroll
+      for (int rb = 0; rb < FWD_RB; ++rb) red[warp][rb] = ss[rb];
+    __syncthreads();
+    const int wpt = tpr / 32;
+#pragma unroll
+    for (int rb = 0; rb < FWD_RB; ++rb) {
+      ss[rb] = 0.f;
+      for (int u = team * wpt; u < (team + 1) * wpt; ++u) ss[rb] += red[u][rb];
+    }
+  }
+#pragma unroll
+  for (int rb = 0; rb < FWD_RB; ++rb) {
+    const long long row = first + rb * stride;
+    if (row >= rows) continue;
+    const float r = rsqrtf(ss[rb] / (float)d + eps);
+#pragma unroll
+    for (int i = 0; i < FWD_NV; ++i) {
+      const int j = ti + i * tpr;
+      if (j < nvec) {
+        float xv[V], o[V];
+        unpack(xr[rb][i], xv);
+#pragma unroll
+        for (int e = 0; e < V; ++e) o[e] = (xv[e] * r) * wv[i][e];
+        store_v<V>(out + row * d + j * V, o);
+      }
+    }
+  }
+}
+
+// Rows wider than the registers hold (d > 8192 in bf16, 4096 in float32,
+// 1024 with scalar loads): one block a row, reading it twice (the sum of
+// squares, then the write, the second read from L2).
+template <typename T, int V>
+__global__ void __launch_bounds__(FWD_THREADS)
+    rmsnorm_fwd_wide_kernel(const T* __restrict__ x,
+                            const float* __restrict__ w, T* __restrict__ out,
+                            long long rows, int d, float eps) {
+  __shared__ float red[FWD_THREADS / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nvec = d / V;
+  const long long row = blockIdx.x;
+  const T* xr = x + row * d;
+  float ss = 0.f;
+  for (int j = tid; j < nvec; j += FWD_THREADS) {
+    float xv[V];
+    unpack(load_v<T, V>(xr + j * V), xv);
+#pragma unroll
+    for (int e = 0; e < V; ++e) ss = fmaf(xv[e], xv[e], ss);
+  }
+  ss = warp_sum(ss);
+  if (lane == 0) red[warp] = ss;
+  __syncthreads();
+  ss = 0.f;
+  for (int u = 0; u < FWD_THREADS / 32; ++u) ss += red[u];
+  const float r = rsqrtf(ss / (float)d + eps);
+  for (int j = tid; j < nvec; j += FWD_THREADS) {
+    float xv[V], wv[V], o[V];
+    unpack(load_v<T, V>(xr + j * V), xv);
+    load_w<V>(w + j * V, wv);
+#pragma unroll
+    for (int e = 0; e < V; ++e) o[e] = (xv[e] * r) * wv[e];
+    store_v<V>(out + row * d + j * V, o);
+  }
+}
+
+template <typename T, int V>
+cudaError_t launch_fwd_v(const void* x, const void* w, void* out,
+                         long long rows, int d, float eps, cudaStream_t s) {
+  const int nvec = d / V;
+  int tpr = 4;
+  while (tpr < FWD_THREADS && tpr * FWD_NV < nvec) tpr *= 2;
+  if (tpr * FWD_NV >= nvec) {
+    const int teams = FWD_THREADS / tpr;
+    const long long blocks =
+        (rows + (long long)teams * FWD_RB - 1) / ((long long)teams * FWD_RB);
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    rmsnorm_fwd_kernel<T, V><<<(unsigned)blocks, FWD_THREADS, 0, s>>>(
+        (const T*)x, (const float*)w, (T*)out, rows, d, eps, tpr);
+  } else {
+    if (rows > 0x7fffffffLL) return cudaErrorInvalidValue;
+    rmsnorm_fwd_wide_kernel<T, V><<<(unsigned)rows, FWD_THREADS, 0, s>>>(
+        (const T*)x, (const float*)w, (T*)out, rows, d, eps);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* w, void* out, long long rows,
+                   int d, float eps, void* stream) {
+  if (rows <= 0 || d <= 0) return cudaSuccess;
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = d % V == 0 && aligned16(x) && aligned16(w) &&
+                   aligned16(out);
+  cudaStream_t s = (cudaStream_t)stream;
+  return vec ? launch_fwd_v<T, V>(x, w, out, rows, d, eps, s)
+             : launch_fwd_v<T, 1>(x, w, out, rows, d, eps, s);
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
 
 // Teams of tpr threads, each owning a row at a time (rows first + k * stride
 // for the team's k-th row), the row's vectors in registers; RB rows a

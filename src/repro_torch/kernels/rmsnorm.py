@@ -71,8 +71,9 @@ def _check(name, x, weight, extra=()):
 
 
 def rmsnorm_cuda(x, weight, eps=1e-6):
-    """Launch ``csrc/rmsnorm.cu`` on the current stream: one warp per row of
-    ``x.reshape(-1, d)``.  ``x`` is a contiguous float32 or bfloat16 CUDA
+    """Launch ``csrc/rmsnorm.cu`` on the current stream: a team of threads
+    per row of ``x.reshape(-1, d)``, the row held in registers.  ``x`` is a
+    contiguous float32 or bfloat16 CUDA
     tensor, ``weight`` a contiguous float32 ``(d,)`` on the same card.
     Raises on anything else and on a failed build or launch."""
     d = _check("rmsnorm_cuda", x, weight)

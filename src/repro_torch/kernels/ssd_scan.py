@@ -167,8 +167,10 @@ def _check(x, dt, A, B, C, chunk, D, h0):
 
 def ssd_scan_cuda(x, dt, A, B, C, *, chunk, D=None, h0=None):
     """Launch ``csrc/ssd_scan.cu`` on the current stream: one CTA per
-    (batch, head, 32 of the head's p channels), the chunks in order inside
-    it.  ``x``, ``B``, ``C`` float32 or bfloat16 of one dtype, each with
+    (batch, head, block of the head's p channels), the chunks in order
+    inside it; bfloat16 runs ``ssd_tc_kernel`` on the tensor cores (64
+    channels a CTA), float32 ``ssd_scan_kernel`` on the CUDA cores (32).  ``x``, ``B``, ``C`` float32 or
+    bfloat16 of one dtype, each with
     packed (heads, width) rows (slices of a wider projection are read in
     place); ``dt``, ``A``, ``D``, ``h0`` contiguous float32.  Raises on
     anything else, on a ragged length and on a failed build or launch.

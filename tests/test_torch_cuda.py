@@ -240,6 +240,27 @@ def test_rmsnorm_kernel_matches_plain_on_card(dtype):
         rmsnorm_cuda(x, w.to(dtype=torch.float64))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_wide_and_unaligned_rows_on_card(dtype):
+    """The forward's other paths: rows wider than a team holds (the
+    two-pass kernel, vector and scalar loads) and x starting off 16 bytes
+    (scalar loads), against the plain version."""
+    dev = _need_card()
+    for i, shape in enumerate([(3, 10000), (2, 9001), (5, 20000)]):
+        rng = np.random.default_rng(40 + i)
+        x = torch.from_numpy(rng.standard_normal(shape)).to(dtype).to(dev)
+        w = torch.from_numpy(rng.uniform(0.5, 1.5, shape[-1])).float().to(dev)
+        _assert_close(rmsnorm_cuda(x, w), rmsnorm_ref(x, w), TOL["rmsnorm"])
+    rng = np.random.default_rng(50)
+    x = torch.from_numpy(rng.standard_normal((64, 512))).to(dtype).to(dev)
+    x_off = torch.empty(1 + x.numel(), dtype=dtype, device=dev)[1:] \
+        .view(64, 512)
+    x_off.copy_(x)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, 512)).float().to(dev)
+    _assert_close(rmsnorm_cuda(x_off, w), rmsnorm_ref(x, w), TOL["rmsnorm"])
+
+
 # (B, S, H, K, dq, dv, causal): Qwen3-8B's prefill, ragged S, MLA-shaped
 # dq != dv, MQA, bidirectional, gemma's head dim, a sequence under a tile
 FLASH_SHAPES = [(4, 512, 32, 8, 128, 128, True), (2, 200, 4, 2, 64, 64, True),
@@ -628,6 +649,39 @@ def test_ssd_scan_kernel_reads_projection_slices_in_place_on_card():
     assert not x.is_contiguous()
     _, dt, A, _, _, D, _ = _ssd_operands(b, l, h, p, 1, n, torch.float32,
                                          dev, 1)
+    got = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=64, D=D)
+    want = ssd.ssd_scan_cuda(x.contiguous(), dt, A, B.contiguous(),
+                             C.contiguous(), chunk=64, D=D)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_ssd_tc_kernel_guarded_paths_on_card():
+    """The bf16 tensor-core scan off its exact instantiation: n = 256 and
+    n = 200 (the wide guarded instantiation), p = 20 and n = 20 (neither a
+    multiple of 8: plain loads, not cp.async), and x, B, C as slices that
+    start off 16 bytes (plain loads) giving the bits of their contiguous
+    copies (cp.async)."""
+    dev = _need_card()
+    for i, (b, l, h, p, g, n, chunk) in enumerate(
+            [(1, 128, 4, 32, 1, 256, 64), (2, 96, 2, 64, 2, 200, 48),
+             (1, 80, 3, 20, 1, 20, 40)]):
+        x, dt, A, B, C, D, h0 = _ssd_operands(b, l, h, p, g, n,
+                                              torch.bfloat16, dev, 20 + i)
+        y, st = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, D=D, h0=h0)
+        ry, rst = ssd.ssd_scan_ref(x, dt, A, B, C, chunk=chunk, D=D, h0=h0)
+        _assert_close(y, ry, TOL["ssd_scan"])
+        scale = max(1.0, float(rst.abs().max()))
+        assert float((st - rst).abs().max()) <= TOL["ssd_scan"] * scale
+    b, l, h, p, n = 2, 128, 4, 16, 32
+    gen = torch.Generator(device=dev).manual_seed(1)
+    wide = (0.4 * torch.randn((b, l, 1 + h * p + 2 * n), generator=gen,
+                              device=dev)).to(torch.bfloat16)
+    x = wide[..., 1:1 + h * p].reshape(b, l, h, p)
+    B = wide[..., 1 + h * p:1 + h * p + n].reshape(b, l, 1, n)
+    C = wide[..., 1 + h * p + n:].reshape(b, l, 1, n)
+    _, dt, A, _, _, D, _ = _ssd_operands(b, l, h, p, 1, n, torch.float32,
+                                         dev, 2)
     got = ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=64, D=D)
     want = ssd.ssd_scan_cuda(x.contiguous(), dt, A, B.contiguous(),
                              C.contiguous(), chunk=64, D=D)
