@@ -53,13 +53,16 @@ result line if any fails):
    dkv passes and ``softmax_xent`` against their plain versions (float32
    and bfloat16, causal and not, MHA/GQA/MQA, head dims 128 and 256, dq !=
    dv, a ragged S, T and V, the xent weight as (d, V) and as a tied (V, d)
-   embedding's transpose) and time them beside SDPA's backward; then the
+   embedding's transpose; the bf16 ``softmax_xent`` backward, its dlogits
+   kernel and products, within one bf16 step of the plain float32
+   backward) and time them beside SDPA's backward; then the
    full gemma-2b (bf16, params drawn on the card from seed 0, remat
    "full"): ``make_train_state`` and ``make_train_step`` (the MAP loss with
    the handler-scored log-prior, 2 microbatches, AdamW) for 8 steps on one
    fixed batch of B = 4 x 1024 tokens, the loss falling and 146 ``rmsnorm``,
    74 ``rmsnorm_bwd``, 72 ``attention``, 36 ``attention_dq``, 36
-   ``attention_dkv`` and 2 ``softmax_xent`` launches per step; a profiled
+   ``attention_dkv``, 2 ``softmax_xent`` and 2 ``softmax_xent_bwd``
+   launches per step; a profiled
    step; ``launch.train.main`` for 2 steps; then a full-width 2-layer
    float32 gemma's loss and every gradient through the kernels against the
    plain versions.
@@ -200,6 +203,8 @@ ATTN_BWD_SHAPES = (ATTN_BWD_MAIN, ATTN_MAIN) + ATTN_SHAPES[1:]
 XENT_MAIN = (MB_ROWS, 2048, 256000, True)
 XENT_SHAPES = (XENT_MAIN, (512, 4096, 151936, False), (37, 24, 301, False),
                (130, 64, 1000, True), (1, 8, 3, True))
+# (dlogits, tied) pairs of softmax_xent_bf16_info: each kernel in each layout
+XENT_INFO_DIMS = ((0, 1), (0, 0), (1, 1), (1, 0))
 
 # the Mamba-2 slice: the full mamba2-370m (bf16, 48 layers), a prefill of
 # B = 4 prompts of 2048 tokens (8 chunks of 256), then the launcher's
@@ -227,7 +232,8 @@ RMS_SHAPES += ((SSM_BATCH * SSM_PREFILL_LEN, 1024), (SSM_BATCH, 1024))
 # names it, the C function that reports its dynamic shared memory and CTAs
 # per SM at two given dims, what those dims are, their values)]: the
 # attention kernels at Qwen3-8B's and gemma-2b's head dims, the scan at
-# mamba2-370m's (p = 64, n = 128) and at the other two instantiations'
+# mamba2-370m's (p = 64, n = 128) and at the other two instantiations', the
+# xent kernels in both weight layouts
 _HEAD_DIMS = ("dq = dv", ((128, 128), (256, 256)))
 TC_KERNELS = {"flash_attention": [("flash_fwd_tc_kernel",
                                    "flash_attention_fwd_bf16_info",
@@ -239,7 +245,11 @@ TC_KERNELS = {"flash_attention": [("flash_fwd_tc_kernel",
                                        "flash_attention_dq_bf16_info",
                                        *_HEAD_DIMS)],
               "ssd_scan": [("ssd_tc_kernel", "ssd_scan_bf16_info", "p, n",
-                            ((64, 128), (64, 16), (64, 256)))]}
+                            ((64, 128), (64, 16), (64, 256)))],
+              "softmax_xent": [("xent_fwd_tc_kernel", "softmax_xent_bf16_info",
+                                "dlogits, tied", XENT_INFO_DIMS[:2]),
+                               ("dlogits_tc_kernel", "softmax_xent_bf16_info",
+                                "dlogits, tied", XENT_INFO_DIMS[2:])]}
 
 
 def _cuobjdump(flag, path):
@@ -415,6 +425,16 @@ def bound(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_peak(dev):
+    """Reset the peak-memory counter for one measured run, after freeing
+    the cuBLAS and cuBLASLt workspaces (one cached per stream) that earlier
+    phases left on their timing and capture streams: the run's peak then
+    counts what the run itself allocates, its own workspaces included (as
+    PyTorch's leak checks clear them before counting)."""
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.reset_peak_memory_stats(dev)
 
 
 def check(cond, message):
@@ -1412,7 +1432,7 @@ def run_lm(dev):
 
     cfg = get_config("qwen3-8b")
     lm = LM(cfg)
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     t0 = time.perf_counter()
     w = lm.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
@@ -1661,6 +1681,79 @@ def xent_bound(T, d, V, dtype):
                  dtype)
 
 
+def xent_bwd_bound(T, d, V, dtype):
+    """The backward's inputs (x, W, the labels, lse and the two incoming
+    gradients) read once and dx, dw written once; three 2 T d V products
+    (the logits, dx, dw) at the inputs' type's peak rate.  The bf16 dl that
+    the port writes between them is not the function's to move."""
+    it = torch.tensor([], dtype=dtype).element_size()
+    return bound(it * 2 * (T * d + d * V) + 4 * T + 12 * T, 6.0 * T * d * V,
+                 dtype)
+
+
+def xent_dlogits_bound(T, d, V, dtype):
+    """The dlogits kernel alone: x, W, labels, lse, coef and g_ce read, the
+    bf16 [hi; lo] dl (2 T, V) written; the logits' 2 T d V operations."""
+    it = torch.tensor([], dtype=dtype).element_size()
+    return bound(it * (T * d + d * V) + 16 * T + 2 * 2 * T * V,
+                 2.0 * T * d * V, dtype)
+
+
+def xent_grads(T, dev, seed):
+    """Incoming gradients of ce and z_loss, U(0.5, 1.5) per row: of the
+    order of dl's own terms, where the bf16 gate is tightest (a mean loss
+    gives 1 / T, which the gate's absolute term would swallow)."""
+    gen = torch.Generator(device=dev).manual_seed(500 + seed)
+    return tuple(torch.rand(T, generator=gen, device=dev) + 0.5
+                 for _ in range(2))
+
+
+def xent_bwd_case(x, w, labels, lse, gce, gzl, zlw=1e-4):
+    """The bf16 backward (``softmax_xent_bwd_cuda``) against the plain
+    backward's float32 result on the same values and ``lse``: dx and dw
+    each within one bf16 step (``_bf16_close``); dw in w's layout."""
+    from repro_torch.kernels import softmax_xent as xe
+    dx, dw = xe.softmax_xent_bwd_cuda(x, w, labels, lse, gce, gzl, zlw)
+    rdx, rdw = xe.softmax_xent_bwd(x.float(), w.float(), labels, lse, gce,
+                                   gzl, zlw)
+    torch.cuda.synchronize()
+    out = {"dw_in_w_layout": dw.stride() == w.stride() or 1 in w.shape}
+    for key, got, want in (("dx", dx, rdx), ("dw", dw, rdw)):
+        ok, err, ratio = _bf16_close(got, want)
+        out.update({f"{key}_ok": ok, f"{key}_max_abs_err": err,
+                    f"{key}_err_over_bound": ratio})
+    out["dw_ok"] = out["dw_ok"] and out["dw_in_w_layout"]
+    return out
+
+
+def xent_dlogits_ms(x, w, labels, lse, gce, gzl, zlw, iters):
+    """Device ms of the dlogits kernel alone (the backward's one launch a
+    chunk, without its products) on these inputs, one chunk of all rows."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import softmax_xent as xe
+    lib = _build.load("softmax_xent")
+    fn = lib.softmax_xent_dlogits_bf16
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    T, d = x.shape
+    V = w.shape[1]
+    vd = xe._layout(w)
+    nsplit, per = xe._plan(lib, 1, T, V, vd, x.device)
+    coef = (gce + 2.0 * zlw * lse * gzl).contiguous()
+    dl = torch.empty((2 * T, V), dtype=torch.bfloat16, device=x.device)
+
+    def run():
+        rc = fn(x.data_ptr(), w.data_ptr(), labels.data_ptr(),
+                lse.data_ptr(), coef.data_ptr(), gce.data_ptr(),
+                dl.data_ptr(), T, d, V, vd, nsplit, per,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"dlogits launch failed: cudaError {rc}")
+    return device_ms(run, iters)
+
+
 def _rmsnorm_bwd_case(x, w, g, dtype, kernel, plain, tol):
     """dx as ``_kernel_case`` holds an output; dw, a float32 sum over every
     row, within ``tol`` of its largest entry (which grows with the rows)."""
@@ -1770,8 +1863,16 @@ def train_kernel_checks(dev):
                 lambda: xe.softmax_xent_cuda(x, w, labels, 1e-4),
                 lambda: xe.softmax_xent_ref(x, w, labels, 1e-4), dtype,
                 SPECS["softmax_xent"].tol)
-            record("softmax_xent", [T, d, V], dtype, ok, err,
-                   layout="(V, d) transposed" if tied else "(d, V)")
+            layout = "(V, d) transposed" if tied else "(d, V)"
+            record("softmax_xent", [T, d, V], dtype, ok, err, layout=layout)
+            if dtype == torch.bfloat16:
+                lse = xe.softmax_xent_ref(x, w, labels, 1e-4)[2]
+                gce, gzl = xent_grads(T, dev, seed)
+                case = xent_bwd_case(x, w, labels, lse, gce, gzl)
+                record("softmax_xent_bwd", [T, d, V], dtype,
+                       case["dx_ok"] and case["dw_ok"],
+                       max(case["dx_max_abs_err"], case["dw_max_abs_err"]),
+                       layout=layout, **case)
             if dtype == torch.bfloat16 and (T, d, V, tied) == XENT_MAIN:
                 t = timings(lambda: xe.softmax_xent_cuda(x, w, labels, 1e-4),
                             lambda: xe.softmax_xent_ref(x, w, labels, 1e-4),
@@ -1780,6 +1881,20 @@ def train_kernel_checks(dev):
                 t["logits_matmul_ms"] = device_ms(
                     lambda: torch.matmul(x, w), 2)
                 timing["softmax_xent"] = (t, xent_bound(T, d, V, dtype), err)
+                tb = timings(
+                    lambda: xe.softmax_xent_bwd_cuda(x, w, labels, lse, gce,
+                                                     gzl, 1e-4),
+                    lambda: xe.softmax_xent_bwd(x, w, labels, lse, gce, gzl,
+                                                1e-4), 1)
+                tb["library_ms"] = None
+                tb["logits_matmul_ms"] = t["logits_matmul_ms"]
+                tb["dlogits_kernel_ms"] = xent_dlogits_ms(
+                    x, w, labels, lse, gce, gzl, 1e-4, 2)
+                tb["dlogits_kernel_bound_ms"] = xent_dlogits_bound(
+                    T, d, V, dtype)[0]
+                timing["softmax_xent_bwd"] = (
+                    tb, xent_bwd_bound(T, d, V, dtype),
+                    max(case["dx_max_abs_err"], case["dw_max_abs_err"]))
             del x, w, labels
     torch.cuda.empty_cache()
     return results, timing
@@ -1817,7 +1932,7 @@ def run_train(dev):
     hp = steps_mod.TrainHParams(learning_rate=TRAIN_LR,
                                 warmup_steps=TRAIN_WARMUP,
                                 num_microbatches=TRAIN_MICROBATCHES)
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     t0 = time.perf_counter()
     state = steps_mod.make_train_state(
         lm, hp, rng=torch.Generator(device=dev).manual_seed(0), device=dev)
@@ -1846,7 +1961,7 @@ def run_train(dev):
     L = cfg.num_layers
     per_mb = {"rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
               "attention": 2 * L, "attention_dq": L, "attention_dkv": L,
-              "softmax_xent": 1}
+              "softmax_xent": 1, "softmax_xent_bwd": 1}
     expected = {k: v * TRAIN_MICROBATCHES * TRAIN_STEPS
                 for k, v in per_mb.items()}
     out = {"arch": cfg.name, "params": count_params(cfg),
@@ -1945,9 +2060,10 @@ def run_train_f32_check(dev):
     loss_err = float((got_loss - want_loss).abs())
     loss_tol = TRAIN_F32_REL_TOL * max(1.0, float(want_loss.abs()))
     L = TRAIN_F32_LAYERS
+    # a float32 loss takes the plain backward on every device
     expected = {"rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1,
                 "attention": 2 * L, "attention_dq": L, "attention_dkv": L,
-                "softmax_xent": 1}
+                "softmax_xent": 1, "softmax_xent_bwd": 0}
     out = {"layers": L, "dtype": "float32", "loss": float(want_loss),
            "loss_abs_err": loss_err, "loss_tol": loss_tol,
            "grad_max_abs_err": err, "max_abs_grad": max_grad, "grad_tol": tol,
@@ -1967,7 +2083,7 @@ def run_train_f32_check(dev):
 
 
 def train_kernel_rows(timing, checks, train):
-    """The kernel-table rows of the training slice's four kernels: times
+    """The kernel-table rows of the training slice's five kernels: times
     and bounds at gemma-2b's shapes, and the launches of the 8-step run."""
     from repro_torch.kernels.ops import BACKWARD, SPECS
     rows = []
@@ -1976,13 +2092,19 @@ def train_kernel_rows(timing, checks, train):
                  "attention_dq": "backward of torch.nn.functional."
                  "scaled_dot_product_attention(enable_gqa=True): dq, dk and "
                  "dv in one call",
-                 "softmax_xent": None}
+                 "softmax_xent": None, "softmax_xent_bwd": None}
     libraries["attention_dkv"] = libraries["attention_dq"]
+    notes = {"softmax_xent_bwd": "the backward of softmax_xent in bf16: the "
+             "dlogits kernel, then dx and dw as bf16 products with float32 "
+             "outputs (cuBLAS); the JAX package has no TPU kernel for it, "
+             "its _bwd (softmax_xent.py:93) is jax.grad of ref.softmax_xent"}
+    standard = ("ms", "plain_ms", "call_ms", "plain_call_ms", "library_ms")
     for name, source, shape in (
             ("rmsnorm_bwd", "rmsnorm.cu", RMS_BWD_MAIN),
             ("attention_dq", "flash_attention_bwd.cu", ATTN_BWD_MAIN),
             ("attention_dkv", "flash_attention_bwd.cu", ATTN_BWD_MAIN),
-            ("softmax_xent", "softmax_xent.cu", XENT_MAIN)):
+            ("softmax_xent", "softmax_xent.cu", XENT_MAIN),
+            ("softmax_xent_bwd", "softmax_xent.cu", XENT_MAIN)):
         times, (bound_ms, bound_by), err = timing[name]
         spec = SPECS[name] if name in SPECS else BACKWARD[name]
         rows.append({
@@ -1999,8 +2121,8 @@ def train_kernel_rows(timing, checks, train):
             "plain_call_ms": times["plain_call_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": times["library_ms"], "library": libraries[name],
-            **({"logits_matmul_ms": times["logits_matmul_ms"]}
-               if "logits_matmul_ms" in times else {}),
+            **{k: v for k, v in times.items() if k not in standard},
+            **({"note": notes[name]} if name in notes else {}),
             "shape": list(shape), "dtype": "bfloat16"})
     return rows
 
@@ -2192,7 +2314,7 @@ def run_ssm(dev):
 
     cfg = get_config(SSM_ARCH)
     lm = LM(cfg)
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     t0 = time.perf_counter()
     w = lm.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()

@@ -1,8 +1,8 @@
-"""Compare builds of the bf16 ``ssd_scan`` and the ``rmsnorm`` forward on
-one card.
+"""Compare builds of the bf16 ``ssd_scan``, the ``rmsnorm`` forward and the
+bf16 ``softmax_xent`` kernels on one card.
 
     PYTHONPATH=src python -m repro_torch.bench.fwd_kernels [--parent DIR]
-        [--out FILE]
+        [--kinds scan,rms,xent] [--out FILE]
 
 Builds ``csrc/ssd_scan.cu`` once per tile choice of the tensor-core scan (a
 copy with its ``SSD_TILES`` rewritten: 32 or 64 channels per CTA, 32 or 64
@@ -18,9 +18,18 @@ shape and the rmsnorm forward at ``RMS_TIMED``, warm and (at the main
 shape) cold, as ``chip_smoke.py`` does, and reads the kernels' registers,
 spill and HMMA count (``cuobjdump``); each build in a process of its own,
 in the order parent, this tree, the variants, this tree, parent.  Beside
-them, ``F.rms_norm`` warm and cold.  Prints one JSON object and writes it
-to ``--out`` (default ``src/repro_torch/build/bench/fwd_kernels.json``).
-Needs a card and ``nvcc``.
+them, ``F.rms_norm`` warm and cold.  ``xent`` builds ``csrc/softmax_xent.cu``
+once per tile choice of its bf16 kernels (``XENT_TILES``: vocab columns per
+tile, depth per stage, stages) and from ``--parent``; each build holds the
+bf16 forward (``chip_smoke.XENT_SHAPES``, both weight layouts) within 1e-4
+of the plain version and, where it has the dlogits kernel, the bf16
+backward's dx and dw within one bf16 step of the plain float32 backward,
+then times at gemma-2b's microbatch (``chip_smoke.XENT_MAIN``) the forward,
+the backward (the parent's: the plain backward it ran) and the dlogits
+kernel alone.  ``--kinds`` picks the kinds (default all).  Prints one JSON
+object and writes it to ``--out`` (default
+``src/repro_torch/build/bench/fwd_kernels.json``).  Needs a card and
+``nvcc``.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from repro_torch.bench.bwd_kernels import build, finish  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import softmax_xent as xe  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_ref  # noqa: E402
 
@@ -55,6 +65,13 @@ SSD_VARIANTS = {"default": None, "pb32_kt64_kg1": (32, 64, 1),
 # rmsnorm forward
 RMS_VARIANTS = {"default": None, "nv4_rb2": (4, 2), "nv4_rb4": (4, 4),
                 "nv8_rb2": (8, 2), "nv2_rb4": (2, 4), "nv4_rb1": (4, 1)}
+# (vocab columns per tile, depth per stage, stages) of the bf16 xent kernels
+XENT_VARIANTS = {"default": None, "bv128_ks32_st4": (128, 32, 4),
+                 "bv256_ks64_st3": (256, 64, 3)}
+KINDS = {"scan": ("ssd_scan", "SSD_TILES", SSD_VARIANTS, "ssd_scan"),
+         "rms": ("rmsnorm", "RMS_FWD_TILES", RMS_VARIANTS, "rmsnorm"),
+         "xent": ("softmax_xent", "XENT_TILES", XENT_VARIANTS,
+                  "softmax_xent")}
 RUN = "--run"
 
 
@@ -183,6 +200,74 @@ def bench_rms(lib, path, dev):
     return res
 
 
+def parent_xent_fwd(lib):
+    """The parent's bf16 forward: its export, split as its wrapper split
+    (128 x 128 tiles, two waves of two CTAs on 132 SMs)."""
+    fn = lib.softmax_xent_fwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(x, w, labels, zlw):
+        T, d = x.shape
+        V = w.shape[1]
+        tiles = -(-V // 128)
+        per = -(-tiles // min(tiles, max(1, -(-528 // -(-T // 128)))))
+        nsplit = -(-tiles // per)
+        out = torch.empty((3, T), dtype=torch.float32, device=x.device)
+        part = torch.empty((3, nsplit, T), dtype=torch.float32,
+                           device=x.device)
+        rc = fn(x.data_ptr(), w.data_ptr(), labels.data_ptr(),
+                part.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                out[2].data_ptr(), T, d, V, xe._layout(w), nsplit, per, zlw,
+                torch.cuda.current_stream().cuda_stream)
+        cs.check(rc == 0, f"softmax_xent launch failed: cudaError {rc}")
+        return out[0], out[1], out[2]
+    return run
+
+
+def bench_xent(name, lib, path, dev):
+    """One build: the forward's and (this tree's builds) the backward's
+    checks, then the times at ``XENT_MAIN``; the backward's incoming
+    gradients are U(0.5, 1.5) per row, as in ``chip_smoke.py``."""
+    parent = name == "parent"
+    if not parent:  # the package's wrappers launch this build
+        _build._LOADED["softmax_xent"] = lib
+    fwd = parent_xent_fwd(lib) if parent else xe.softmax_xent_cuda
+    res = {"checks": []}
+    for seed, (T, d, V, tied) in enumerate(cs.XENT_SHAPES):
+        x, w, labels = cs._xent_inputs(T, d, V, tied, torch.bfloat16,
+                                       400 + seed, dev)
+        got, again = fwd(x, w, labels, 1e-4), fwd(x, w, labels, 1e-4)
+        want = xe.softmax_xent_ref(x, w, labels, 1e-4)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        check = {"shape": [T, d, V], "tied": tied, "max_abs_err": err,
+                 "ok": err <= 1e-4, "bitwise_repeat": all(
+                     torch.equal(a, b) for a, b in zip(got, again))}
+        lse = want[2]
+        gce, gzl = cs.xent_grads(T, dev, seed)
+        if not parent:
+            check.update(cs.xent_bwd_case(x, w, labels, lse, gce, gzl))
+            check["ok"] = check["ok"] and check["dx_ok"] and check["dw_ok"]
+        res["checks"].append(check)
+        if (T, d, V, tied) == cs.XENT_MAIN:
+            res["fwd_ms"] = cs.device_ms(lambda: fwd(x, w, labels, 1e-4), 3)
+            bwd = xe.softmax_xent_bwd if parent else xe.softmax_xent_bwd_cuda
+            res["bwd_ms"] = cs.device_ms(
+                lambda: bwd(x, w, labels, lse, gce, gzl, 1e-4), 2)
+            if not parent:
+                res["dlogits_ms"] = cs.xent_dlogits_ms(x, w, labels, lse, gce,
+                                                       gzl, 1e-4, 3)
+        del x, w, labels, got, again, want
+        torch.cuda.empty_cache()
+    if not parent:  # the tensor-core kernels' resources
+        res["usage"] = {**cs.kernel_usage(path, "xent_fwd_tc_kernel"),
+                        **cs.kernel_usage(path, "dlogits_tc_kernel")}
+        res["at_dims"] = cs.kernel_at_dims(
+            lib, "softmax_xent_bf16_info", cs.XENT_INFO_DIMS)
+    return res
+
+
 def library_rms(dev):
     """``F.rms_norm`` at ``RMS_TIMED`` in bf16, warm, and cold at the main
     shape; beside each, the bound."""
@@ -209,45 +294,49 @@ def main(argv=None):
                     help="a checkout whose csrc/ to build and compare")
     ap.add_argument("--out", type=Path, default=OUT / "fwd_kernels.json",
                     help="where to write the JSON result")
+    ap.add_argument("--kinds", default=",".join(KINDS),
+                    help="comma-separated kinds to bench (scan, rms, xent)")
     ap.add_argument(RUN, nargs=3, metavar=("KIND", "TAG", "LIB"),
-                    help="bench one built library (scan or rms) and print it")
+                    help="bench one built library (scan, rms or xent) and "
+                         "print it")
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
     if args.run:
         kind, tag, lib = args.run
         cdll = ctypes.CDLL(lib)
-        res = (bench_scan(tag, cdll, Path(lib), dev) if kind == "scan"
-               else bench_rms(cdll, Path(lib), dev))
-        print(json.dumps(res))
+        bench = {"scan": lambda: bench_scan(tag, cdll, Path(lib), dev),
+                 "rms": lambda: bench_rms(cdll, Path(lib), dev),
+                 "xent": lambda: bench_xent(tag, cdll, Path(lib), dev)}
+        print(json.dumps(bench[kind]()))
         return 0
+    kinds = args.kinds.split(",")
     csrc = _build.CSRC
     jobs = {}
-    for kind, src, macro, variants in (
-            ("scan", "ssd_scan", "SSD_TILES", SSD_VARIANTS),
-            ("rms", "rmsnorm", "RMS_FWD_TILES", RMS_VARIANTS)):
+    for kind in kinds:
+        src, macro, variants, _ = KINDS[kind]
         for name, tiles in variants.items():
             jobs[kind, name] = build(
                 csrc / f"{src}.cu" if tiles is None
                 else with_tiles(src, macro, tiles, "-" + name), "-" + name)
-    if args.parent is not None:
-        pcsrc = args.parent / "src" / "repro_torch" / "csrc"
-        jobs["scan", "parent"] = build(pcsrc / "ssd_scan.cu", "-parent")
-        jobs["rms", "parent"] = build(pcsrc / "rmsnorm.cu", "-parent")
+        if args.parent is not None:
+            jobs[kind, "parent"] = build(
+                args.parent / "src" / "repro_torch" / "csrc" / f"{src}.cu",
+                "-parent")
     libs = {key: finish(job) for key, job in jobs.items()}
     # in turns: parent, this tree, the variants, this tree again, parent
-    order = [k for k in (("scan", "parent"), ("rms", "parent")) if k in libs]
-    order += [("scan", "default"), ("rms", "default")]
-    order += [("scan", name) for name in SSD_VARIANTS if name != "default"]
-    order += [("rms", name) for name in RMS_VARIANTS if name != "default"]
-    order += [("scan", "default"), ("rms", "default")]
-    order += [k for k in (("scan", "parent"), ("rms", "parent")) if k in libs]
-    result = {"card": cs.card_line(), "ssd_scan": {}, "rmsnorm": {}}
+    parents = [(k, "parent") for k in kinds if (k, "parent") in libs]
+    order = parents + [(k, "default") for k in kinds]
+    order += [(k, name) for k in kinds for name in KINDS[k][2]
+              if name != "default"]
+    order += [(k, "default") for k in kinds] + parents
+    result = {"card": cs.card_line()}
     for kind, tag in order:
         res = run_apart(kind, tag, libs[kind, tag])
-        result["ssd_scan" if kind == "scan" else "rmsnorm"].setdefault(
-            tag, []).append(res)
+        result.setdefault(KINDS[kind][3], {}).setdefault(tag, []).append(res)
         print(kind, tag, json.dumps(res), flush=True)
-    result["rms_norm_library"] = library_rms(dev)
+    if "rms" in kinds:
+        result["rms_norm_library"] = library_rms(dev)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     print(json.dumps(result))

@@ -13,11 +13,13 @@ its plain version once ported and runs it on every device.  A ported op
 whose gradient is a kernel of its own names it in ``BACKWARD``, with its
 plain version, routed the same way: the backward passes of ``rmsnorm`` and
 ``attention`` (TPU kernels of their own in the JAX package, reached through
-its ``custom_vjp``s) and of ``enum_contract`` (which the JAX package
-differentiates through its jnp reference).  Their launches are counted with
-the rest.  ``ssd_scan``'s gradient is autograd through its plain version on
-every device, as the JAX package's ``custom_vjp`` differentiates its jnp
-reference.
+its ``custom_vjp``s), of ``enum_contract`` (which the JAX package
+differentiates through its jnp reference) and of ``softmax_xent`` in
+bfloat16 (the JAX package's ``_bwd`` is ``jax.grad`` of its jnp reference;
+a float32 ``softmax_xent`` takes the plain backward on every device).
+Their launches are counted with the rest.  ``ssd_scan``'s gradient is
+autograd through its plain version on every device, as the JAX package's
+``custom_vjp`` differentiates its jnp reference.
 
 Every row with a TPU kernel (nine of the 12) names its hand-written kernel
 and its plain version; of the three ref-only rows, ``decode_attention`` and
@@ -114,6 +116,9 @@ BACKWARD = {spec.name: spec for spec in (
     OpSpec("attention_dkv", _flash.flash_attention_dkv_cuda,
            _flash.flash_attention_dkv_ref, "cuda",
            _K + "flash_attention.py:184", False, 2e-4),
+    # bfloat16 only: dx and dw within one bf16 step (BF16_RTOL)
+    OpSpec("softmax_xent_bwd", _xent.softmax_xent_bwd_cuda,
+           _xent.softmax_xent_bwd, "cuda", None, False, 0.0),
 )}
 
 
@@ -160,9 +165,11 @@ def softmax_xent(x, w_unembed, labels, *, z_loss_weight=0.0):
     """``x (T, d)``, ``w_unembed (d, V)``, ``labels (T,)`` -> ``(ce,
     z_loss)``, each (T,) float32, without the (T, V) float32 logits kept
     whole; differentiable in ``x`` and ``w_unembed``
-    (:class:`~repro_torch.kernels.softmax_xent.SoftmaxXent`)."""
+    (:class:`~repro_torch.kernels.softmax_xent.SoftmaxXent`: in bfloat16 on
+    a card through the dlogits kernel, else the plain backward)."""
     return _xent.SoftmaxXent.apply(x, w_unembed, labels, z_loss_weight,
-                                   _route("softmax_xent", x))
+                                   _route("softmax_xent", x),
+                                   _route("softmax_xent_bwd", x))
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk, D=None, h0=None):

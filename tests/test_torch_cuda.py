@@ -569,6 +569,92 @@ def test_softmax_xent_kernel_matches_plain_on_card(dtype):
     assert ops.launch_counts()["softmax_xent"] == len(XENT_SHAPES)
 
 
+def _bf16_gate(got, want):
+    """got (bf16) within one bf16 step of the float32 ``want``."""
+    err = (got.float() - want).abs()
+    bound = ops.BF16_RTOL * want.abs() + ops.BF16_ATOL
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+@pytest.mark.cuda
+def test_softmax_xent_bf16_backward_matches_plain_on_card():
+    """The dlogits kernel and its products against the plain backward's
+    float32 result on the same values and lse: dx and dw within one bf16
+    step, dw in w's layout; one launch a chunk, also through ``ops`` and
+    autograd, and over three chunks (dw summed across them in float32)."""
+    dev = _need_card()
+    ops.reset_launch_counts()
+    cases = [(shape, xent.TC_BWD_CHUNK_ELEMENTS) for shape in XENT_SHAPES]
+    cases.append(((130, 64, 1000, True), 50 * 1000))  # 50, 50, 30 rows
+    for i, ((T, d, V, tied), chunk) in enumerate(cases):
+        gen = torch.Generator(device=dev).manual_seed(i)
+        x = torch.randn(T, d, generator=gen, device=dev).bfloat16()
+        w = (torch.randn((V, d) if tied else (d, V), generator=gen,
+                         device=dev) * 0.05).bfloat16()
+        w = w.T if tied else w
+        labels = torch.randint(0, V, (T,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        gce, gzl = (torch.rand(T, generator=gen, device=dev) + 0.5
+                    for _ in range(2))
+        lse = xent.softmax_xent_ref(x, w, labels, 1e-4)[2]
+        dx, dw = xent.softmax_xent_bwd_cuda(x, w, labels, lse, gce, gzl,
+                                            1e-4, chunk_elements=chunk)
+        rdx, rdw = xent.softmax_xent_bwd(x.float(), w.float(), labels, lse,
+                                         gce, gzl, 1e-4)
+        assert dx.dtype == dw.dtype == torch.bfloat16
+        assert dw.shape == w.shape and (dw.stride() == w.stride()
+                                        or 1 in w.shape)
+        _bf16_gate(dx, rdx)
+        _bf16_gate(dw, rdw)
+    assert ops.launch_counts()["softmax_xent_bwd"] == len(XENT_SHAPES) + 3
+    x = x.detach().requires_grad_()
+    emb = w.T.detach().requires_grad_()
+    ce, zl = ops.softmax_xent(x, emb.T, labels, z_loss_weight=1e-4)
+    ((ce * gce).sum() + (zl * gzl).sum()).backward()
+    assert ops.launch_counts()["softmax_xent_bwd"] == len(XENT_SHAPES) + 4
+    rdx, rdw = xent.softmax_xent_bwd(x.detach().float(), w.float(), labels,
+                                     lse, gce, gzl, 1e-4)
+    _bf16_gate(x.grad, rdx)
+    _bf16_gate(emb.grad.T, rdw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_xent_float32_and_cpu_take_the_plain_backward(monkeypatch,
+                                                              dtype):
+    """Through ``SoftmaxXent``: a float32 loss takes ``softmax_xent_bwd`` on
+    every device, whatever backward it is handed; a bf16 loss takes the one
+    handed to it, which ``ops`` makes the plain version on the CPU."""
+    calls, original = [], xent.softmax_xent_bwd
+
+    def plain(*args, **kwargs):
+        calls.append("plain")
+        return original(*args, **kwargs)
+
+    def kernel(*args, **kwargs):
+        calls.append("kernel")
+        return plain(*args, **kwargs)
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((6, 8), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((8, 11), dtype=np.float32))
+    x, w = x.to(dtype).requires_grad_(), w.to(dtype).requires_grad_()
+    labels = torch.from_numpy(rng.integers(0, 11, 6))
+    monkeypatch.setattr(xent, "softmax_xent_bwd", plain)
+    ce, zl = xent.SoftmaxXent.apply(x, w, labels, 1e-2,
+                                    xent.softmax_xent_ref, kernel)
+    (ce.sum() + zl.sum()).backward()
+    assert calls == (["kernel", "plain"] if dtype == torch.bfloat16
+                     else ["plain"])
+    # on the CPU, ops routes a bf16 loss to the plain backward too
+    calls.clear()
+    monkeypatch.setitem(ops.BACKWARD, "softmax_xent_bwd",
+                        ops.BACKWARD["softmax_xent_bwd"]._replace(ref=plain))
+    ce, zl = ops.softmax_xent(x, w, labels, z_loss_weight=1e-2)
+    (ce.sum() + zl.sum()).backward()
+    assert calls == ["plain"]
+    assert ops.launch_counts()["softmax_xent_bwd"] == 0
+
+
 # ---------------------------------------------------------------------------
 # the Mamba-2 slice: ssd_scan
 
