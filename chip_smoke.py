@@ -17,17 +17,19 @@ result line if any fails):
    version on the card, at the main paths' shapes and at ragged ones, and
    time kernel and plain version with CUDA events (``enum_contract`` also
    against ``torch.logsumexp``, the library yardstick, and at a large
-   shape; the batch leapfrog and the MALA/RWM proposal also at (64,
-   1,000,003)).  Then drive the main paths through the user's entry points,
+   shape; the chain kernels ``enum_chain``/``enum_chain_bwd`` also against
+   T-1 one-step launches, bit for bit, and at 4,096 rows x K = 64; the
+   batch leapfrog and the MALA/RWM proposal also at (64, 1,000,003)).
+   Then drive the main paths through the user's entry points,
    each with every kernel launch counter set to 0 just before and read just
    after: ``MCMC(NUTS(logreg_model_glm), 100, 100).run(...)`` on 581,012 x
    54 CoverType-shaped data made from a seed, then the paper's fixed-step
    configuration (0 warmup, 40 draws, step 0.0015, no adaptation); the
    fully-latent HMM ``MCMC(NUTS(enum_hmm_model, max_tree_depth=8), 50,
    50)`` at K = 8, T = 120, V = 16, whose states ``markov`` sums out
-   through the ``enum_contract`` kernel pair; and the paper's
-   semi-supervised ``hmm_model`` at T = 600, T_sup = 100, K = 3, V = 10
-   (50 warmup + 20 draws); then the ensemble samplers on the same logreg
+   through the chain kernels (one launch of each per gradient); and the
+   paper's semi-supervised ``hmm_model`` at T = 600, T_sup = 100, K = 3,
+   V = 10 (50 warmup + 20 draws); then the ensemble samplers on the same logreg
    data: ``MCMC(ChEES(logreg_model_glm), 300, 1500, num_chains=8)``
    (lockstep trajectories through ``leapfrog_halfstep_batch``),
    ``MCMC(MALA(logreg_model_glm), 500, 500, num_chains=16)`` and ``RWM``
@@ -125,6 +127,15 @@ ENUM_SHAPES = (ENUM_MAIN, ((), 2, 2), ((), 3, 3), ((), 16, 16),
                ((), 128, 128), ((), 7, 13), ((), 257, 5), ((4,), 8, 8),
                ((2, 3), 5, 5), ((), 1, 6), ENUM_LARGE)
 ENUM_BWD_RTOL = 1e-6  # the backward against its plain version
+# enum_chain checks, (T, batch, K): the main path's chain, T = 2 and 1,
+# chains across the warp/CTA split (K = 32 | 33) and the CTA kernels'
+# whole-matrix/row-chunk split (K = 128 | 257; 128 in float64 chunks too),
+# batched, broadcast from a (K,) alpha0 and masked; the large timing shape
+CHAIN_MAIN, CHAIN_LARGE = (ENUM_T, (), ENUM_K), (ENUM_T, (4096,), 64)
+CHAIN_SHAPES = (CHAIN_MAIN, (2, (), 8), (1, (), 8), (40, (), 3), (9, (), 1),
+                (5, (), 32), (5, (), 33), (4, (), 128), (3, (), 257),
+                (12, (4,), 8), (7, (2, 3), 5), (6, (3,), 40), (7, (2,), 9),
+                (5, (), 16))
 # the ensemble samplers: ChEES at benchmarks/chees.py's 8-chain point
 # (300 warmup iterations) with 1500 draws, not 300: on this data its warmup
 # leaves a short trajectory (~1.5, ~0.1 effective draws per draw at the
@@ -618,6 +629,170 @@ def enum_timing(a, m, g, out):
             "enum_contract_bwd": (bwd, bwd_bound)}
 
 
+def _chain_case(T, batch, k, dtype, seed, dev, masked=False):
+    """alpha0, mats and the gradient of alpha_T; ``masked``: a -inf state
+    and, at two steps, a -inf column (the last gives a -inf alpha_T entry);
+    a (3,) batch broadcasts a (K,) alpha0."""
+    # the large shape's 8 GB of matrices are drawn on the card
+    on = dev if (T - 1) * math.prod(batch) * k * k > 1e8 else "cpu"
+    gen = torch.Generator(device=on).manual_seed(seed)
+    a = torch.randn((k,) if batch == (3,) else batch + (k,), generator=gen,
+                    dtype=dtype, device=on)
+    m = torch.randn((T - 1,) + batch + (k, k), generator=gen, dtype=dtype,
+                    device=on)
+    if masked:
+        a[1] = -math.inf
+        m[2][:, 3] = -math.inf
+        m[-1][:, 2] = -math.inf
+    g = torch.randn(batch + (k,), generator=gen, dtype=dtype, device=on)
+    return a.to(dev), m.to(dev), g.to(dev)
+
+
+def _step_loops(alpha0, mats, g):
+    """The chain as T-1 launches of each one-step kernel: (alphas, d_alpha0,
+    d_mats)."""
+    from repro_torch.kernels.enum_contract import (enum_contract_bwd_cuda,
+                                                   enum_contract_cuda)
+    alphas = [alpha0.broadcast_to(mats.shape[1:-1]).contiguous()]
+    for mat in mats.unbind(0):
+        alphas.append(enum_contract_cuda(alphas[-1], mat))
+    d_mats = []
+    for t in range(mats.shape[0] - 1, -1, -1):
+        g, d_mat = enum_contract_bwd_cuda(alphas[t], mats[t], alphas[t + 1],
+                                          g)
+        d_mats.append(d_mat)
+    return (torch.stack(alphas), g,
+            torch.stack(d_mats[::-1]) if d_mats else torch.zeros_like(mats))
+
+
+def chain_checks(dev):
+    """The chain forward bit-identical to the plain chain and to T-1
+    one-step launches; the chain backward bit-identical to T-1 one-step
+    backward launches and within (T-1) x 1e-6 of each output's largest
+    entry of the plain chain backward; one launch each (none at T = 1);
+    in float32 and float64.  Timings at the main path's chain and the
+    large shape."""
+    from repro_torch.kernels.enum_contract import (enum_chain_bwd_cuda,
+                                                   enum_chain_bwd_ref,
+                                                   enum_chain_cuda,
+                                                   enum_chain_ref)
+    cases = [(shape, False) for shape in CHAIN_SHAPES] \
+        + [((6, (), 4), True), (CHAIN_LARGE, False)]
+    results, timing = [], {}
+    for dtype in (torch.float32, torch.float64):
+        for seed, ((T, batch, k), masked) in enumerate(cases):
+            large = (T, batch, k) == CHAIN_LARGE
+            if large and dtype == torch.float64:
+                continue
+            a, m, g = _chain_case(T, batch, k, dtype, seed, dev, masked)
+            before = (enum_chain_cuda.launches, enum_chain_bwd_cuda.launches)
+            alphas = enum_chain_cuda(a, m)
+            d_a, d_m = enum_chain_bwd_cuda(m, alphas, g)
+            launched = (enum_chain_cuda.launches - before[0],
+                        enum_chain_bwd_cuda.launches - before[1])
+            want = enum_chain_ref(a, m)
+            r_a, r_m = enum_chain_bwd_ref(m, want, g)
+            step_ok = None
+            if not large:  # T-1 one-step launches of each kernel
+                s_alphas, s_a, s_m = _step_loops(a, m, g)
+                step_ok = bool(torch.equal(alphas, s_alphas)
+                               and torch.equal(d_a, s_a)
+                               and torch.equal(d_m, s_m))
+            torch.cuda.synchronize()
+            identical = bool(torch.equal(alphas, want))
+            finite = torch.isfinite(want)
+            fwd_err = 0.0 if identical else float(
+                torch.where(finite, (alphas - want).abs(),
+                            (alphas != want).to(dtype) * math.inf).max())
+            tol = max(T - 1, 1) * ENUM_BWD_RTOL
+            rel = [float((x - y).abs().max() / y.abs().max().clamp_min(
+                       torch.finfo(dtype).tiny)) if y.numel() else 0.0
+                   for x, y in ((d_a, r_a), (d_m, r_m))]
+            abs_err = max(float((x - y).abs().max()) if y.numel() else 0.0
+                          for x, y in ((d_a, r_a), (d_m, r_m)))
+            nan = bool(torch.isnan(d_a).any() or torch.isnan(d_m).any())
+            results.append({"T": T, "batch": batch, "K": k,
+                            "masked": masked, "dtype": str(dtype),
+                            "fwd_bit_identical": identical,
+                            "max_abs_err": fwd_err,
+                            "matches_one_step_launches": step_ok,
+                            "bwd_max_abs_err": abs_err,
+                            "bwd_rel_err": rel, "bwd_tol": tol,
+                            "bwd_nan": nan, "launches": launched})
+            where = f"T={T} {batch} K={k} {dtype}"
+            check(identical, f"enum_chain is not bit-identical to the plain "
+                             f"chain at {where}: max error {fwd_err}")
+            check(step_ok is not False,
+                  f"enum_chain/enum_chain_bwd are not bit-identical to T-1 "
+                  f"one-step launches at {where}")
+            check(max(rel) <= tol and not nan,
+                  f"enum_chain_bwd disagrees with the plain chain at {where}:"
+                  f" {rel} > {tol} or NaN ({nan})")
+            check(launched == ((1, 1) if T > 1 else (0, 0)),
+                  f"the chain at {where} launched {launched}")
+            if masked:
+                check(bool(torch.isneginf(alphas[-1][2]))
+                      and float(d_a[1]) == 0.0
+                      and float(d_m[2][:, 3].abs().max()) == 0.0
+                      and float(d_m[-1][:, 2].abs().max()) == 0.0,
+                      "enum_chain: the masked state/columns are not -inf "
+                      "with zero gradients")
+            del d_a, d_m, want, r_a, r_m
+            if dtype == torch.float32 and (T, batch, k) in (CHAIN_MAIN,
+                                                            CHAIN_LARGE):
+                timing[(T, batch, k)] = chain_timing(a, m, g, alphas)
+            del a, m, g, alphas
+            if large:
+                torch.cuda.empty_cache()
+    return results, timing
+
+
+def chain_timing(a, m, g, alphas):
+    """Device and call ms of the chain kernels and the plain chain, their
+    bounds (each input read once, each output written once), ns per step;
+    at one row also the device ms of the T-1 one-step launches the chain
+    replaces."""
+    from repro_torch.kernels.enum_contract import (enum_chain_bwd_cuda,
+                                                   enum_chain_bwd_ref,
+                                                   enum_chain_cuda,
+                                                   enum_chain_ref)
+    steps, k = m.shape[0], m.shape[-1]
+    rows = max(1, math.prod(m.shape[1:-2]))
+    iters = 20 if rows == 1 else 2
+    fwd = timings(lambda: enum_chain_cuda(a, m),
+                  lambda: enum_chain_ref(a, m), iters)
+    bwd = timings(lambda: enum_chain_bwd_cuda(m, alphas, g),
+                  lambda: enum_chain_bwd_ref(m, alphas, g), iters)
+    if rows == 1:
+        from repro_torch.kernels.enum_contract import (
+            enum_contract_bwd_cuda, enum_contract_cuda)
+
+        def step_fwd():
+            alpha = a
+            for mat in m.unbind(0):
+                alpha = enum_contract_cuda(alpha, mat)
+
+        def step_bwd():
+            grad = g
+            for t in range(steps - 1, -1, -1):
+                grad = enum_contract_bwd_cuda(alphas[t], m[t], alphas[t + 1],
+                                              grad)[0]
+
+        fwd["one_step_launches_ms"] = device_ms(step_fwd, iters)
+        bwd["one_step_launches_ms"] = device_ms(step_bwd, iters)
+    for t in (fwd, bwd):
+        t["library_ms"] = None  # no single PyTorch call computes the chain
+        t["ns_per_step"] = 1e6 * t["ms"] / steps
+    cells, vec = steps * rows * k * k, rows * k
+    fwd_bound = bound(4 * (cells + vec + (steps + 1) * vec),
+                      steps * (5 * rows * k * k + vec), torch.float32)
+    bwd_bound = bound(4 * (2 * cells + (steps + 1) * vec + 2 * vec),
+                      5 * cells, torch.float32)
+    return {"shape": [list(a.shape), list(m.shape)],
+            "enum_chain": (fwd, fwd_bound),
+            "enum_chain_bwd": (bwd, bwd_bound)}
+
+
 def ensemble_kernel_checks(dev):
     """The batch leapfrog (kick 0.5 and 1.0) and the MALA proposal (with
     and without grad) against their plain versions on every shape of
@@ -809,7 +984,8 @@ def _simplex_ok(x):
 def run_enum_hmm(dev):
     """The fully-latent HMM through the user's entry points: NUTS moves the
     K x K transition and K x V emission rows, ``markov`` sums the hidden
-    states out at every gradient through the enum_contract kernel pair."""
+    states out at every gradient through the chain kernels, one
+    ``enum_chain`` and one ``enum_chain_bwd`` launch per gradient."""
     from repro_torch.bench.models import enum_hmm_data, enum_hmm_model
     from repro_torch.core.infer import MCMC, NUTS, effective_sample_size
     from repro_torch.kernels import ops
@@ -839,7 +1015,8 @@ def run_enum_hmm(dev):
         "launches": counts,
         "kernel_launches_per_leapfrog": {
             name: counts[name] / lf for name in
-            ("enum_contract", "enum_contract_bwd", "leapfrog_halfstep")},
+            ("enum_chain", "enum_chain_bwd", "enum_contract",
+             "enum_contract_bwd", "leapfrog_halfstep")},
         "mean_accept_prob": float(extra["accept_prob"].float().mean()),
         "mean_num_steps": float(extra["num_steps"].float().mean()),
         "divergences": int(extra["diverging"].sum()),
@@ -854,13 +1031,15 @@ def run_enum_hmm(dev):
           "a theta/phi row is off the simplex or not finite")
     check(bool(torch.isfinite(extra["accept_prob"]).all()),
           "an accept_prob is not finite")
-    steps = ENUM_T - 1
-    for name in ("enum_contract", "enum_contract_bwd"):
-        check(counts[name] == steps * evals,
-              f"{name}: {counts[name]} launches != (T-1) x {evals} gradient "
+    for name in ("enum_chain", "enum_chain_bwd"):
+        check(counts[name] == evals,
+              f"{name}: {counts[name]} launches != {evals} gradient "
               "evaluations: the potential did not run through its kernel")
-        check(counts[name] >= steps * lf,
-              f"{name}: {counts[name]} launches < (T-1) x {lf} leapfrogs")
+        check(counts[name] >= lf,
+              f"{name}: {counts[name]} launches < {lf} leapfrogs")
+    for name in ("enum_contract", "enum_contract_bwd"):
+        check(counts[name] == 0,
+              f"{name}: {counts[name]} one-step launches on the chain's path")
     check(counts["leapfrog_halfstep"] >= lf,
           f"leapfrog_halfstep: {counts['leapfrog_halfstep']} launches < "
           f"{lf} leapfrogs")
@@ -874,14 +1053,32 @@ def run_enum_hmm(dev):
 
 def enum_potential_breakdown(dev, evals=10):
     """Wall ms per value-and-gradient of the enumerated HMM's potential at
-    T = 1 (the model, no chain), T = 2 (plus the ``torch.func.vmap``
-    transition and one contraction) and the main path's T; the differences
-    split a gradient into model, vectorized transition and contraction
-    chain."""
+    T = 1 (the model, no chain), T = 2 and the main path's T, and of the
+    contraction chain alone at the main path's (T-1, K, K) (``ops.enum_chain``
+    and the ``logsumexp`` after it, forward and backward); they split a
+    gradient into model, contraction chain and the rest, most of it the
+    ``torch.func.vmap`` transition."""
     from repro_torch.bench.models import enum_hmm_data, enum_hmm_model
     from repro_torch.core.infer import initialize_model_structure
     from repro_torch.core.infer.hmc_util import value_and_grad
+    from repro_torch.kernels import ops
 
+    gen = torch.Generator().manual_seed(0)
+    alpha0 = torch.randn(ENUM_K, generator=gen).to(dev).requires_grad_(True)
+    mats = torch.randn((ENUM_T - 1, ENUM_K, ENUM_K), generator=gen).to(
+        dev).requires_grad_(True)
+
+    def chain_grad():
+        total = torch.logsumexp(ops.enum_chain(alpha0, mats), dim=-1)
+        return torch.autograd.grad(total, (alpha0, mats))
+
+    chain_grad()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(evals):
+        chain_grad()
+    torch.cuda.synchronize()
+    chain_ms = 1e3 * (time.perf_counter() - t0) / evals
     ms = {}
     for T in (1, 2, ENUM_T):
         data = {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
@@ -898,12 +1095,11 @@ def enum_potential_breakdown(dev, evals=10):
             pe_and_grad(z)
         torch.cuda.synchronize()
         ms[T] = 1e3 * (time.perf_counter() - t0) / evals
-    per_step = (ms[ENUM_T] - ms[2]) / (ENUM_T - 2)
     return {"ms_per_grad_eval": {str(t): v for t, v in ms.items()},
             "model_ms": ms[1],
-            "vmap_transition_ms": ms[2] - ms[1] - per_step,
-            "contraction_ms_per_step": per_step,
-            "contraction_chain_ms": per_step * (ENUM_T - 1)}
+            "vmap_transition_ms": ms[ENUM_T] - ms[1] - chain_ms,
+            "contraction_chain_ms": chain_ms,
+            "t2_to_t_ms": ms[ENUM_T] - ms[2]}
 
 
 def hmm_theta_gate(theta_draws, true_theta, z_max=4.0):
@@ -2537,6 +2733,10 @@ def run_samplers(dev):
           flush=True)
     print("enum_contract timings:", json.dumps(
         {str(shape): t for shape, t in enum_timings.items()}), flush=True)
+    chain_checks_, chain_timings = chain_checks(dev)
+    print("enum_chain checks:", json.dumps(chain_checks_), flush=True)
+    print("enum_chain timings:", json.dumps(
+        {str(shape): t for shape, t in chain_timings.items()}), flush=True)
     ens_checks, ens_timing = ensemble_kernel_checks(dev)
     print("ensemble kernel checks:", json.dumps(ens_checks), flush=True)
     print("ensemble kernel timings:", json.dumps(
@@ -2566,7 +2766,7 @@ def run_samplers(dev):
     lap("RWM")
     print("sampler part seconds:", json.dumps(part_s), flush=True)
 
-    from repro_torch.kernels.ops import SPECS
+    from repro_torch.kernels.ops import FUSED, SPECS
     kernels = []
     for name, source, timing, checks in (
             ("leapfrog_halfstep", "src/repro_torch/csrc/leapfrog.cu",
@@ -2586,12 +2786,16 @@ def run_samplers(dev):
             "launches_per_leapfrog": counts[name]
             / path["adaptive"]["num_leapfrog"]})
     main_t, large_t = enum_timings[ENUM_MAIN], enum_timings[ENUM_LARGE]
+    off_path = ("no main path launches it: markov runs the T-1 steps "
+                "through enum_chain; checked and timed as the port of the "
+                "TPU kernel")
     for name, replaces, err_key, note in (
             ("enum_contract", SPECS["enum_contract"].replaces,
-             "max_abs_err", None),
+             "max_abs_err", off_path),
             ("enum_contract_bwd", None, "bwd_max_abs_err",
              "the backward of enum_contract: the JAX package has no TPU "
-             "kernel for it, it differentiates ref.enum_contract")):
+             "kernel for it, it differentiates ref.enum_contract; "
+             + off_path)):
         times, (bound_ms, bound_by) = main_t[name]
         ltimes, (lbound_ms, lbound_by) = large_t[name]
         kernels.append({
@@ -2612,7 +2816,45 @@ def run_samplers(dev):
                       "call_ms": ltimes["call_ms"],
                       "library_ms": ltimes["library_ms"],
                       "bound_ms": lbound_ms, "bound_by": lbound_by},
-            **({"note": note} if note else {})})
+            "note": note})
+    main_t, large_t = chain_timings[CHAIN_MAIN], chain_timings[CHAIN_LARGE]
+    for name, replaces, note in (
+            ("enum_chain", FUSED["enum_chain"].replaces,
+             "the T-1 enum_contract steps of markov's lax.scan in one "
+             "launch (no TPU kernel of its own: the JAX package scans row "
+             "5's kernel)"),
+            ("enum_chain_bwd", None,
+             "the backward of enum_chain, T-1 steps in one launch; "
+             "max_abs_err against the plain chain backward, within (T-1) x "
+             "1e-6 of each output's largest entry")):
+        times, (bound_ms, bound_by) = main_t[name]
+        ltimes, (lbound_ms, lbound_by) = large_t[name]
+        err_key = "max_abs_err" if name == "enum_chain" else \
+            "bwd_max_abs_err"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/enum_contract.cu",
+            "replaces": replaces, "launches": enum_counts[name],
+            "max_abs_err": max(c[err_key] for c in chain_checks_),
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "call_ms": times["call_ms"],
+            "plain_call_ms": times["plain_call_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": times["library_ms"],
+            "ns_per_step": times["ns_per_step"],
+            "one_step_launches_ms": times["one_step_launches_ms"],
+            "launches_per_leapfrog": enum_counts[name]
+            / enum_path["num_leapfrog"],
+            "launches_per_grad_eval": enum_counts[name]
+            / enum_path["num_grad_evals"],
+            "shape": main_t["shape"],
+            "large": {"shape": large_t["shape"], "ms": ltimes["ms"],
+                      "plain_ms": ltimes["plain_ms"],
+                      "call_ms": ltimes["call_ms"],
+                      "ns_per_step": ltimes["ns_per_step"],
+                      "library_ms": ltimes["library_ms"],
+                      "bound_ms": lbound_ms, "bound_by": lbound_by},
+            "note": note})
     kernels += ensemble_kernel_rows(ens_checks, ens_timing, {
         "leapfrog_halfstep_batch": {"ChEES": (chees, chees_counts)},
         "mala_step": {"MALA": (mala, mala_counts), "RWM": (rwm, rwm_counts)}})

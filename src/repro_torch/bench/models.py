@@ -131,7 +131,7 @@ def enum_hmm_data(K, seed=0, T=120, V=16):
 def enum_hmm_model(data):
     """No supervision and no manual marginalization: the hidden states are
     summed out by ``markov`` at O(T K^2) per potential evaluation, through
-    ``ops.enum_contract``."""
+    ``ops.enum_chain`` (the T-1 contractions in one call)."""
     from ..core.infer import markov
     K, V, w = data["K"], data["V"], data["w"]
     theta = pc.sample("theta", dist.Dirichlet(

@@ -14,17 +14,18 @@ and broadcasting (the JAX package's ``repro.core.infer.enum``, ported):
   ``scale``) apply as usual, after which the enumeration dims are summed out
   by variable elimination in log space.
 - :func:`markov` is the sequential counterpart for chain-structured models:
-  it eliminates the state along the time axis at O(T·K²), with each step's
-  logsumexp contraction dispatched through
-  :func:`repro_torch.kernels.ops.enum_contract` (the hand-written kernel
-  pair on a card, the plain version on the CPU).
+  it eliminates the state along the time axis at O(T·K²), the T-1 logsumexp
+  contractions in one call of :func:`repro_torch.kernels.ops.enum_chain`
+  (the hand-written chain kernels on a card, one launch forward and one
+  backward; the plain chain on the CPU).
 
 Differences from the JAX package, by design:
 
 - ``jax.vmap(step_factor)`` becomes ``torch.func.vmap`` over the same
   function: the handlers run once, on tensors with a hidden time dim.
-- ``lax.scan`` becomes a Python loop of T-1 ``ops.enum_contract`` calls (T-1
-  forward and T-1 backward kernel launches per gradient).
+- ``lax.scan`` of ``ops.enum_contract`` becomes one ``ops.enum_chain``
+  call: one autograd node, one forward and one backward kernel launch per
+  gradient, where a loop of one-step calls would make T-1 of each.
 - Observed values inside the vectorized transition are not support-checked
   (the JAX package skips them as tracers); nor is step 0 inside a potential
   that marks its sites checked (``util._SupportChecked``): the plain
@@ -517,10 +518,10 @@ def markov(fn, init, xs, *, name: str = "markov"):
     - enum-aware ``log_density``: computes per-step factors ``log p(z_t |
       z_{t-1}) + log p(obs_t | z_t)`` for all steps at once (one
       ``torch.func.vmap`` over time), eliminates the state along the time
-      axis with T-1 calls of :func:`repro_torch.kernels.ops.enum_contract`,
-      and contributes the chain's marginal likelihood as a single
-      ``{name}_marginal`` factor site.  Returns ``None``: the carry must not
-      be consumed downstream under marginalization.
+      axis with one call of :func:`repro_torch.kernels.ops.enum_chain` (the
+      T-1 contractions), and contributes the chain's marginal likelihood as
+      a single ``{name}_marginal`` factor site.  Returns ``None``: the carry
+      must not be consumed downstream under marginalization.
     """
     leaves = _tree_leaves(xs)
     if not leaves:
@@ -603,10 +604,8 @@ def markov(fn, init, xs, *, name: str = "markov"):
     else:
         mats = alpha0.new_zeros((0, K, K))
 
-    alpha = alpha0
-    for mat in torch.unbind(mats, 0):
-        alpha = ops.enum_contract(alpha, mat)
-    total = torch.logsumexp(alpha, dim=-1)
+    alpha_T = ops.enum_chain(alpha0, mats)
+    total = torch.logsumexp(alpha_T, dim=-1)
     _sample(f"{name}_marginal",
             _dist.Delta(total.new_zeros(()), log_density=total),
             obs=total.new_zeros(()))

@@ -25,6 +25,11 @@ Every row with a TPU kernel (nine of the 12) names its hand-written kernel
 and its plain version; of the three ref-only rows, ``decode_attention`` and
 ``ssd_decode_step`` name their plain versions and ``mla_absorbed_decode``
 waits for the MLA slice (ROADMAP.md, Queue 1).
+
+``FUSED`` holds the port's ops that run in one launch what the JAX package
+loops over a ported op: ``enum_chain``, the T-1 ``enum_contract`` steps of
+``markov``'s ``lax.scan``, with its backward ``enum_chain_bwd`` in
+``BACKWARD``.  Their launches are counted with the rest.
 """
 from __future__ import annotations
 
@@ -119,11 +124,22 @@ BACKWARD = {spec.name: spec for spec in (
     # bfloat16 only: dx and dw within one bf16 step (BF16_RTOL)
     OpSpec("softmax_xent_bwd", _xent.softmax_xent_bwd_cuda,
            _xent.softmax_xent_bwd, "cuda", None, False, 0.0),
+    # bit-identical to T-1 launches of enum_contract_bwd; within (T-1) x
+    # 1e-6 of its largest entry against the plain chain (summation order)
+    OpSpec("enum_chain_bwd", _enum_contract.enum_chain_bwd_cuda,
+           _enum_contract.enum_chain_bwd_ref, "cuda", None, False, 1e-6),
+)}
+# fused loops of a ported op; ``replaces`` is the JAX package's loop
+FUSED = {spec.name: spec for spec in (
+    OpSpec("enum_chain", _enum_contract.enum_chain_cuda,
+           _enum_contract.enum_chain_ref, "cuda",
+           "src/repro/core/infer/enum.py:600", True, 0.0),
 )}
 
 
 def _counted():
     return {**{name: SPECS[name].kernel for name in PORTED},
+            **{name: spec.kernel for name, spec in FUSED.items()},
             **{name: spec.kernel for name, spec in BACKWARD.items()}}
 
 
@@ -228,6 +244,16 @@ def enum_contract(log_alpha, log_mat):
     versions for CPU tensors, the forward and backward kernels for CUDA
     tensors (:class:`~repro_torch.kernels.enum_contract.EnumContract`)."""
     return _enum_contract.EnumContract.apply(log_alpha, log_mat)
+
+
+def enum_chain(alpha0, mats):
+    """``alpha_T`` of the chain ``alpha_{t+1}[..., j] =
+    logsumexp_i(alpha_t[..., i] + mats[t, ..., i, j])`` over ``alpha0 (...,
+    K)`` and ``mats (T-1, ..., K, K)`` -> ``(..., K)``; ``alpha0`` for T =
+    1.  Differentiable, with one forward and one backward kernel launch per
+    chain on a card, the plain chain on the CPU
+    (:class:`~repro_torch.kernels.enum_contract.EnumChain`)."""
+    return _enum_contract.EnumChain.apply(alpha0, mats)
 
 
 def launch_counts() -> dict:

@@ -9,6 +9,10 @@ import torch
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels.enum_contract import (EnumContract,
+                                               enum_chain_bwd_cuda,
+                                               enum_chain_bwd_ref,
+                                               enum_chain_cuda,
+                                               enum_chain_ref,
                                                enum_contract_bwd_cuda,
                                                enum_contract_bwd_ref,
                                                enum_contract_cuda,
@@ -149,6 +153,73 @@ def test_enum_contract_kernels_match_plain_on_card(dtype):
     EnumContract.apply(a, m).sum().backward()
     counts = ops.launch_counts()
     assert counts["enum_contract"] == 1 and counts["enum_contract_bwd"] == 1
+
+
+def test_chain_wrappers_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        enum_chain_cuda(torch.zeros(3), torch.zeros(4, 3, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        enum_chain_bwd_cuda(torch.zeros(4, 3, 3), torch.zeros(5, 3),
+                            torch.zeros(3))
+
+
+# (T, batch, K): the main path's chain, T = 2 and 1, both sides of the
+# warp/CTA split and of the CTA kernels' whole-matrix/row-chunk split
+CHAIN_SHAPES = [(120, (), 8), (2, (), 8), (1, (), 8), (40, (), 3),
+                (5, (), 32), (5, (), 33), (4, (), 128), (3, (), 257),
+                (12, (4,), 8), (7, (2, 3), 5), (7, (2,), 9), (5, (), 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_enum_chain_kernels_match_plain_and_one_step_on_card(dtype):
+    """The chain forward bit-identical to the plain chain and to T-1
+    one-step launches; the chain backward bit-identical to T-1 one-step
+    backward launches and within (T-1) x 1e-6 of each output's largest
+    entry of the plain chain backward; one launch each, none at T = 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    assert ops.FUSED["enum_chain"].bit_identical
+    dev = torch.device("cuda")
+    for i, (T, batch, k) in enumerate(CHAIN_SHAPES):
+        rng = np.random.default_rng(i)
+        a, m, g = (torch.from_numpy(rng.standard_normal(shape)).to(
+            dtype).to(dev) for shape in (batch + (k,),
+                                         (T - 1,) + batch + (k, k),
+                                         batch + (k,)))
+        ops.reset_launch_counts()
+        alphas = enum_chain_cuda(a, m)
+        d_a, d_m = enum_chain_bwd_cuda(m, alphas, g)
+        counts = ops.launch_counts()
+        assert counts["enum_chain"] == counts["enum_chain_bwd"] == int(T > 1)
+        assert torch.equal(alphas, enum_chain_ref(a, m))
+        steps = [a]
+        for mat in m.unbind(0):
+            steps.append(enum_contract_cuda(steps[-1], mat))
+        assert torch.equal(alphas, torch.stack(steps))
+        grad, d_steps = g, []
+        for t in range(T - 2, -1, -1):
+            grad, d_mat = enum_contract_bwd_cuda(steps[t], m[t], steps[t + 1],
+                                                 grad)
+            d_steps.append(d_mat)
+        assert torch.equal(d_a, grad)
+        assert T == 1 or torch.equal(d_m, torch.stack(d_steps[::-1]))
+        r_a, r_m = enum_chain_bwd_ref(m, alphas, g)
+        tol = max(T - 1, 1) * 1e-6
+        for got, want in ((d_a, r_a), (d_m, r_m)):
+            if want.numel():
+                assert not torch.isnan(got).any()
+                assert float((got - want).abs().max()) \
+                    <= tol * float(want.abs().max())
+    # the autograd Function routes CUDA tensors to the chain kernels
+    ops.reset_launch_counts()
+    a, m = (torch.from_numpy(np.random.default_rng(9).standard_normal(
+        shape)).to(dtype).to(dev).requires_grad_(True)
+        for shape in ((8,), (119, 8, 8)))
+    ops.enum_chain(a, m).sum().backward()
+    counts = ops.launch_counts()
+    assert counts["enum_chain"] == 1 and counts["enum_chain_bwd"] == 1
+    assert counts["enum_contract"] == 0 and counts["enum_contract_bwd"] == 0
 
 
 # the main paths' ensembles (ChEES 8 chains, MALA/RWM 16) and ragged ones

@@ -50,7 +50,7 @@ from repro_torch.core.infer import (MCMC, NUTS, config_enumerate,
 from repro_torch.core.infer.hmc_util import value_and_grad
 from repro_torch.interop import state_from_reference
 from repro_torch.kernels import ops
-from repro_torch.kernels.enum_contract import (EnumContract,
+from repro_torch.kernels.enum_contract import (EnumChain, EnumContract,
                                                enum_contract_bwd_ref,
                                                enum_contract_ref)
 from test_torch_nuts import ReplayDraws
@@ -388,27 +388,28 @@ def test_nuts_transitions_replay_reference_enum_hmm():
 def test_enum_hmm_run_launches_one_contraction_per_step_and_gradient(
         monkeypatch):
     """The invariant chip_smoke.py gates on the card: each potential
-    gradient contracts the chain T-1 times, forward and backward."""
-    calls = {"fwd": 0, "bwd": 0}
-    real_fwd, real_bwd = EnumContract.forward, EnumContract.backward
+    gradient contracts the chain's T-1 steps in one ``EnumChain`` forward
+    and one backward (one launch of each chain kernel on a card), and no
+    one-step ``EnumContract`` runs on the path."""
+    calls = {}
+    for cls in (EnumChain, EnumContract):
+        for method in ("forward", "backward"):
+            key = f"{cls.__name__}.{method}"
+            calls[key] = 0
 
-    def fwd(ctx, *args):
-        calls["fwd"] += 1
-        return real_fwd(ctx, *args)
+            def counted(ctx, *args, _real=getattr(cls, method), _key=key):
+                calls[_key] += 1
+                return _real(ctx, *args)
 
-    def bwd(ctx, *args):
-        calls["bwd"] += 1
-        return real_bwd(ctx, *args)
-
-    monkeypatch.setattr(EnumContract, "forward", staticmethod(fwd))
-    monkeypatch.setattr(EnumContract, "backward", staticmethod(bwd))
+            monkeypatch.setattr(cls, method, staticmethod(counted))
     T = 12
     m = MCMC(NUTS(enum_hmm_model, max_tree_depth=4, device="cpu"),
              num_warmup=5, num_samples=5)
     m.run(0, enum_hmm_data(2, seed=5, T=T, V=4))
     evals = m.stats["num_grad_evals"]
     assert evals >= m.stats["num_leapfrog"] > 0
-    assert calls == {"fwd": (T - 1) * evals, "bwd": (T - 1) * evals}
+    assert calls == {"EnumChain.forward": evals, "EnumChain.backward": evals,
+                     "EnumContract.forward": 0, "EnumContract.backward": 0}
     theta = m.get_samples()["theta"]
     assert theta.shape == (5, 2, 2) and torch.isfinite(theta).all()
     assert torch.allclose(theta.sum(-1), torch.ones(5, 2))

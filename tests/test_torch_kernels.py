@@ -52,9 +52,12 @@ def test_op_table_has_the_reference_rows():
                           "softmax_xent", "ssd_scan")
     # every row with a TPU kernel is ported
     assert set(ops.PORTED) == {s.name for s in jops.OP_TABLE if s.pallas}
-    # backward kernels are counted with the rest; each names its plain
-    # version and, where the JAX package has one, the TPU kernel's function
-    assert set(ops.launch_counts()) == set(ops.PORTED) | set(ops.BACKWARD)
+    # backward kernels and fused loops are counted with the rest; each
+    # names its plain version and, where the JAX package has one, the TPU
+    # kernel's function
+    assert set(ops.launch_counts()) == (set(ops.PORTED) | set(ops.FUSED)
+                                        | set(ops.BACKWARD))
+    assert not set(ops.FUSED) & (set(ops.SPECS) | set(ops.BACKWARD))
     for name, spec in ops.BACKWARD.items():
         assert spec.name == name and spec.kernel and spec.ref
         assert spec.route == "cuda"
