@@ -19,7 +19,9 @@ result line if any fails):
    against ``torch.logsumexp``, the library yardstick, and at a large
    shape; the chain kernels ``enum_chain``/``enum_chain_bwd`` also against
    T-1 one-step launches, bit for bit, and at 4,096 rows x K = 64; the
-   batch leapfrog and the MALA/RWM proposal also at (64, 1,000,003)).
+   batch leapfrog and the MALA/RWM proposal also at (64, 1,000,003); the
+   GLM kernel at C = 1, 8 and 16 chains a call, each chain bit-identical
+   to a 1-chain call, timed at each C beside its bound).
    Then drive the main paths through the user's entry points,
    each with every kernel launch counter set to 0 just before and read just
    after: ``MCMC(NUTS(logreg_model_glm), 100, 100).run(...)`` on 581,012 x
@@ -34,7 +36,11 @@ result line if any fails):
    (lockstep trajectories through ``leapfrog_halfstep_batch``),
    ``MCMC(MALA(logreg_model_glm), 500, 500, num_chains=16)`` and ``RWM``
    at the same setting warm-started at MALA's posterior mean (one
-   ``mala_step`` launch per iteration, RWM's without the gradient).
+   ``mala_step`` launch per iteration, RWM's without the gradient); each
+   evaluates all its chains' gradients in one GLM launch, the prior under
+   ``torch.func.vmap`` (gated: ``glm_prior_batch == "vmap"``, one launch
+   per ensemble evaluation and per search evaluation plus the setup's
+   check, chain evaluations one per chain and evaluation plus that check).
 3. ``lm``: hold ``rmsnorm`` and ``flash_attention`` against their plain
    versions (float32 and bfloat16, causal and not, MHA/GQA/MQA, dq != dv,
    ragged) and time them beside ``F.rms_norm`` and
@@ -112,6 +118,8 @@ FLOPS = {torch.float32: 67e12, torch.float64: 34e12,
          torch.bfloat16: 989e12}
 N, D = 581_012, 54
 GLM_REL_TOL = 1e-5
+# the GLM kernel's chains a call: the NUTS path's, ChEES's, MALA/RWM's
+GLM_CHAINS = (1, 8, 16)
 ENUM_K, ENUM_T, ENUM_V = 8, 120, 16
 # its draws are cut from 100 + 100 (never K or T) to make room for the
 # ensemble phases within the script's time
@@ -483,62 +491,98 @@ def leapfrog_checks(dev):
 
 
 def glm_checks(dev):
+    """The GLM kernel (``glm_chains_kernel``) at the main shape and at (1001,
+    7), both families: every chain of 16 within the float64 referee's bound
+    as a 1-chain call; for C = 1, 8, 16 (``GLM_CHAINS``: NUTS's, ChEES's and
+    MALA/RWM's) chain c of a C-chain call bit-identical to the 1-chain call
+    on w_c, repeated calls bit-identical, one launch and C chain
+    evaluations a call; device times at the main shape for each C beside
+    its bound, max(bytes, operations = n (4 d + 12) C)."""
     from repro_torch.kernels.glm_potential import (glm_potential_grad_cuda,
                                                    glm_potential_grad_ref)
-    results, timing = [], None
+    results, timing = [], {}
+    cmax = max(GLM_CHAINS)
     for n, d in ((N, D), (1001, 7)):
         for family, scale in (("bernoulli_logit", None), ("normal", 0.7)):
             gen = torch.Generator().manual_seed(n + d)
             x = torch.randn((n, d), generator=gen).to(dev)
-            w = (0.3 * torch.randn(d, generator=gen)).to(dev)
+            w_all = (0.3 * torch.randn((cmax, d), generator=gen)).to(dev)
             off = (0.2 * torch.randn(n, generator=gen)).to(dev)
             if family == "bernoulli_logit":
                 y = (torch.rand(n, generator=gen) < 0.5).float().to(dev)
             else:
-                y = x @ w + 0.5 * torch.randn(n, generator=gen).to(dev)
-            kv, kg = glm_potential_grad_cuda(x, y, w, off, scale, family)
-            # the referee: the same formula in float64
-            pv, pg = glm_potential_grad_ref(x, y, w.double(), off, scale,
-                                            family,
-                                            compute_dtype=torch.float64)
-            # float32 sums over n rows in another order: the error scales
-            # with the sum of the magnitudes of the summed terms
-            xd, wd = x.double(), w.double()
-            logits = xd @ wd + off.double()
-            if family == "bernoulli_logit":
-                resid = torch.sigmoid(logits) - y.double()
-                terms = torch.nn.functional.softplus(logits) \
-                    - y.double() * logits
-            else:
-                resid = (logits - y.double()) / scale ** 2
-                terms = 0.5 * ((logits - y.double()) / scale) ** 2 \
-                    + math.log(scale)
-            g_scale = (resid.abs()[:, None] * xd.abs()).sum(0)
-            tol_v = 5e-3 + GLM_REL_TOL * float(terms.abs().sum())
-            tol_g = 5e-3 + GLM_REL_TOL * g_scale
-            err_v = abs(float(kv) - float(pv))
-            err_g = (kg.double() - pg).abs()
-            ok = err_v <= tol_v and bool((err_g <= tol_g).all())
+                y = x @ w_all[0] + 0.5 * torch.randn(n, generator=gen).to(dev)
+            singles = [glm_potential_grad_cuda(x, y, w_all[c], off, scale,
+                                               family) for c in range(cmax)]
+            xd = x.double()
+            err_v = err_g = worst = 0.0
+            for c, (kv, kg) in enumerate(singles):
+                # the referee: the same formula in float64
+                pv, pg = glm_potential_grad_ref(
+                    x, y, w_all[c].double(), off, scale, family,
+                    compute_dtype=torch.float64)
+                # float32 sums over n rows in another order: the error
+                # scales with the sum of the magnitudes of the summed terms
+                logits = xd @ w_all[c].double() + off.double()
+                if family == "bernoulli_logit":
+                    resid = torch.sigmoid(logits) - y.double()
+                    terms = torch.nn.functional.softplus(logits) \
+                        - y.double() * logits
+                else:
+                    resid = (logits - y.double()) / scale ** 2
+                    terms = 0.5 * ((logits - y.double()) / scale) ** 2 \
+                        + math.log(scale)
+                g_scale = (resid.abs()[:, None] * xd.abs()).sum(0)
+                tol_v = 5e-3 + GLM_REL_TOL * float(terms.abs().sum())
+                tol_g = 5e-3 + GLM_REL_TOL * g_scale
+                ev = abs(float(kv) - float(pv))
+                eg = (kg.double() - pg).abs()
+                check(ev <= tol_v and bool((eg <= tol_g).all()),
+                      f"GLM kernel disagrees at n={n} d={d} {family} chain "
+                      f"{c}: nll err {ev} (tol {tol_v}), grad err "
+                      f"{float(eg.max())}")
+                err_v, err_g = max(err_v, ev), max(err_g, float(eg.max()))
+                worst = max(worst, ev / tol_v, float((eg / tol_g).max()))
+            for chains in GLM_CHAINS:
+                w = w_all[:chains].contiguous()
+                glm_potential_grad_cuda.launches = 0
+                glm_potential_grad_cuda.chain_evals = 0
+                kv, kg = glm_potential_grad_cuda(x, y, w, off, scale, family)
+                check((glm_potential_grad_cuda.launches,
+                       glm_potential_grad_cuda.chain_evals) == (1, chains),
+                      f"a {chains}-chain GLM call made "
+                      f"{glm_potential_grad_cuda.launches} launches and "
+                      f"{glm_potential_grad_cuda.chain_evals} chain "
+                      "evaluations")
+                check(all(torch.equal(kv[c], singles[c][0])
+                          and torch.equal(kg[c], singles[c][1])
+                          for c in range(chains)),
+                      f"a {chains}-chain GLM call is not bit-identical to "
+                      f"1-chain calls at n={n} d={d} {family}")
+                kv2, kg2 = glm_potential_grad_cuda(x, y, w, off, scale,
+                                                   family)
+                check(torch.equal(kv, kv2) and torch.equal(kg, kg2),
+                      "GLM kernel is not bit-identical across repeated "
+                      "calls")
+                if (n, d, family) == (N, D, "bernoulli_logit"):
+                    nbytes = 4 * (n * d + 2 * n + 2 * chains * d + chains)
+                    timing[chains] = (timings(
+                        lambda: glm_potential_grad_cuda(x, y, w, off, scale,
+                                                        family),
+                        lambda: glm_potential_grad_ref(x, y, w, off, scale,
+                                                       family), 20),
+                        bound(nbytes, n * (4 * d + 12) * chains,
+                              torch.float32), max(err_v, err_g))
             results.append({"n": n, "d": d, "family": family,
-                            "max_abs_err": max(err_v, float(err_g.max())),
+                            "chains": list(GLM_CHAINS),
+                            "max_abs_err": max(err_v, err_g),
+                            "nll_err": err_v, "grad_err": err_g,
+                            "worst_err_over_tol": worst,
                             "tol": "5e-3 + 1e-5 * sum|terms| (float32 "
                                    "summation order)",
-                            "nll_err": err_v, "nll_tol": tol_v})
-            check(ok, f"GLM kernel disagrees at n={n} d={d} {family}: "
-                      f"nll err {err_v} (tol {tol_v}), grad err "
-                      f"{float(err_g.max())}")
-            kv2, kg2 = glm_potential_grad_cuda(x, y, w, off, scale, family)
-            check(torch.equal(kv, kv2) and torch.equal(kg, kg2),
-                  "GLM kernel is not bit-identical across repeated calls")
-            if (n, d, family) == (N, D, "bernoulli_logit"):
-                nbytes = 4 * (n * d + 2 * n + 2 * d + 1)
-                timing = (timings(
-                    lambda: glm_potential_grad_cuda(x, y, w, off, scale,
-                                                    family),
-                    lambda: glm_potential_grad_ref(x, y, w, off, scale,
-                                                   family), 20),
-                    bound(nbytes, n * (4 * d + 12), torch.float32),
-                    max(err_v, float(err_g.max())))
+                            "bit_identical_to_single_chain": True})
+    glm_potential_grad_cuda.launches = 0
+    glm_potential_grad_cuda.chain_evals = 0
     return results, timing
 
 
@@ -1165,13 +1209,15 @@ def run_hmm(dev):
     return out
 
 
-def _ensemble_summary(mcmc, data, counts, extra_keys=()):
+def _ensemble_summary(mcmc, data, counts, chain_evals, extra_keys=()):
     """What an ensemble phase measured, and the gates every phase shares:
     finite draws of the expected shape, no divergence after warmup, the
-    posterior mean within 0.05 of ``true_w``, and every GLM launch
-    accounted for: one per chain and ensemble evaluation, one per
-    evaluation of the initial-point and step-size searches, and the fused
-    potential's closing check at setup (``core/infer/glm.py``)."""
+    posterior mean within 0.05 of ``true_w``, the fused potential's prior
+    batched by ``torch.func.vmap``, and every GLM launch accounted for: one
+    per ensemble evaluation (all chains in one launch), one per evaluation
+    of the initial-point and step-size searches, and the fused potential's
+    closing check at setup (``core/infer/glm.py``); its chain evaluations
+    (``chain_evals``) one per chain and evaluation, plus that check."""
     from repro_torch.core.infer import effective_sample_size, gelman_rubin
     stats = mcmc.stats
     chains = mcmc.num_chains
@@ -1205,6 +1251,8 @@ def _ensemble_summary(mcmc, data, counts, extra_keys=()):
         "min_ess": float(np.min(effective_sample_size(w))),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "glm_prior": stats["glm_prior"],
+        "glm_prior_batch": stats["glm_prior_batch"],
+        "glm_chain_evals": chain_evals,
     }
     for key in extra_keys:
         out[key] = float(extra[key].float().mean())
@@ -1218,27 +1266,42 @@ def _ensemble_summary(mcmc, data, counts, extra_keys=()):
     check(evals == chains * stats["num_leapfrog"] + stats["init_grad_evals"],
           f"{evals} gradient evaluations != {chains} chains x "
           f"{stats['num_leapfrog']} + {stats['init_grad_evals']} (searches)")
-    check(counts["glm_potential_grad"] == evals + 1,
+    check(stats["glm_prior_batch"] == "vmap", "the fused potential's "
+          f"batched entry runs its prior as a {stats['glm_prior_batch']}, "
+          "not under torch.func.vmap")
+    init = stats["init_grad_evals"]
+    batched, rest = divmod(evals - init, chains)
+    check(rest == 0, f"{evals - init} ensemble gradient evaluations are not "
+                     f"a multiple of {chains} chains")
+    check(chain_evals == evals + 1,
+          f"glm_potential_grad: {chain_evals} chain evaluations != {evals} "
+          "gradient evaluations + 1 (the setup's check)")
+    check(counts["glm_potential_grad"] == batched + init + 1,
           f"glm_potential_grad: {counts['glm_potential_grad']} launches != "
-          f"{evals} gradient evaluations + 1 (the setup's check)")
+          f"{batched} ensemble evaluations + {init} search evaluations + 1 "
+          "(the setup's check)")
+    out["glm_launches_per_ensemble_eval"] = \
+        (counts["glm_potential_grad"] - init - 1) / batched
     return out, w
 
 
 def run_chees(dev, data):
     """``MCMC(ChEES(logreg_model_glm), 300, 1500, num_chains=8)`` on the
     581,012 x 54 data: lockstep trajectories through the batch leapfrog
-    kernel, every chain's gradient through the GLM kernel."""
+    kernel, the 8 chains' gradients in one GLM launch an evaluation."""
     from repro_torch.bench.models import logreg_model_glm
     from repro_torch.core.infer import MCMC, ChEES
     from repro_torch.kernels import ops
+    from repro_torch.kernels.glm_potential import glm_potential_grad_cuda
 
     ops.reset_launch_counts()
     mcmc = MCMC(ChEES(logreg_model_glm), num_warmup=CHEES_WARMUP,
                 num_samples=CHEES_DRAWS, num_chains=CHEES_CHAINS)
     mcmc.run(0, data["x"], y=data["y"])
     counts = ops.launch_counts()
-    out, _ = _ensemble_summary(mcmc, data, counts, ("trajectory_length",
-                                                    "num_steps"))
+    chain_evals = glm_potential_grad_cuda.chain_evals
+    out, _ = _ensemble_summary(mcmc, data, counts, chain_evals,
+                               ("trajectory_length", "num_steps"))
     steps = mcmc.get_extra_fields(group_by_chain=True)["num_steps"]
     out["leapfrog_halfstep_batch_per_leapfrog"] = \
         counts["leapfrog_halfstep_batch"] / out["num_leapfrog"]
@@ -1263,6 +1326,7 @@ def run_mrw(dev, data, algo, init_w=None):
     from repro_torch.bench.models import logreg_model_glm
     from repro_torch.core.infer import MALA, MCMC, RWM
     from repro_torch.kernels import ops
+    from repro_torch.kernels.glm_potential import glm_potential_grad_cuda
     from repro_torch.kernels.rwm_mala import mala_step_cuda
 
     kernel = {"MALA": MALA, "RWM": RWM}[algo]
@@ -1272,8 +1336,9 @@ def run_mrw(dev, data, algo, init_w=None):
     init = None if init_w is None else {"w": init_w}
     mcmc.run(0, data["x"], y=data["y"], init_params=init)
     counts = ops.launch_counts()
+    chain_evals = glm_potential_grad_cuda.chain_evals
     without_grad = mala_step_cuda.launches_without_grad
-    out, w = _ensemble_summary(mcmc, data, counts)
+    out, w = _ensemble_summary(mcmc, data, counts, chain_evals)
     out["mala_step_launches_without_grad"] = without_grad
     print(f"{algo}:", json.dumps(out), flush=True)
     iterations = MRW_WARMUP + MRW_DRAWS
@@ -2731,6 +2796,9 @@ def run_samplers(dev):
                                         "glm_potential_grad": glm_checks_,
                                         "enum_contract": enum_checks_}),
           flush=True)
+    print("glm_potential_grad timings by chains:", json.dumps(
+        {str(c): {**t, "bound_ms": b, "bound_by": by}
+         for c, (t, (b, by), _) in glm_timing.items()}), flush=True)
     print("enum_contract timings:", json.dumps(
         {str(shape): t for shape, t in enum_timings.items()}), flush=True)
     chain_checks_, chain_timings = chain_checks(dev)
@@ -2768,23 +2836,51 @@ def run_samplers(dev):
 
     from repro_torch.kernels.ops import FUSED, SPECS
     kernels = []
-    for name, source, timing, checks in (
-            ("leapfrog_halfstep", "src/repro_torch/csrc/leapfrog.cu",
-             lf_timing, lf_checks),
-            ("glm_potential_grad", "src/repro_torch/csrc/glm_potential.cu",
-             glm_timing, glm_checks_)):
-        times, (bound_ms, bound_by), err = timing
-        kernels.append({
-            "name": name, "route": SPECS[name].route, "source": source,
-            "replaces": SPECS[name].replaces, "launches": counts[name],
-            "max_abs_err": max(c["max_abs_err"] for c in checks),
-            "max_abs_err_main_shape": err,
-            "ms": times["ms"],
-            "plain_ms": times["plain_ms"], "call_ms": times["call_ms"],
-            "plain_call_ms": times["plain_call_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "launches_per_leapfrog": counts[name]
-            / path["adaptive"]["num_leapfrog"]})
+    times, (bound_ms, bound_by), err = lf_timing
+    kernels.append({
+        "name": "leapfrog_halfstep", "route": SPECS["leapfrog_halfstep"].route,
+        "source": "src/repro_torch/csrc/leapfrog.cu",
+        "replaces": SPECS["leapfrog_halfstep"].replaces,
+        "launches": counts["leapfrog_halfstep"],
+        "max_abs_err": max(c["max_abs_err"] for c in lf_checks),
+        "max_abs_err_main_shape": err,
+        "ms": times["ms"], "plain_ms": times["plain_ms"],
+        "call_ms": times["call_ms"], "plain_call_ms": times["plain_call_ms"],
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "launches_per_leapfrog": counts["leapfrog_halfstep"]
+        / path["adaptive"]["num_leapfrog"]})
+    # the GLM row: the NUTS path's C = 1 as its main numbers, C = 8 and 16
+    # (ChEES's and MALA/RWM's) beside them
+    name = "glm_potential_grad"
+    times, (bound_ms, bound_by), err = glm_timing[1]
+    phases = {"NUTS": (path["adaptive"], counts), "ChEES": (chees,
+                                                             chees_counts),
+              "MALA": (mala, mala_counts), "RWM": (rwm, rwm_counts)}
+    kernels.append({
+        "name": name, "kernel": "glm_chains_kernel",
+        "route": SPECS[name].route,
+        "source": "src/repro_torch/csrc/glm_potential.cu",
+        "replaces": SPECS[name].replaces, "launches": counts[name],
+        "launches_by_phase": {p: c[name] for p, (_, c) in phases.items()},
+        "chain_evals_by_phase": {p: o["glm_chain_evals"]
+                                 for p, (o, _) in phases.items()
+                                 if p != "NUTS"},
+        "launches_per_ensemble_eval": {
+            p: o["glm_launches_per_ensemble_eval"]
+            for p, (o, _) in phases.items() if p != "NUTS"},
+        "max_abs_err": max(c["max_abs_err"] for c in glm_checks_),
+        "max_abs_err_main_shape": err,
+        "ms": times["ms"], "plain_ms": times["plain_ms"],
+        "call_ms": times["call_ms"], "plain_call_ms": times["plain_call_ms"],
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "launches_per_leapfrog": counts[name]
+        / path["adaptive"]["num_leapfrog"],
+        "by_chains": {str(c): {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                               "call_ms": t["call_ms"],
+                               "plain_call_ms": t["plain_call_ms"],
+                               "bound_ms": b, "bound_by": by}
+                      for c, (t, (b, by), _) in glm_timing.items()},
+        "shape": [N, D], "chains": list(GLM_CHAINS)})
     main_t, large_t = enum_timings[ENUM_MAIN], enum_timings[ENUM_LARGE]
     off_path = ("no main path launches it: markov runs the T-1 steps "
                 "through enum_chain; checked and timed as the port of the "

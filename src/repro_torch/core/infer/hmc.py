@@ -281,12 +281,21 @@ def flat_model_ingredients(generator, device, *, model=None,
 def counting(potential_fn):
     """``potential_fn`` counting its calls in ``.count``: the samplers only
     evaluate the potential with its gradient, so the count is the number
-    of gradient evaluations (one per chain and evaluation)."""
+    of gradient evaluations (one per chain and evaluation).  A potential
+    with a batched entry (``value_and_grad_batch``, the fused GLM
+    potential's) keeps it, counting C for a (C, D) call."""
     def potential(z):
         potential.count += 1
         return potential_fn(z)
 
     potential.count = 0
+    batch = getattr(potential_fn, "value_and_grad_batch", None)
+    if batch is not None:
+        def value_and_grad_batch(z):
+            potential.count += z.shape[0]
+            return batch(z)
+
+        potential.value_and_grad_batch = value_and_grad_batch
     return potential
 
 

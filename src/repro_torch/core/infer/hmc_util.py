@@ -560,11 +560,15 @@ def chain_value_and_grad(potential_fn: Callable):
     """``(C, D) -> ((C,) potentials, (C, D) gradients)``: the counterpart of
     the JAX package's ``chain_vmap(jax.value_and_grad(potential))``.
 
-    A loop over the chains, one value-and-gradient evaluation each, stacked:
-    the fused GLM potential is a ctypes-backed ``torch.autograd.Function``
-    that ``torch.func.vmap`` cannot enter, so on the logistic regression
-    each evaluation of the ensemble launches the GLM kernel once per chain,
-    one pass over X per chain (as ``jax.vmap`` of the Pallas kernel does)."""
+    A potential with a batched entry, ``value_and_grad_batch`` (the fused
+    GLM potential, ``glm.py``: its prior under ``torch.func.vmap``, one GLM
+    kernel launch and one pass over X for all C chains), is called once.
+    Any other potential is a loop over the chains, one value-and-gradient
+    evaluation each, stacked: a model's potential may branch on its data
+    or call into ctypes, which ``torch.func.vmap`` cannot enter."""
+    batch = getattr(potential_fn, "value_and_grad_batch", None)
+    if batch is not None:
+        return batch
     pe_and_grad = value_and_grad(potential_fn)
 
     def batched(z):

@@ -71,6 +71,9 @@ class MCMC:
     transitions, ended by a device synchronize) and ``glm_prior``
     (``"slim"`` or ``"full"``: how the fused GLM potential evaluates the
     prior term, see :mod:`repro_torch.core.infer.glm`; None when the
+    potential is not fused) and ``glm_prior_batch`` (``"vmap"`` or
+    ``"loop"``: how its batched entry, which the ensembles call once per
+    evaluation of all chains, evaluates the prior term; None when the
     potential is not fused).
     """
 
@@ -144,7 +147,9 @@ class MCMC:
                       "setup_seconds": t_chains - t0,
                       "chain_seconds": t_end - t_chains,
                       "glm_prior": getattr(setup.potential_fn, "glm_prior",
-                                           None)}
+                                           None),
+                      "glm_prior_batch": getattr(setup.potential_fn,
+                                                 "glm_prior_batch", None)}
         return self
 
     def _run_chains(self, setup, draws):

@@ -9,12 +9,17 @@ gradient with respect to ``w``:
 - ``normal``: ``nll_i = 0.5 ((l_i - y_i)/scale)^2 + log scale +
   0.5 log 2 pi``, gradient ``x^T (l - y) / scale^2``.
 
-Both reduce the same residual against the same rows of ``x``, so the CUDA
-kernel (``csrc/glm_potential.cu``) reads ``x`` once for value and gradient.
-``ops.glm_potential_grad`` takes :func:`glm_potential_grad_ref` for CPU
-tensors and :func:`glm_potential_grad_cuda` for CUDA tensors, never the
-other.  The per-shard partials
-(``glm_potential_partials``) wait for the data-shards slice.
+``w`` is one weight vector ``(d,)`` -> ``(nll (), grad (d,))``, or the
+chains of an ensemble ``(C, d)`` -> ``(nll (C,), grad (C, d))``: the
+counterpart of ``jax.vmap`` of the JAX function over ``w``.  Value and
+gradient reduce the same residual against the same rows of ``x``, so the
+CUDA kernel (``csrc/glm_potential.cu``) reads ``x`` once for value,
+gradient and all C chains, and chain ``c`` of a C-chain call is
+bit-identical to a call on ``w[c]`` alone.  ``ops.glm_potential_grad``
+takes :func:`glm_potential_grad_ref` for CPU tensors and
+:func:`glm_potential_grad_cuda` for CUDA tensors, never the other.  The
+per-shard partials (``glm_potential_partials``) wait for the data-shards
+slice.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ from . import _build
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 _FAMILIES = {"bernoulli_logit": 0, "normal": 1}
-MAX_D = 256  # the kernel keeps w in registers: at most 8 columns per lane
+MAX_D = 256     # columns of x the kernel takes
+MAX_CHAINS = 256  # chains a launch takes (16 per CTA, 16 chain groups)
 
 
 def glm_potential_grad_ref(x, y, w, offset=None, scale=None,
@@ -36,7 +42,15 @@ def glm_potential_grad_ref(x, y, w, offset=None, scale=None,
                            compute_dtype=torch.float32):
     """The plain PyTorch version (port of ``repro.kernels.ref.
     glm_potential_grad``): computes in float32 like the kernel, or in
-    ``compute_dtype`` where it referees the kernel; returns ``w.dtype``."""
+    ``compute_dtype`` where it referees the kernel; returns ``w.dtype``.
+    A ``(C, d)`` ``w`` is a loop of the single-chain formula, so each
+    chain is bit-identical to a call on its own row."""
+    if w.dim() == 2:
+        outs = [glm_potential_grad_ref(x, y, wc, offset, scale, family,
+                                       compute_dtype=compute_dtype)
+                for wc in w]
+        return (torch.stack([v for v, _ in outs]),
+                torch.stack([g for _, g in outs]))
     xf = x.to(compute_dtype)
     yf = y.to(compute_dtype)
     logits = xf @ w.to(compute_dtype)
@@ -62,25 +76,53 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_longlong,
-                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * 6)
         fn.restype = ctypes.c_int
-        lib.glm_potential_num_blocks.argtypes = [ctypes.c_longlong]
-        lib.glm_potential_num_blocks.restype = ctypes.c_int
+        lib.glm_potential_part_floats.argtypes = [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        lib.glm_potential_part_floats.restype = ctypes.c_longlong
+        lib.glm_potential_part2_floats.argtypes = [ctypes.c_int,
+                                                   ctypes.c_int]
+        lib.glm_potential_part2_floats.restype = ctypes.c_longlong
+        lib.glm_potential_ticket_ints.restype = ctypes.c_int
+        lib.glm_potential_max_chains.restype = ctypes.c_int
+        if lib.glm_potential_max_chains() != MAX_CHAINS:
+            raise RuntimeError("csrc/glm_potential.cu and MAX_CHAINS differ")
     return lib
+
+
+# The fold's tickets: zero-initialised ints per (device, stream), which the
+# kernel leaves at zero.  Launches on one stream run in order, so they can
+# share them; another stream gets its own.  A stream first seen under CUDA
+# graph capture (a graph's capture stream) has its tickets zeroed by the
+# captured fill, so that graph is replayed before any other captured on
+# that stream.
+_TICKETS = {}
+
+
+def _tickets(lib, device, stream):
+    key = (device.index, stream)
+    buf = _TICKETS.get(key)
+    if buf is None:
+        buf = torch.zeros(lib.glm_potential_ticket_ints(), dtype=torch.int32,
+                          device=device)
+        _TICKETS[key] = buf
+    return buf
 
 
 def glm_potential_grad_cuda(x, y, w, offset=None, scale=None,
                             family="bernoulli_logit"):
-    """Launch the two CUDA kernels (per-block partials, then the fixed-order
-    fold) on the current stream.
+    """Launch the CUDA kernel once on the current stream: every chain's
+    nll and gradient from one read of ``x``, folded in a fixed order.
 
     ``x``, ``y`` and ``offset`` must be contiguous float32 on one card with
-    ``d <= MAX_D``; ``w`` may be float32 or float64 (the kernel computes in
-    float32 and the result comes back in ``w.dtype``).  ``scale`` is a
-    Python number (the Normal noise scale, fixed at setup).  Raises on
-    anything else, and on a failed build or launch.
+    ``d <= MAX_D``; ``w`` is ``(d,)`` or ``(C, d)`` with ``C <= MAX_CHAINS``,
+    float32 or float64 (the kernel computes in float32 and the result comes
+    back in ``w.dtype``).  ``scale`` is a Python number (the Normal noise
+    scale, fixed at setup).  Raises on anything else, and on a failed build
+    or launch.  ``.launches`` counts calls, ``.chain_evals`` the chains
+    they evaluated.
     """
     if family not in _FAMILIES:
         raise ValueError(f"unknown GLM family: {family!r}")
@@ -104,11 +146,16 @@ def glm_potential_grad_cuda(x, y, w, offset=None, scale=None,
                 f"{tuple(t.shape)} on {t.device} (contiguous="
                 f"{t.is_contiguous()}); expected contiguous float32 {shape} "
                 f"on {x.device}")
-    if w.device != x.device or tuple(w.shape) != (d,) \
-            or w.dtype not in (torch.float32, torch.float64):
+    batched = w.dim() == 2
+    chains = w.shape[0] if batched else 1
+    if (w.device != x.device or w.dim() not in (1, 2) or w.shape[-1] != d
+            or w.dtype not in (torch.float32, torch.float64)):
         raise ValueError(f"glm_potential_grad_cuda: w is {w.dtype} "
                          f"{tuple(w.shape)} on {w.device}; expected float "
-                         f"({d},) on {x.device}")
+                         f"({d},) or (C, {d}) on {x.device}")
+    if not 1 <= chains <= MAX_CHAINS:
+        raise ValueError(f"glm_potential_grad_cuda takes 1 to {MAX_CHAINS} "
+                         f"chains, got w of shape {tuple(w.shape)}")
     if family == "normal":
         if scale is None or isinstance(scale, torch.Tensor):
             raise TypeError("glm_potential_grad_cuda takes the Normal scale "
@@ -116,26 +163,33 @@ def glm_potential_grad_cuda(x, y, w, offset=None, scale=None,
         scale = float(scale)
     else:
         scale = 1.0
-    wf = w.to(torch.float32).contiguous()
+    wf = w.to(torch.float32).reshape(chains, d).contiguous()
     lib = _lib()
-    blocks = lib.glm_potential_num_blocks(n)
-    part_nll = torch.empty(blocks, dtype=torch.float32, device=x.device)
-    part_grad = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
-    nll = torch.empty((), dtype=torch.float32, device=x.device)
-    grad = torch.empty(d, dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    dev = x.device
+    part = torch.empty(lib.glm_potential_part_floats(n, d, chains),
+                       dtype=torch.float32, device=dev)
+    part2 = torch.empty(lib.glm_potential_part2_floats(d, chains),
+                        dtype=torch.float32, device=dev)
+    nll = torch.empty(chains, dtype=torch.float32, device=dev)
+    grad = torch.empty((chains, d), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = _tickets(lib, dev, stream)
+    with torch.cuda.device(dev):
         rc = lib.glm_potential_grad_f32(
             x.data_ptr(), y.data_ptr(),
             None if offset is None else offset.data_ptr(), wf.data_ptr(),
-            scale, _FAMILIES[family], n, d, part_nll.data_ptr(),
-            part_grad.data_ptr(), blocks, nll.data_ptr(), grad.data_ptr(),
-            stream)
+            scale, _FAMILIES[family], n, d, chains, part.data_ptr(),
+            part2.data_ptr(), tickets.data_ptr(), nll.data_ptr(),
+            grad.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"glm_potential_grad kernel launch failed: "
                            f"cudaError {rc}")
     glm_potential_grad_cuda.launches += 1
+    glm_potential_grad_cuda.chain_evals += chains
+    if not batched:
+        nll, grad = nll[0], grad[0]
     return nll.to(w.dtype), grad.to(w.dtype)
 
 
 glm_potential_grad_cuda.launches = 0
+glm_potential_grad_cuda.chain_evals = 0

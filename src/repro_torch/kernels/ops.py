@@ -88,6 +88,7 @@ OP_TABLE = (
     OpSpec("leapfrog_halfstep_batch", leapfrog.leapfrog_halfstep_batch_cuda,
            leapfrog.leapfrog_halfstep_batch_ref, "cuda",
            _K + "leapfrog.py:104", False, 1e-6),
+    # w (d,), or (C, d) for an ensemble: one launch reads x for all C
     OpSpec("glm_potential_grad", glm_potential.glm_potential_grad_cuda,
            glm_potential.glm_potential_grad_ref, "cuda",
            _K + "glm_potential.py:62", False, 5e-3),
@@ -227,7 +228,9 @@ def leapfrog_halfstep_batch(z, r, grad, m_inv, eps, kick=0.5):
 def glm_potential_grad(x, y, w, offset=None, scale=None,
                        family="bernoulli_logit"):
     """Fused GLM negative log-likelihood + gradient wrt ``w`` in one pass
-    over the (n, d) design matrix: -> (nll scalar, grad (d,))."""
+    over the (n, d) design matrix: ``w (d,)`` -> (nll scalar, grad (d,)),
+    or the chains of an ensemble ``w (C, d)`` -> (nll (C,), grad (C, d)),
+    one launch and one read of ``x`` for all C chains on a card."""
     return _route("glm_potential_grad", x)(x, y, w, offset, scale, family)
 
 
@@ -265,4 +268,5 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for kernel in _counted().values():
         kernel.launches = 0
+    glm_potential.glm_potential_grad_cuda.chain_evals = 0
     rwm_mala.mala_step_cuda.launches_without_grad = 0

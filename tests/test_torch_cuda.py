@@ -102,6 +102,105 @@ def test_cuda_kernels_match_plain_on_card():
         assert float((kg - pg).abs().max()) <= TOL["glm_potential_grad"]
 
 
+def _glm_referee_tol(x, y, w, off, scale, family):
+    """chip_smoke.py's bound against the float64 referee: float32 sums over
+    n rows in another order, so the error scales with the sum of the
+    magnitudes of the summed terms (5e-3 + 1e-5 of it), per chain."""
+    xd, wd = x.double(), w.double()
+    logits = xd @ wd + off.double()
+    if family == "bernoulli_logit":
+        resid = torch.sigmoid(logits) - y.double()
+        terms = torch.nn.functional.softplus(logits) - y.double() * logits
+    else:
+        resid = (logits - y.double()) / scale ** 2
+        terms = 0.5 * ((logits - y.double()) / scale) ** 2 + np.log(scale)
+    return (TOL["glm_potential_grad"] + 1e-5 * float(terms.abs().sum()),
+            TOL["glm_potential_grad"]
+            + 1e-5 * (resid.abs()[:, None] * xd.abs()).sum(0))
+
+
+GLM_SHAPES = [(581_012, 54), (1001, 7), (1001, 54), (1001, 256), (3, 54),
+              (3, 7), (3, 256)]
+# 40 > the 16 chains a CTA takes: three chain groups
+GLM_CHAINS = [1, 3, 8, 16, 40]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,scale", [("bernoulli_logit", None),
+                                          ("normal", 0.7)])
+@pytest.mark.parametrize("n,d", GLM_SHAPES)
+def test_glm_chains_kernel_matches_plain_on_card(n, d, family, scale):
+    """Every chain of a C-chain launch within the float64 referee's bound
+    and bit-identical to a 1-chain launch on its own w; repeated launches
+    bit-identical; an unaligned x (4-byte copies) bit-identical to an
+    aligned one; one launch a call, C chain evaluations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n + d)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    off = torch.from_numpy((0.2 * rng.standard_normal(n)).astype(np.float32))
+    w_all = torch.from_numpy(
+        (0.3 * rng.standard_normal((max(GLM_CHAINS), d))).astype(np.float32))
+    if family == "bernoulli_logit":
+        y = torch.from_numpy((rng.random(n) < 0.5).astype(np.float32))
+    else:
+        y = x @ w_all[0] + 0.5 * torch.from_numpy(
+            rng.standard_normal(n).astype(np.float32))
+    x, y, off, w_all = x.to(dev), y.to(dev), off.to(dev), w_all.to(dev)
+    singles = [glm_potential_grad_cuda(x, y, w_all[c], off, scale, family)
+               for c in range(max(GLM_CHAINS))]
+    for c, (v1, g1) in enumerate(singles[:3]):
+        pv, pg = glm_potential_grad_ref(x, y, w_all[c], off, scale, family,
+                                        compute_dtype=torch.float64)
+        tol_v, tol_g = _glm_referee_tol(x, y, w_all[c], off, scale, family)
+        assert abs(float(v1) - float(pv)) <= tol_v
+        assert bool(((g1.double() - pg).abs() <= tol_g).all())
+    for chains in GLM_CHAINS:
+        w = w_all[:chains].contiguous()
+        glm_potential_grad_cuda.launches = 0
+        glm_potential_grad_cuda.chain_evals = 0
+        nll, grad = glm_potential_grad_cuda(x, y, w, off, scale, family)
+        assert (glm_potential_grad_cuda.launches,
+                glm_potential_grad_cuda.chain_evals) == (1, chains)
+        assert nll.shape == (chains,) and grad.shape == (chains, d)
+        for c in range(chains):
+            assert torch.equal(nll[c], singles[c][0])
+            assert torch.equal(grad[c], singles[c][1])
+        nll2, grad2 = glm_potential_grad_cuda(x, y, w, off, scale, family)
+        assert torch.equal(nll, nll2) and torch.equal(grad, grad2)
+    # x one float past a 16-byte boundary: every copy takes 4 bytes
+    buf = torch.empty(n * d + 1, dtype=torch.float32, device=dev)
+    xu = buf[1:].view(n, d)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 != 0
+    w = w_all[:8].contiguous()
+    got = glm_potential_grad_cuda(xu, y, w, off, scale, family)
+    want = glm_potential_grad_cuda(x, y, w, off, scale, family)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = glm_potential_grad_cuda(x, y, w, None, scale, family)
+    ref = glm_potential_grad_ref(x, y, w, None, scale, family,
+                                 compute_dtype=torch.float64)
+    tol_v, _ = _glm_referee_tol(x, y, w[0], torch.zeros_like(off), scale,
+                                family)
+    assert float((got[0].double() - ref[0]).abs().max()) <= tol_v
+
+
+@pytest.mark.cuda
+def test_glm_wrapper_refuses_bad_operands_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    x, y = torch.zeros(5, 257, device=dev), torch.zeros(5, device=dev)
+    with pytest.raises(ValueError, match="d <= 256"):
+        glm_potential_grad_cuda(x, y, torch.zeros(257, device=dev))
+    x = torch.zeros(5, 3, device=dev)
+    with pytest.raises(ValueError, match="chains"):
+        glm_potential_grad_cuda(x, y, torch.zeros(257, 3, device=dev))
+    with pytest.raises(ValueError, match="CUDA"):
+        glm_potential_grad_cuda(x.cpu(), y, torch.zeros(2, 3, device=dev))
+
+
 ENUM_SHAPES = [((), 8, 8), ((), 2, 2), ((), 3, 3), ((), 16, 16),
                ((), 128, 128), ((), 7, 13), ((), 257, 5), ((4,), 8, 8),
                ((2, 3), 5, 5), ((), 1, 6), ((16384,), 64, 64)]
