@@ -21,7 +21,12 @@ result line if any fails):
    T-1 one-step launches, bit for bit, and at 4,096 rows x K = 64; the
    batch leapfrog and the MALA/RWM proposal also at (64, 1,000,003); the
    GLM kernel at C = 1, 8 and 16 chains a call, each chain bit-identical
-   to a 1-chain call, timed at each C beside its bound).
+   to a 1-chain call, timed at each C beside its bound; the NUTS leaf ops
+   ``nuts_leaf``/``nuts_turning`` at the three NUTS paths' D, ragged D and
+   1,000,003, every leaf kind, vectors bit-identical and sums within 1e-6
+   of their terms; ``mala_accept`` at the ensembles' shapes, MALA and RWM,
+   in warmup and after, with divergent chains, the selections, running
+   mean and harmonic mean bit-identical for the kernel's accept_prob).
    Then drive the main paths through the user's entry points,
    each with every kernel launch counter set to 0 just before and read just
    after: ``MCMC(NUTS(logreg_model_glm), 100, 100).run(...)`` on 581,012 x
@@ -31,12 +36,15 @@ result line if any fails):
    50)`` at K = 8, T = 120, V = 16, whose states ``markov`` sums out
    through the chain kernels (one launch of each per gradient); and the
    paper's semi-supervised ``hmm_model`` at T = 600, T_sup = 100, K = 3,
-   V = 10 (50 warmup + 20 draws); then the ensemble samplers on the same logreg
+   V = 10 (50 warmup + 20 draws), each NUTS run gated on exactly one
+   ``nuts_leaf`` launch a leapfrog of its trees and ``leapfrog_halfstep``
+   opening every subtree; then the ensemble samplers on the same logreg
    data: ``MCMC(ChEES(logreg_model_glm), 300, 1500, num_chains=8)``
    (lockstep trajectories through ``leapfrog_halfstep_batch``),
    ``MCMC(MALA(logreg_model_glm), 500, 500, num_chains=16)`` and ``RWM``
    at the same setting warm-started at MALA's posterior mean (one
-   ``mala_step`` launch per iteration, RWM's without the gradient); each
+   ``mala_step`` and one ``mala_accept`` launch per iteration, RWM's
+   without the gradient); each
    evaluates all its chains' gradients in one GLM launch, the prior under
    ``torch.func.vmap`` (gated: ``glm_prior_batch == "vmap"``, one launch
    per ensemble evaluation and per search evaluation plus the setup's
@@ -158,6 +166,17 @@ RHAT_MAX = 1.01  # tests/test_ensemble.py:144's gate
 ENS_CHEES, ENS_MRW, ENS_LARGE = (CHEES_CHAINS, D), (MRW_CHAINS, D), \
     (64, 1_000_003)
 ENS_SHAPES = (ENS_CHEES, ENS_MRW, (1, 1), (3, 130), (5, 4097), ENS_LARGE)
+# the NUTS leaf ops: the main paths' D (logreg, the enumerated HMM, the
+# semi-supervised HMM), ragged ones and a large one (264 CTAs and the
+# ticket fold); leaf kinds (r_sum given, ckpt_i, (idx_min, idx_max)): a
+# subtree's first leaf, an even leaf, odd leaves with 1, 3 and 6 checkpoint
+# rows (6 takes two passes); timed: an odd leaf with one row (an odd leaf
+# reads one on average) at the logreg's D
+NUTS_SIZES = (D, 176, 33, 1, 4097, 1_000_003)
+NUTS_LEAVES = ((False, 0, None), (True, 3, None), (True, None, (4, 4)),
+               (True, None, (0, 2)), (True, None, (1, 6)))
+NUTS_TIMED = (True, None, (2, 2))
+FUSED_REL_TOL = 1e-6  # a fused sum against the plain one, of its |terms|
 # the LM slice: the full Qwen3-8B, B = 4 prompts of 512 tokens (a multiple
 # of the JAX prefill's 128-row tiles), 32 sampled tokens
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 512, 32
@@ -462,6 +481,10 @@ def check(cond, message):
 
 
 def leapfrog_checks(dev):
+    """Row 1's kernel against its plain version (D = 54 float32, 1,000,003
+    float32 and float64), timed at D = 54; then the NUTS leaf ops fused
+    around it (``nuts_fused_checks``).  Returns the checks, the kernel's
+    timing and the fused ops' timings."""
     from repro_torch.kernels.leapfrog import (leapfrog_halfstep_cuda,
                                               leapfrog_halfstep_ref)
     tol = 1e-6  # OP_TABLE's bound: one rounding of the same arithmetic
@@ -487,6 +510,281 @@ def leapfrog_checks(dev):
                 lambda: leapfrog_halfstep_cuda(z, r, g, m_inv, eps),
                 lambda: leapfrog_halfstep_ref(z, r, g, m_inv, eps), 200),
                 bound((6 * size + 1) * itemsize, 5 * size, dtype), err)
+    fused, fused_timing = nuts_fused_checks(dev)
+    return results + fused, timing, fused_timing
+
+
+def same_bits(a, b):
+    """Bit-identical, NaN included."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+
+
+def _nuts_operands(size, dtype, dev):
+    gen = torch.Generator().manual_seed(size)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen,
+                                    dtype=dtype)).to(dev)
+
+    r_half, z, g, r_sum = (rand(size) for _ in range(4))
+    m_inv = (torch.rand(size, generator=gen, dtype=dtype) + 0.5).to(dev)
+    ck, sck = rand(8, size), rand(8, size, scale=2.0)
+    pe = torch.tensor(1.75, dtype=dtype, device=dev)
+    eps = torch.tensor(-0.0123, dtype=dtype, device=dev)
+    return r_half, z, g, r_sum, m_inv, ck, sck, pe, eps
+
+
+def leaf_scales(m, want, ck, sck, rows):
+    """Each sum of a leaf's values, ke and the dots, as the sum of its
+    terms' magnitudes (the scale of the fused sums' tolerance)."""
+    r, through = want[0], want[1]
+    scales = [float((r * (m * r)).abs().sum())]
+    if rows is not None:
+        rc = ck[rows[0]:rows[1] + 1]
+        mid = (through - sck[rows[0]:rows[1] + 1] + rc) - 0.5 * (rc + r)
+        scales += (m * rc * mid).abs().sum(-1).tolist()
+        scales += (m * r * mid).abs().sum(-1).tolist()
+    return torch.tensor(scales, dtype=torch.float64)
+
+
+def nuts_fused_checks(dev):
+    """``nuts_leaf`` and ``nuts_turning`` against their plain versions on
+    every size of ``NUTS_SIZES`` and leaf kind of ``NUTS_LEAVES``, float32
+    and float64: the vectors and checkpoint rows bit-identical, pe copied,
+    ke and the dots within FUSED_REL_TOL of their terms' magnitudes, a
+    repeated call bit-identical; timings at the logreg's D."""
+    from repro_torch.kernels.leapfrog import (nuts_leaf_cuda, nuts_leaf_ref,
+                                              nuts_turning_cuda,
+                                              nuts_turning_ref)
+    results, timing = [], {}
+    for size in NUTS_SIZES:
+        for dtype in (torch.float32, torch.float64):
+            r_half, z, g, r_sum, m, ck, sck, pe, eps = \
+                _nuts_operands(size, dtype, dev)
+            for has_sum, ckpt_i, rows in NUTS_LEAVES:
+                args = (r_half, z, g, pe, m, eps, r_sum if has_sum else None)
+                idx = rows or (0, -1)
+                ck_k, sck_k, ck_p, sck_p = (t.clone() for t in
+                                            (ck, sck, ck, sck))
+                got = nuts_leaf_cuda(*args, ck_k, sck_k, ckpt_i, *idx)
+                again = nuts_leaf_cuda(*args, ck.clone(), sck.clone(),
+                                       ckpt_i, *idx)
+                want = nuts_leaf_ref(*args, ck_p, sck_p, ckpt_i, *idx)
+                torch.cuda.synchronize()
+                pairs = [(got[i], want[i]) for i in (0, 1, 3, 4)] + \
+                    [(ck_k, ck_p), (sck_k, sck_p)]
+                identical = all(same_bits(a, b) for a, b in pairs) and \
+                    float(got[2][0]) == float(want[2][0])
+                repeat = all(same_bits(a, b) for a, b in zip(
+                    (got[0], got[1], got[2], got[3], got[4]), again))
+                diff = (got[2][1:].double() - want[2][1:].double()).abs()
+                rel = float((diff.cpu() / leaf_scales(
+                    m, want, ck, sck, rows).clamp(min=1e-300)).max())
+                err = max(float((a.double() - b.double()).abs().max())
+                          for a, b in pairs + [(got[2], want[2])])
+                kind = "first" if not has_sum else (
+                    f"even, row {ckpt_i}" if rows is None
+                    else f"odd, rows {rows[0]}..{rows[1]}")
+                results.append({"name": "nuts_leaf", "D": size,
+                                "dtype": str(dtype), "leaf": kind,
+                                "vectors_bit_identical": identical,
+                                "repeat_bit_identical": repeat,
+                                "sums_rel_err": rel, "max_abs_err": err})
+                check(identical and repeat and rel <= FUSED_REL_TOL,
+                      f"nuts_leaf disagrees at D={size} {dtype} ({kind}): "
+                      f"bit-identical {identical}, repeat {repeat}, sums "
+                      f"{rel} > {FUSED_REL_TOL} of their terms")
+            r_left, r_right, total = (r_half, g, 3.0 * r_sum)
+            got = nuts_turning_cuda(m, r_left, r_right, total)
+            again = nuts_turning_cuda(m, r_left, r_right, total)
+            want = nuts_turning_ref(m, r_left, r_right, total)
+            mid = total - 0.5 * (r_left + r_right)
+            scale = torch.stack([(m * r_left * mid).abs().sum(),
+                                 (m * r_right * mid).abs().sum()]).double()
+            diff = (got.double() - want.double()).abs()
+            rel = float((diff / scale).max())
+            repeat = same_bits(got, again)
+            results.append({"name": "nuts_turning", "D": size,
+                            "dtype": str(dtype), "sums_rel_err": rel,
+                            "repeat_bit_identical": repeat,
+                            "max_abs_err": float(diff.max())})
+            check(repeat and rel <= FUSED_REL_TOL,
+                  f"nuts_turning disagrees at D={size} {dtype}: repeat "
+                  f"{repeat}, {rel} > {FUSED_REL_TOL} of its terms")
+            if size == D and dtype == torch.float32:
+                has_sum, ckpt_i, rows = NUTS_TIMED
+                args = (r_half, z, g, pe, m, eps, r_sum, ck, sck, ckpt_i,
+                        *rows)
+                leaf_err = max(c["max_abs_err"] for c in results
+                               if c["name"] == "nuts_leaf")
+                timing["nuts_leaf"] = (
+                    timings(lambda: nuts_leaf_cuda(*args),
+                            lambda: nuts_leaf_ref(*args), 200),
+                    nuts_leaf_bound(size, rows[1] - rows[0] + 1, has_sum,
+                                    ckpt_i is not None, dtype), leaf_err)
+                timing["nuts_turning"] = (
+                    timings(lambda: nuts_turning_cuda(m, r_left, r_right,
+                                                      total),
+                            lambda: nuts_turning_ref(m, r_left, r_right,
+                                                     total), 200),
+                    bound(dtype.itemsize * (4 * size + 2), 9 * size, dtype),
+                    float(diff.max()))
+    return results, timing
+
+
+def nuts_leaf_bound(d, rows, has_sum, even, dtype):
+    """Bytes: r_half, z, g, m_inv (and r_sum) and two checkpoint rows per
+    dot row read, r, z_next, r_half_next (and r_sum_through) and an even
+    leaf's two checkpoint rows written, once each, plus eps, pe and the
+    packed values.  Operations per element: 9 (closing kick 2, ke 3, the
+    next kick 1 and drift 3), 1 for r_sum, and with dot rows 1 + 10 a row."""
+    vectors = 4 + 3 + 2 * rows + 2 * int(has_sum) + 2 * int(even)
+    nbytes = dtype.itemsize * (vectors * d + 2 + 2 + 2 * rows)
+    flops = (9 + int(has_sum) + (1 + 10 * rows if rows else 0)) * d
+    return bound(nbytes, flops, dtype)
+
+
+def mala_accept_bound(variant, c, d, warmup):
+    """Bytes of one float32 call: MALA reads z, z', g, g' and the noise,
+    RWM z and z', each (C, D) once, plus m_inv, pe, pe', u (and the mean
+    after warmup); writes z (and MALA's g), pe, accept_prob, diverging (one
+    byte) and the mean or the harmonic mean.  Operations: MALA 9 an element
+    (the two sums' terms) and ~15 a chain, RWM ~10 a chain (+ 2 C in
+    warmup)."""
+    cells = c * d
+    if variant == "MALA":
+        moved = 7 * cells + d
+        flops = 9 * cells + 15 * c
+    else:
+        moved = 3 * cells
+        flops = 10 * c
+    small = 5 * c + (1 if warmup else 2 * c)
+    return bound(4 * (moved + small) + c, flops + (2 * c if warmup else 0),
+                 torch.float32)
+
+
+def accept_operands(c, d, dtype, seed, dev, variant, eps):
+    """A MALA or RWM accept step's operands as the sampler makes them: the
+    proposal from ``mala_step_ref`` with standard normal noise, a gradient
+    and potential at it near the current ones (so accept_prob is spread
+    over (0, 1]); chain 0's proposal potential inf and chain 1's NaN (where
+    C >= 3).  Returns the argument tuple of ``mala_accept`` but for ``coef``,
+    ``mean_accept_prob`` and ``n_post``, and the mean."""
+    from repro_torch.kernels.rwm_mala import mala_step_ref
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, dtype=dtype)
+
+    z, grad, noise = rand(c, d), rand(c, d), rand(c, d)
+    m = torch.rand(d, generator=gen, dtype=dtype) + 0.5
+    mala = variant == "MALA"
+    z_new = mala_step_ref(z, grad if mala else None, noise, m, eps)
+    grad_new = grad + 0.2 * rand(c, d)
+    pe = 3.0 * rand(c).abs()
+    pe_new = pe + 0.5 * rand(c)
+    if c >= 3:
+        pe_new[0], pe_new[1] = float("inf"), float("nan")
+    u, mean = (torch.rand(c, generator=gen, dtype=dtype) for _ in range(2))
+    z, grad, noise, m, z_new, grad_new, pe, pe_new, u, mean = (
+        t.to(dev) for t in (z, grad, noise, m, z_new, grad_new, pe, pe_new,
+                            u, mean))
+    if not mala:
+        grad = grad_new = noise = None
+    return (z, pe, grad, z_new, pe_new, grad_new, noise, m, u), mean
+
+
+def accept_prob_tolerance(args, eps, coef):
+    """The bound on |kernel - plain| of each chain's accept_prob that the
+    sums' FUSED_REL_TOL allows: log_accept may move by FUSED_REL_TOL of the
+    magnitudes summed into it (|pe|, |pe'|, and MALA's two sums of
+    non-negative terms), so accept_prob by that factor of itself.  A
+    divergent chain's (pe' not finite) accept_prob is 0 exactly."""
+    z, pe, grad, z_new, pe_new, grad_new, noise, m, u = args
+    scale = pe.double().abs() + pe_new.double().abs().nan_to_num(
+        nan=0.0, posinf=0.0)
+    if grad is not None:
+        diff = (z - z_new).double() + eps * (m * grad_new).double()
+        scale = scale + 0.5 * (noise.double() ** 2).sum(-1) \
+            + abs(coef) * (diff * diff / m.double()).sum(-1)
+    return torch.expm1(FUSED_REL_TOL * scale)
+
+
+def mala_accept_checks(dev):
+    """``mala_accept`` against its plain version on every shape of
+    ``ENS_SHAPES``, float32 and float64, MALA and RWM, in warmup and after,
+    chain 0's proposal potential inf and chain 1's NaN (where C >= 3):
+    the divergences equal, accept_prob within what the sums' FUSED_REL_TOL
+    allows (``accept_prob_tolerance``), the same accept choices, the
+    selections bit-identical to the plain selection from the kernel's
+    accept_prob, as are the running mean and the harmonic mean, a repeated
+    call bit-identical; timings at the MALA/RWM path's (16, 54) in
+    float32."""
+    from repro_torch.kernels.rwm_mala import (harmonic_mean_accept,
+                                              mala_accept_cuda,
+                                              mala_accept_ref)
+    results, timing = [], {}
+    eps = 0.0071
+    coef = float(np.float32(-0.25) / np.float32(eps))
+    for dtype in (torch.float32, torch.float64):
+        for seed, (c, d) in enumerate(ENS_SHAPES):
+            for variant in ("MALA", "RWM"):
+                base, mean = accept_operands(c, d, dtype, seed, dev, variant,
+                                             eps)
+                z, pe, grad, z_new, pe_new, grad_new, noise, m, u = base
+                tol = accept_prob_tolerance(base, eps, coef)
+                for n_post in (0, 7):
+                    args = base + (eps, coef, mean, n_post)
+                    got = mala_accept_cuda(*args)
+                    again = mala_accept_cuda(*args)
+                    want = mala_accept_ref(*args)
+                    torch.cuda.synchronize()
+                    ap = got[3]
+                    both_nan = ap.isnan() & want[3].isnan()
+                    err = torch.where(both_nan, 0.0,
+                                      (ap - want[3]).abs()).double()
+                    within = bool((err <= tol * torch.maximum(
+                        ap, want[3]).double().nan_to_num() + 1e-300).all())
+                    acc = u < ap
+                    picks = [(got[0], torch.where(acc[:, None], z_new, z)),
+                             (got[1], torch.where(acc, pe_new, pe))]
+                    if variant == "MALA":
+                        picks.append((got[2], torch.where(
+                            acc[:, None], grad_new, grad)))
+                    stats = (got[5], mean + (ap - mean) / n_post) if n_post \
+                        else (got[6], harmonic_mean_accept(ap))
+                    identical = all(same_bits(a, b) for a, b in
+                                    picks + [stats])
+                    same_choice = torch.equal(acc, u < want[3]) and \
+                        torch.equal(got[4], want[4])
+                    repeat = all(same_bits(a, b) for a, b in zip(
+                        got, again) if isinstance(a, torch.Tensor)
+                        and a.dtype != torch.bool)
+                    phase = "after warmup" if n_post else "warmup"
+                    spread = ap[~ap.isnan()]
+                    results.append({
+                        "name": "mala_accept", "variant": variant,
+                        "phase": phase, "shape": [c, d], "dtype": str(dtype),
+                        "max_abs_err": float(err.max()),
+                        "accept_prob_within_tolerance": within,
+                        "accept_prob_range": [float(spread.min()),
+                                              float(spread.max())],
+                        "selections_bit_identical": identical,
+                        "same_choice_as_plain": same_choice,
+                        "repeat_bit_identical": repeat})
+                    check(within and identical and same_choice and repeat,
+                          f"mala_accept ({variant}, {phase}) disagrees at "
+                          f"{(c, d)} {dtype}: accept_prob within "
+                          f"{within}, selections {identical}, the same "
+                          f"choice {same_choice}, repeat {repeat}")
+                    if dtype == torch.float32 and (c, d) == ENS_MRW:
+                        timing[(variant, phase)] = (
+                            timings(lambda a=args: mala_accept_cuda(*a),
+                                    lambda a=args: mala_accept_ref(*a), 200),
+                            mala_accept_bound(variant, c, d, not n_post),
+                            results[-1]["max_abs_err"])
     return results, timing
 
 
@@ -842,7 +1140,8 @@ def ensemble_kernel_checks(dev):
     and without grad) against their plain versions on every shape of
     ``ENS_SHAPES`` in float32 and float64, within OP_TABLE's 1e-6 (both
     kernels round every operation as the plain version does, so the error
-    is expected to be 0); timings at the main shapes and the large one."""
+    is expected to be 0); timings at the main shapes and the large one;
+    then the accept step after the proposal (``mala_accept_checks``)."""
     from repro_torch.kernels.leapfrog import (leapfrog_halfstep_batch_cuda,
                                               leapfrog_halfstep_batch_ref)
     from repro_torch.kernels.ops import SPECS
@@ -889,6 +1188,10 @@ def ensemble_kernel_checks(dev):
                     timing[(name, variant, (c, d))] = (
                         timings(kernel, plain, iters),
                         ensemble_bound(name, variant, c, d), err)
+    accept, accept_timing = mala_accept_checks(dev)
+    results += accept
+    for (variant, phase), entry in accept_timing.items():
+        timing[("mala_accept", f"{variant}, {phase}", ENS_MRW)] = entry
     return results, timing
 
 
@@ -987,11 +1290,11 @@ def run_main_path(dev, data, data_s):
     check(post_err < 0.05, f"posterior mean is {post_err} from true_w")
     check(stats["glm_prior"] == "slim", f"the fused potential's prior term "
           f"runs on the {stats['glm_prior']} data, not on 0 rows")
-    for name in ("leapfrog_halfstep", "glm_potential_grad"):
-        launches = counts[name]
-        check(launches >= stats["num_leapfrog"],
-              f"{name}: {launches} launches < {stats['num_leapfrog']} "
-              "leapfrogs: the main path did not run through its kernel")
+    check(counts["glm_potential_grad"] >= stats["num_leapfrog"],
+          f"glm_potential_grad: {counts['glm_potential_grad']} launches < "
+          f"{stats['num_leapfrog']} leapfrogs: the main path did not run "
+          "through its kernel")
+    tree_gates(counts, stats)
 
     out["profile"] = profile_transitions(mcmc, 20)
     print("profile:", json.dumps(out["profile"]), flush=True)
@@ -1017,7 +1320,27 @@ def run_main_path(dev, data, data_s):
     print("fixed-step NUTS:", json.dumps(out["fixed_step"]), flush=True)
     fw = fixed.get_samples()["w"]
     check(bool(torch.isfinite(fw).all()), "fixed-step samples not finite")
+    tree_gates(out["fixed_step"]["launches"], fstats)
     return out, counts
+
+
+def tree_gates(counts, stats):
+    """A NUTS run's launches: exactly one ``nuts_leaf`` a leapfrog of its
+    trees; ``leapfrog_halfstep`` opens every subtree (at least one a
+    transition) and the step-size search's leapfrogs (at most one a search
+    evaluation); at most one ``nuts_turning`` a subtree."""
+    lf, iters = stats["num_leapfrog"], stats["num_iterations"]
+    check(counts["nuts_leaf"] == lf,
+          f"nuts_leaf: {counts['nuts_leaf']} launches != {lf} leapfrogs in "
+          "trees")
+    opens = counts["leapfrog_halfstep"]
+    check(iters <= opens <= lf + stats["init_grad_evals"],
+          f"leapfrog_halfstep: {opens} launches outside [{iters} "
+          f"transitions, {lf} leapfrogs + {stats['init_grad_evals']} "
+          "search evaluations]")
+    check(counts["nuts_turning"] <= opens,
+          f"nuts_turning: {counts['nuts_turning']} launches > {opens} "
+          "subtrees")
 
 
 def _simplex_ok(x):
@@ -1060,7 +1383,8 @@ def run_enum_hmm(dev):
         "kernel_launches_per_leapfrog": {
             name: counts[name] / lf for name in
             ("enum_chain", "enum_chain_bwd", "enum_contract",
-             "enum_contract_bwd", "leapfrog_halfstep")},
+             "enum_contract_bwd", "leapfrog_halfstep", "nuts_leaf",
+             "nuts_turning")},
         "mean_accept_prob": float(extra["accept_prob"].float().mean()),
         "mean_num_steps": float(extra["num_steps"].float().mean()),
         "divergences": int(extra["diverging"].sum()),
@@ -1084,9 +1408,7 @@ def run_enum_hmm(dev):
     for name in ("enum_contract", "enum_contract_bwd"):
         check(counts[name] == 0,
               f"{name}: {counts[name]} one-step launches on the chain's path")
-    check(counts["leapfrog_halfstep"] >= lf,
-          f"leapfrog_halfstep: {counts['leapfrog_halfstep']} launches < "
-          f"{lf} leapfrogs")
+    tree_gates(counts, stats)
     out["profile"] = profile_transitions(mcmc, 3)
     print("enumerated HMM profile:", json.dumps(out["profile"]), flush=True)
     out["breakdown"] = enum_potential_breakdown(dev)
@@ -1203,10 +1525,8 @@ def run_hmm(dev):
           "an accept_prob is not finite")
     check(ok, f"posterior mean of theta is {z} posterior sds ({err}) from "
               "the data-generating theta")
-    check(counts["leapfrog_halfstep"] >= lf,
-          f"leapfrog_halfstep: {counts['leapfrog_halfstep']} launches < "
-          f"{lf} leapfrogs")
-    return out
+    tree_gates(counts, stats)
+    return out, counts
 
 
 def _ensemble_summary(mcmc, data, counts, chain_evals, extra_keys=()):
@@ -1342,9 +1662,9 @@ def run_mrw(dev, data, algo, init_w=None):
     out["mala_step_launches_without_grad"] = without_grad
     print(f"{algo}:", json.dumps(out), flush=True)
     iterations = MRW_WARMUP + MRW_DRAWS
-    check(counts["mala_step"] == iterations,
-          f"mala_step: {counts['mala_step']} launches != {iterations} "
-          "iterations")
+    for name in ("mala_step", "mala_accept"):
+        check(counts[name] == iterations,
+              f"{name}: {counts[name]} launches != {iterations} iterations")
     want = iterations if algo == "RWM" else 0
     check(without_grad == want, f"{algo}: {without_grad} launches of the "
           f"no-gradient variant, expected {want}")
@@ -1354,23 +1674,25 @@ def run_mrw(dev, data, algo, init_w=None):
 
 
 def ensemble_kernel_rows(checks, timing, phases):
-    """The kernel-table rows of the batch leapfrog and ``mala_step``: the
-    main shape's times (the merged kick, MALA's variant) and bound, the
-    other variants' and the large shape's beside them, and the launches of
-    every phase that ran the kernel (``phases``: name -> {phase: (summary,
-    launch counts)})."""
-    from repro_torch.kernels.ops import SPECS
+    """The kernel-table rows of the batch leapfrog, ``mala_step`` and
+    ``mala_accept``: the main shape's times (the merged kick, MALA's
+    variant, MALA's accept after warmup) and bound, the other variants' and
+    the large shape's beside them, and the launches of every phase that ran
+    the kernel (``phases``: name -> {phase: (summary, launch counts)})."""
+    from repro_torch.kernels.ops import FUSED, SPECS
     rows = []
     for name, source, variant, shape in (
             ("leapfrog_halfstep_batch", "leapfrog_batch.cu", "kick=1.0",
              ENS_CHEES),
-            ("mala_step", "mala_step.cu", "MALA", ENS_MRW)):
+            ("mala_step", "mala_step.cu", "MALA", ENS_MRW),
+            ("mala_accept", "mala_step.cu", "MALA, after warmup", ENS_MRW)):
         times, (bound_ms, bound_by), err = timing[(name, variant, shape)]
         runs = phases[name]
+        spec = SPECS.get(name) or FUSED[name]
         rows.append({
-            "name": name, "route": SPECS[name].route,
+            "name": name, "route": spec.route,
             "source": "src/repro_torch/csrc/" + source,
-            "replaces": SPECS[name].replaces,
+            "replaces": spec.replaces,
             "launches": sum(c[name] for _, c in runs.values()),
             "launches_by_phase": {p: c[name] for p, (_, c) in runs.items()},
             "launches_per_iteration": {
@@ -2789,9 +3111,12 @@ def run_samplers(dev):
     main paths (NUTS logreg, the two HMMs, ChEES, MALA, RWM); returns their
     rows of the kernel table and prints the seconds of each part."""
     part_s, t0 = {}, time.perf_counter()
-    lf_checks, lf_timing = leapfrog_checks(dev)
+    lf_checks, lf_timing, nuts_timing = leapfrog_checks(dev)
     glm_checks_, glm_timing = glm_checks(dev)
     enum_checks_, enum_timings = enum_checks(dev)
+    print("nuts_leaf / nuts_turning timings:", json.dumps(
+        {k: {**t, "bound_ms": b, "bound_by": by}
+         for k, (t, (b, by), _) in nuts_timing.items()}), flush=True)
     print("kernel checks:", json.dumps({"leapfrog_halfstep": lf_checks,
                                         "glm_potential_grad": glm_checks_,
                                         "enum_contract": enum_checks_}),
@@ -2823,7 +3148,7 @@ def run_samplers(dev):
     lap("NUTS logreg")
     enum_path, enum_counts = run_enum_hmm(dev)
     lap("enumerated HMM")
-    run_hmm(dev)
+    hmm, hmm_counts = run_hmm(dev)
     lap("semi-supervised HMM")
     chees, chees_counts = run_chees(dev, data)
     lap("ChEES")
@@ -2837,18 +3162,55 @@ def run_samplers(dev):
     from repro_torch.kernels.ops import FUSED, SPECS
     kernels = []
     times, (bound_ms, bound_by), err = lf_timing
+    nuts_phases = {"NUTS": (path["adaptive"], counts),
+                   "enumerated HMM": (enum_path, enum_counts),
+                   "semi-supervised HMM": (hmm, hmm_counts)}
     kernels.append({
         "name": "leapfrog_halfstep", "route": SPECS["leapfrog_halfstep"].route,
         "source": "src/repro_torch/csrc/leapfrog.cu",
         "replaces": SPECS["leapfrog_halfstep"].replaces,
         "launches": counts["leapfrog_halfstep"],
-        "max_abs_err": max(c["max_abs_err"] for c in lf_checks),
+        "max_abs_err": max(c["max_abs_err"] for c in lf_checks
+                           if "name" not in c),
         "max_abs_err_main_shape": err,
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "call_ms": times["call_ms"], "plain_call_ms": times["plain_call_ms"],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "launches_per_leapfrog": counts["leapfrog_halfstep"]
-        / path["adaptive"]["num_leapfrog"]})
+        / path["adaptive"]["num_leapfrog"],
+        "launches_by_phase": {p: c["leapfrog_halfstep"]
+                              for p, (_, c) in nuts_phases.items()},
+        "note": "inside a NUTS subtree it runs fused into nuts_leaf; on its "
+                "own it opens each subtree and runs the step-size search"})
+    # the NUTS leaf ops fused around row 1 (nuts_leaf runs its arithmetic)
+    for name, note in (
+            ("nuts_leaf", "one launch a leapfrog of a NUTS tree: the closing "
+             "kick, ke, the momentum sum, a checkpoint row or the U-turn "
+             "dots, the packed read and the next leapfrog's opening (row "
+             "1's function); timed at an odd leaf with one checkpoint row"),
+            ("nuts_turning", "the merged tree's U-turn dots, one launch a "
+             "doubling the subtree did not stop (no TPU kernel: "
+             "_is_turning is plain jnp in the JAX package)")):
+        times, (bound_ms, bound_by), err = nuts_timing[name]
+        kernels.append({
+            "name": name, "route": FUSED[name].route,
+            "source": "src/repro_torch/csrc/leapfrog.cu",
+            "replaces": FUSED[name].replaces, "launches": counts[name],
+            "max_abs_err": max(c["max_abs_err"] for c in lf_checks
+                               if c.get("name") == name),
+            "max_abs_err_main_shape": err,
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "call_ms": times["call_ms"],
+            "plain_call_ms": times["plain_call_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "launches_per_leapfrog": counts[name]
+            / path["adaptive"]["num_leapfrog"],
+            "launches_by_phase": {p: c[name]
+                                  for p, (_, c) in nuts_phases.items()},
+            "launches_per_leapfrog_by_phase": {
+                p: c[name] / o["num_leapfrog"]
+                for p, (o, c) in nuts_phases.items()},
+            "shape": [D], "note": note})
     # the GLM row: the NUTS path's C = 1 as its main numbers, C = 8 and 16
     # (ChEES's and MALA/RWM's) beside them
     name = "glm_potential_grad"
@@ -2953,7 +3315,9 @@ def run_samplers(dev):
             "note": note})
     kernels += ensemble_kernel_rows(ens_checks, ens_timing, {
         "leapfrog_halfstep_batch": {"ChEES": (chees, chees_counts)},
-        "mala_step": {"MALA": (mala, mala_counts), "RWM": (rwm, rwm_counts)}})
+        "mala_step": {"MALA": (mala, mala_counts), "RWM": (rwm, rwm_counts)},
+        "mala_accept": {"MALA": (mala, mala_counts),
+                        "RWM": (rwm, rwm_counts)}})
     return kernels
 
 

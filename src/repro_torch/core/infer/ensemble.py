@@ -39,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...kernels.rwm_mala import harmonic_mean_accept
 from .hmc import counting, flat_model_ingredients, resolve_device
 from .hmc_util import (
     DAState,
@@ -46,7 +47,6 @@ from .hmc_util import (
     IntegratorState,
     WelfordState,
     build_adaptation_schedule,
-    chain_mean,
     chain_sum,
     dual_averaging_init,
     dual_averaging_update,
@@ -202,12 +202,6 @@ def chees_gradient(h, z0, z1, v1, weights):
         * torch.sum(z1c * v1, -1)
     grad = chain_sum(weights * per_chain) / w_sum
     return torch.where(torch.isfinite(grad), grad, 0.0)
-
-
-def harmonic_mean_accept(accept_prob):
-    """The chains' harmonic-mean accept probability (the worst chains
-    dominate), on the device."""
-    return 1.0 / chain_mean(1.0 / torch.clamp(accept_prob, min=1e-10))
 
 
 def refresh_mass(wf: WelfordState, da: DAState, step_size,

@@ -139,7 +139,7 @@ def _make_sample_fn(potential_fn, num_warmup, schedule, reads, *, algo,
                     target_accept_prob, max_tree_depth):
     """The transition ``(HMCState, draws) -> HMCState``."""
     in_middle_window, window_end_is_middle = window_predicates(schedule)
-    _, vv_update = velocity_verlet(potential_fn)
+    pe_and_grad, vv_update = velocity_verlet(potential_fn)
 
     def adapt_update(state: HMCState, accept_prob) -> AdaptState:
         adapt = state.adapt_state
@@ -184,7 +184,7 @@ def _make_sample_fn(potential_fn, num_warmup, schedule, reads, *, algo,
         energy_cur = _F32(vals[0]) + _F32(vals[1])
         start = IntegratorState(z, r, state.potential_energy, state.z_grad)
         if algo == "NUTS":
-            tree = build_tree(vv_update, imm, step_size, draws, start,
+            tree = build_tree(pe_and_grad, imm, step_size, draws, start,
                               energy_cur, reads,
                               max_tree_depth=max_tree_depth)
             accept_prob = _F32(tree.sum_accept_probs

@@ -9,9 +9,12 @@ loops are Python loops: vectors (position, momentum, gradient, checkpoints)
 stay on the device, and the scalars that steer the tree (energies, U-turn
 dot products) come back to the host once per leapfrog, in one read
 (:class:`HostReads` counts them), with a second read per doubling for the
-merged tree's U-turn check.  The tree's scalar state is kept on the host in
-float32, so the ``lax.cond``/``jnp.where`` selections of the JAX package
-become Python ``if``s over references, with the same semantics.
+merged tree's U-turn check.  Between two potential evaluations of a
+subtree everything else is one ``ops.nuts_leaf`` launch, and the merged
+tree's check one ``ops.nuts_turning`` launch.  The tree's scalar state is
+kept on the host in float32, so the ``lax.cond``/``jnp.where`` selections
+of the JAX package become Python ``if``s over references, with the same
+semantics.
 
 Randomness comes from a *draw source* (:class:`GeneratorDraws` by default)
 so that a test can replay another implementation's draws: momentum normals,
@@ -19,7 +22,8 @@ direction bits, and the transition uniforms (and, for the ensemble samplers,
 their ``(C, D)`` momenta and noise and ``(C,)`` uniforms).
 
 The cross-chain helpers at the end serve the ensemble samplers (ChEES,
-MALA/RWM): the pairwise ``chain_sum`` fold, the pooled Welford
+MALA/RWM): the pairwise ``chain_sum`` fold (``kernels/rwm_mala.py``, where
+the MALA/RWM accept step's plain version needs it), the pooled Welford
 accumulators, the chain-batched potential gradient and the ``(C, D)``
 trajectory with merged interior kicks.
 """
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from ...kernels import ops
+from ...kernels.rwm_mala import chain_sum
 
 _F32 = np.float32
 
@@ -329,18 +334,9 @@ def _leaf_idx_to_ckpt_idxs(n: int):
     return idx_max - trailing_ones + 1, idx_max
 
 
-def _turning_dots(inverse_mass_matrix, r_left, r_right, r_sum):
-    """The two dot products of the generalized U-turn criterion
-    (Betancourt) on momentum sums; ``r_left`` may carry a leading batch of
-    checkpoints.  The tree turns where either is <= 0."""
-    r_mid = r_sum - 0.5 * (r_left + r_right)
-    return torch.stack([torch.sum(inverse_mass_matrix * r_left * r_mid, -1),
-                        torch.sum(inverse_mass_matrix * r_right * r_mid, -1)])
-
-
 def _is_turning(inverse_mass_matrix, r_left, r_right, r_sum, reads) -> bool:
-    dots = reads.read(_turning_dots(inverse_mass_matrix, r_left, r_right,
-                                    r_sum))
+    dots = reads.read(ops.nuts_turning(inverse_mass_matrix, r_left, r_right,
+                                       r_sum))
     return dots[0] <= 0 or dots[1] <= 0
 
 
@@ -403,80 +399,68 @@ def _combine_tree(u, current: TreeState, new: TreeState, going_right,
         num_proposals=current.num_proposals + new.num_proposals)
 
 
-def _read_leaf(nxt: IntegratorState, inverse_mass_matrix, ref_energy,
-               max_delta_energy, reads, dots=None):
-    """The leaf tree of a new integrator state.  Its energy and the U-turn
-    ``dots`` (if any) come back in one host read — the one sync of a
-    leapfrog; returns the leaf and the host values of ``dots``."""
-    ke = kinetic_energy(inverse_mass_matrix, nxt.r)
-    parts = [nxt.potential_energy.reshape(1), ke.reshape(1)]
-    if dots is not None:
-        parts.append(dots.reshape(-1))
-    vals = reads.read(torch.cat(parts))
-    leaf = _leaf_tree(nxt, _F32(vals[0]) + _F32(vals[1]), ref_energy,
-                      max_delta_energy)
-    return leaf, vals[2:]
-
-
-def iterative_build_subtree(vv_update, inverse_mass_matrix, step_size,
+def iterative_build_subtree(pe_and_grad, inverse_mass_matrix, step_size,
                             going_right, draws, initial: TreeState, depth,
                             max_depth, ref_energy, max_delta_energy, reads):
     """Paper Algorithm 2: grow a balanced subtree of up to 2**depth leaves
     by running the integrator iteratively, storing only O(max_depth)
     momentum checkpoints for the U-turn checks.  ``step_size`` is already
-    signed for the direction.  Returns the subtree (not yet merged)."""
+    signed for the direction.  Returns the subtree (not yet merged).
+
+    The edge has no leaf to close, so the first leapfrog opens with one
+    ``ops.leapfrog_halfstep``; after each potential evaluation one
+    ``ops.nuts_leaf`` closes that leapfrog, forms the leaf's energy and
+    U-turn dots (read back together) and opens the next leapfrog, which is
+    dropped if the subtree stops there."""
     if going_right:
-        edge = IntegratorState(initial.z_right, initial.r_right,
-                               initial.z_proposal_pe, initial.z_right_grad)
+        z, r, grad = initial.z_right, initial.r_right, initial.z_right_grad
     else:
-        edge = IntegratorState(initial.z_left, initial.r_left,
-                               initial.z_proposal_pe, initial.z_left_grad)
-    nxt = vv_update(step_size, inverse_mass_matrix, edge)
-    tree, _ = _read_leaf(nxt, inverse_mass_matrix, ref_energy,
-                         max_delta_energy, reads)
-    d = nxt.r.shape[0]
-    r_ckpts = nxt.r.new_zeros((max_depth, d))
-    r_sum_ckpts = nxt.r.new_zeros((max_depth, d))
-    r_ckpts[0] = nxt.r
-    r_sum_ckpts[0] = nxt.r
-    num_leaves = 2 ** depth
-    leaf_idx = 1
-    while leaf_idx < num_leaves and not tree.turning and not tree.diverging:
-        u = draws.leaf_uniform()
-        nxt = vv_update(step_size, inverse_mass_matrix, nxt)
-        # r_sum over the leaves of this subtree, through the new leaf
-        r_sum_through = tree.r_sum + nxt.r
-        is_even = leaf_idx % 2 == 0
-        dots = None
-        if is_even:
+        z, r, grad = initial.z_left, initial.r_left, initial.z_left_grad
+    z, r_half = ops.leapfrog_halfstep(z, r, grad, inverse_mass_matrix,
+                                      step_size)
+    d = z.shape[0]
+    # every row an odd leaf reads was written by an earlier even leaf
+    r_ckpts = z.new_empty((max_depth, d))
+    r_sum_ckpts = z.new_empty((max_depth, d))
+    tree, r_sum = None, None
+    for leaf_idx in range(2 ** depth):
+        if tree is not None:
+            if tree.turning or tree.diverging:
+                break
+            u = draws.leaf_uniform()
+        pe, grad = pe_and_grad(z)
+        ckpt_i, idx_min, idx_max = None, 0, -1
+        if leaf_idx % 2 == 0:
             ckpt_i = _bit_count(leaf_idx)
-            r_ckpts[ckpt_i] = nxt.r
-            r_sum_ckpts[ckpt_i] = r_sum_through
         else:
+            # the iterative U-turn check of every balanced subtree ending here
             idx_min, idx_max = _leaf_idx_to_ckpt_idxs(leaf_idx)
-            if idx_min <= idx_max:
-                rc = r_ckpts[idx_min:idx_max + 1]
-                subtree_r_sum = (r_sum_through
-                                 - r_sum_ckpts[idx_min:idx_max + 1] + rc)
-                dots = _turning_dots(inverse_mass_matrix, rc, nxt.r,
-                                     subtree_r_sum)
-        leaf, dot_vals = _read_leaf(nxt, inverse_mass_matrix, ref_energy,
-                                    max_delta_energy, reads, dots)
-        tree = _combine_tree(u, tree, leaf, going_right, biased=False,
-                             r_sum=r_sum_through)
-        # the iterative U-turn check of every balanced subtree ending here
-        if not tree.diverging and any(v <= 0 for v in dot_vals):
-            tree = tree._replace(turning=True)
-        leaf_idx += 1
+        r, r_sum, vals, z_next, r_half = ops.nuts_leaf(
+            r_half, z, grad, pe, inverse_mass_matrix, step_size, r_sum,
+            r_ckpts, r_sum_ckpts, ckpt_i, idx_min, idx_max)
+        vals = reads.read(vals)  # the leapfrog's one sync
+        leaf = _leaf_tree(IntegratorState(z, r, pe, grad),
+                          _F32(vals[0]) + _F32(vals[1]), ref_energy,
+                          max_delta_energy)
+        if tree is None:
+            tree = leaf
+        else:
+            tree = _combine_tree(u, tree, leaf, going_right, biased=False,
+                                 r_sum=r_sum)
+            if not tree.diverging and any(v <= 0 for v in vals[2:]):
+                tree = tree._replace(turning=True)
+        z = z_next
     return tree
 
 
-def build_tree(vv_update, inverse_mass_matrix, step_size, draws,
+def build_tree(pe_and_grad, inverse_mass_matrix, step_size, draws,
                initial_state: IntegratorState, energy0, reads,
                max_tree_depth=10, max_delta_energy=1000.0):
     """One full NUTS trajectory: repeated doubling with iterative subtrees.
-    ``energy0`` is the host value of the initial Hamiltonian; ``step_size``
-    a device scalar, negated once for the leftward direction."""
+    ``pe_and_grad`` is the potential's value and gradient (``z -> (pe,
+    grad)``); ``energy0`` the host value of the initial Hamiltonian;
+    ``step_size`` a device scalar, negated once for the leftward
+    direction."""
     tree = _leaf_tree(initial_state, energy0, energy0, max_delta_energy)
     # the root is not a proposal; don't let it bias the accept-prob statistic
     tree = tree._replace(sum_accept_probs=_F32(0), num_proposals=0)
@@ -485,7 +469,7 @@ def build_tree(vv_update, inverse_mass_matrix, step_size, draws,
             and not tree.diverging:
         going_right = draws.direction()
         subtree = iterative_build_subtree(
-            vv_update, inverse_mass_matrix, signed[going_right], going_right,
+            pe_and_grad, inverse_mass_matrix, signed[going_right], going_right,
             draws, tree, tree.depth, max_tree_depth, energy0,
             max_delta_energy, reads)
         u = draws.merge_uniform()
@@ -501,20 +485,6 @@ def build_tree(vv_update, inverse_mass_matrix, step_size, draws,
 # ---------------------------------------------------------------------------
 # cross-chain (ensemble) helpers
 # ---------------------------------------------------------------------------
-
-def chain_sum(x):
-    """Sum over the leading (chain) axis by the JAX package's fixed pairwise
-    fold (halves added, an odd row carried), not ``torch.sum``: the pooled
-    statistics then have the reference's association exactly."""
-    while x.shape[0] > 1:
-        n = x.shape[0]
-        half = n // 2
-        folded = x[:half] + x[half:2 * half]
-        if n % 2:
-            folded = torch.cat([folded, x[2 * half:]], 0)
-        x = folded
-    return x[0]
-
 
 def chain_mean(x):
     return chain_sum(x) / x.shape[0]

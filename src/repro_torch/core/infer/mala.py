@@ -16,7 +16,9 @@ iteration needs anyway.  RWM drops the drift term (and the kernel's
 gradient operand); its proposal is symmetric, so the correction is the
 potential difference.  Targets 0.574 (MALA) and 0.234 (RWM), after Roberts
 & Rosenthal; a non-finite proposal potential is a divergence, always
-rejected.
+rejected.  After the potential at the proposal, one ``ops.mala_accept``
+launch does the whole accept step: the correction, the test, the selection
+and the iteration's accept statistics.
 
 As in :mod:`~repro_torch.core.infer.ensemble`, the step size and dual
 averaging live on the host in float32: a warmup iteration reads the
@@ -25,14 +27,13 @@ nothing.
 """
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ...kernels import ops
-from .ensemble import harmonic_mean_accept, initial_positions, refresh_mass
+from .ensemble import initial_positions, refresh_mass
 from .hmc import counting, flat_model_ingredients, resolve_device
 from .hmc_util import (
     DAState,
@@ -116,11 +117,10 @@ def _make_sample_fn(potential_fn, num_warmup, schedule, algo, reads, *,
     use_grad = algo == "MALA"
 
     def adapt_update(adapt: MRWAdaptState, t, z_next,
-                     accept_prob) -> MRWAdaptState:
+                     hmean) -> MRWAdaptState:
         da, step_size = adapt.da_state, adapt.step_size
         if adapt_step_size:  # the one host read of a warmup iteration
-            hmean = reads.read(harmonic_mean_accept(accept_prob)
-                               .reshape(1))[0]
+            hmean = reads.read(hmean.reshape(1))[0]
             da = dual_averaging_update(
                 da, _F32(target_accept_prob) - _F32(hmean))
             step_size = _F32(np.exp(da.x))
@@ -144,34 +144,23 @@ def _make_sample_fn(potential_fn, num_warmup, schedule, algo, reads, *,
         z_new = ops.mala_step(state.z, state.z_grad if use_grad else None,
                               noise, minv, float(eps))
         pe_new, grad_new = pe_and_grad(z_new)
-        log_accept = state.potential_energy - pe_new
-        if use_grad:
-            # xi_rev = (z - z' + eps * minv * grad') / sqrt(2 * eps * minv)
-            logq_fwd = -0.5 * torch.sum(noise * noise, -1)
-            diff = state.z - z_new + float(eps) * minv * grad_new
-            logq_rev = float(_F32(-0.25) / eps) \
-                * torch.sum(diff * diff / minv, -1)
-            log_accept = log_accept + logq_rev - logq_fwd
-        diverging = ~torch.isfinite(pe_new)
-        log_accept = torch.where(diverging, -math.inf, log_accept)
-        accept_prob = torch.clamp(torch.exp(log_accept), max=1.0)
         u = to_device(draws.accept_uniforms(num_chains, state.z.dtype),
                       state.z.device)
-        accept = u < accept_prob
-        acc2 = accept[:, None]
-        z = torch.where(acc2, z_new, state.z)
-        pe = torch.where(accept, pe_new, state.potential_energy)
-        grad = torch.where(acc2, grad_new, state.z_grad) if use_grad \
-            else state.z_grad
         t = state.i
-        if t < num_warmup:
-            new_adapt = adapt_update(adapt, t, z, accept_prob)
-            mean_ap = accept_prob
-        else:
-            new_adapt = adapt
-            n_post = max(t + 1 - num_warmup, 1)
-            mean_ap = state.mean_accept_prob \
-                + (accept_prob - state.mean_accept_prob) / n_post
+        # 0 in warmup (then the harmonic-mean accept prob comes back too),
+        # else the post-warmup count of the running mean
+        n_post = max(t + 1 - num_warmup, 0)
+        z, pe, grad, accept_prob, diverging, mean_ap, hmean = \
+            ops.mala_accept(
+                state.z, state.potential_energy,
+                state.z_grad if use_grad else None, z_new, pe_new,
+                grad_new if use_grad else None, noise if use_grad else None,
+                minv, u, float(eps), float(_F32(-0.25) / eps),
+                state.mean_accept_prob, n_post)
+        if not use_grad:
+            grad = state.z_grad
+        new_adapt = adapt_update(adapt, t, z, hmean) if n_post == 0 \
+            else adapt
         return MRWState(t + 1, z, pe, grad, accept_prob, mean_ap, diverging,
                         new_adapt)
 

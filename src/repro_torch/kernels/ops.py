@@ -27,9 +27,13 @@ and its plain version; of the three ref-only rows, ``decode_attention`` and
 waits for the MLA slice (ROADMAP.md, Queue 1).
 
 ``FUSED`` holds the port's ops that run in one launch what the JAX package
-loops over a ported op: ``enum_chain``, the T-1 ``enum_contract`` steps of
-``markov``'s ``lax.scan``, with its backward ``enum_chain_bwd`` in
-``BACKWARD``.  Their launches are counted with the rest.
+does around or in a loop over a ported op: ``enum_chain``, the T-1
+``enum_contract`` steps of ``markov``'s ``lax.scan``, with its backward
+``enum_chain_bwd`` in ``BACKWARD``; ``nuts_leaf``, a NUTS leaf's closing
+kick, energy, momentum sum, checkpoint or U-turn dots and the next leaf's
+``leapfrog_halfstep``, and ``nuts_turning``, a merged tree's U-turn dots;
+``mala_accept``, the MALA/RWM accept step after ``mala_step``'s proposal.
+They are routed like the rest and their launches are counted with them.
 """
 from __future__ import annotations
 
@@ -130,11 +134,23 @@ BACKWARD = {spec.name: spec for spec in (
     OpSpec("enum_chain_bwd", _enum_contract.enum_chain_bwd_cuda,
            _enum_contract.enum_chain_bwd_ref, "cuda", None, False, 1e-6),
 )}
-# fused loops of a ported op; ``replaces`` is the JAX package's loop
+# fused work around or over a ported op; ``replaces`` is the JAX package's
+# code it runs (``nuts_leaf``: row 1's TPU kernel, which it runs fused)
+_I = "src/repro/core/infer/"
 FUSED = {spec.name: spec for spec in (
     OpSpec("enum_chain", _enum_contract.enum_chain_cuda,
-           _enum_contract.enum_chain_ref, "cuda",
-           "src/repro/core/infer/enum.py:600", True, 0.0),
+           _enum_contract.enum_chain_ref, "cuda", _I + "enum.py:600", True,
+           0.0),
+    # vectors bit-identical; ke and the dots within 1e-6 relative
+    OpSpec("nuts_leaf", leapfrog.nuts_leaf_cuda, leapfrog.nuts_leaf_ref,
+           "cuda", _K + "leapfrog.py:40", False, 1e-6),
+    OpSpec("nuts_turning", leapfrog.nuts_turning_cuda,
+           leapfrog.nuts_turning_ref, "cuda", _I + "hmc_util.py:494", False,
+           1e-6),
+    # selections, the running mean and the harmonic mean bit-identical for
+    # the same accept_prob; accept_prob within 1e-6 relative
+    OpSpec("mala_accept", rwm_mala.mala_accept_cuda, rwm_mala.mala_accept_ref,
+           "cuda", _I + "mala.py:184", False, 1e-6),
 )}
 
 
@@ -146,7 +162,7 @@ def _counted():
 
 def _route(name, tensor):
     """The plain version for a tensor on the CPU, else the kernel."""
-    spec = SPECS[name] if name in SPECS else BACKWARD[name]
+    spec = SPECS.get(name) or BACKWARD.get(name) or FUSED[name]
     return spec.ref if tensor.device.type == "cpu" else spec.kernel
 
 
@@ -225,6 +241,25 @@ def leapfrog_halfstep_batch(z, r, grad, m_inv, eps, kick=0.5):
     return _route("leapfrog_halfstep_batch", z)(z, r, grad, m_inv, eps, kick)
 
 
+def nuts_leaf(r_half, z, grad, pe, m_inv, eps, r_sum, r_ckpts, r_sum_ckpts,
+              ckpt_i=None, idx_min=0, idx_max=-1):
+    """One NUTS leaf between two potential evaluations: close the leapfrog
+    at ``z`` (``grad``, ``pe`` the potential's there), its kinetic energy,
+    the subtree's momentum sum through it, checkpoint row ``ckpt_i`` (an
+    even leaf) or the U-turn dots against rows ``idx_min..idx_max`` (an odd
+    one), and open the next leapfrog -> ``(r, r_sum_through, [pe, ke,
+    dots...], z_next, r_half_next)``; ``eps`` a device scalar."""
+    return _route("nuts_leaf", z)(r_half, z, grad, pe, m_inv, eps, r_sum,
+                                  r_ckpts, r_sum_ckpts, ckpt_i, idx_min,
+                                  idx_max)
+
+
+def nuts_turning(m_inv, r_left, r_right, r_sum):
+    """The two generalized U-turn dots of a tree -> (2,); it turns where
+    either is <= 0."""
+    return _route("nuts_turning", r_left)(m_inv, r_left, r_right, r_sum)
+
+
 def glm_potential_grad(x, y, w, offset=None, scale=None,
                        family="bernoulli_logit"):
     """Fused GLM negative log-likelihood + gradient wrt ``w`` in one pass
@@ -239,6 +274,18 @@ def mala_step(z, grad, noise, m_inv, eps):
     * grad + sqrt(2 * eps * m_inv) * noise``; ``grad=None`` gives the
     symmetric random-walk proposal; ``eps`` a host number."""
     return _route("mala_step", z)(z, grad, noise, m_inv, eps)
+
+
+def mala_accept(z, pe, grad, z_new, pe_new, grad_new, noise, m_inv, u, eps,
+                coef, mean_accept_prob, n_post):
+    """The Metropolis-Hastings step of every chain after a ``mala_step``
+    proposal (MALA's ``grad``/``grad_new``/``noise``, or all ``None`` for
+    RWM) -> ``(z, pe, grad, accept_prob, diverging, mean_accept_prob,
+    hmean)``; ``n_post`` 0 in warmup (``hmean`` the harmonic-mean accept
+    probability), else the post-warmup count of the running mean."""
+    return _route("mala_accept", z)(z, pe, grad, z_new, pe_new, grad_new,
+                                    noise, m_inv, u, eps, coef,
+                                    mean_accept_prob, n_post)
 
 
 def enum_contract(log_alpha, log_mat):

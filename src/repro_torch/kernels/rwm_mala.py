@@ -7,18 +7,26 @@ with one shared ``(D,)`` diagonal preconditioner ``m_inv``, a scalar step
 drops the drift term (the symmetric random-walk proposal); the gradient
 operand is then left out, not zero-filled.
 
-``ops.mala_step`` takes :func:`mala_step_ref` for tensors on the CPU and
-:func:`mala_step_cuda` (``csrc/mala_step.cu``) for tensors on a card; it
-never falls back from one to the other.
+After the potential at the proposal, ``mala_accept`` runs the
+Metropolis-Hastings step of every chain in one launch: MALA's proposal
+densities, the accept test, the selection of ``z``, ``pe`` (and MALA's
+``grad``), and the iteration's bookkeeping (the running mean accept
+probability after warmup, the chains' harmonic-mean accept probability in
+warmup).
+
+``ops.mala_step`` and ``ops.mala_accept`` take the plain versions for
+tensors on the CPU and the CUDA kernels (``csrc/mala_step.cu``) for tensors
+on a card; they never fall back from one to the other.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
-from .leapfrog import check_ensemble, host_scalar
+from .leapfrog import check_ensemble, fold_ticket, host_scalar
 
 _DTYPES = {torch.float32: "mala_step_f32", torch.float64: "mala_step_f64"}
 
@@ -74,3 +82,144 @@ def mala_step_cuda(z, grad, noise, m_inv, eps):
 mala_step_cuda.launches = 0
 # of those, the random walk's (the variant that reads no gradient)
 mala_step_cuda.launches_without_grad = 0
+
+
+def chain_sum(x):
+    """Sum over the leading (chain) axis by the JAX package's fixed pairwise
+    fold (halves added, an odd row carried), not ``torch.sum``: the pooled
+    statistics then have the reference's association exactly."""
+    while x.shape[0] > 1:
+        n = x.shape[0]
+        half = n // 2
+        folded = x[:half] + x[half:2 * half]
+        if n % 2:
+            folded = torch.cat([folded, x[2 * half:]], 0)
+        x = folded
+    return x[0]
+
+
+def harmonic_mean_accept(accept_prob):
+    """The chains' harmonic-mean accept probability (the worst chains
+    dominate), on the device."""
+    return 1.0 / (chain_sum(1.0 / torch.clamp(accept_prob, min=1e-10))
+                  / accept_prob.shape[0])
+
+
+def mala_accept_ref(z, pe, grad, z_new, pe_new, grad_new, noise, m_inv, u,
+                    eps, coef, mean_accept_prob, n_post):
+    """The plain version of the accept step over a (C, D) ensemble.
+
+    ``grad``/``grad_new``/``noise`` are MALA's (all ``None`` for RWM: no
+    proposal densities, the gradient left to the caller); ``eps`` and
+    ``coef`` (``float32(-0.25) / eps``) are host numbers; ``u`` the (C,)
+    accept uniforms.  ``n_post > 0`` is the post-warmup draw count for the
+    running mean; ``n_post == 0`` is warmup.  Returns ``(z, pe, grad,
+    accept_prob, diverging, mean_accept_prob, hmean)``: in warmup the mean
+    is ``accept_prob`` itself and ``hmean`` the harmonic mean, after it
+    ``hmean`` is ``None``."""
+    log_accept = pe - pe_new
+    if grad_new is not None:
+        # xi_rev = (z - z' + eps * minv * grad') / sqrt(2 * eps * minv)
+        logq_fwd = -0.5 * torch.sum(noise * noise, -1)
+        diff = z - z_new + eps * m_inv * grad_new
+        logq_rev = coef * torch.sum(diff * diff / m_inv, -1)
+        log_accept = log_accept + logq_rev - logq_fwd
+    diverging = ~torch.isfinite(pe_new)
+    log_accept = torch.where(diverging, -math.inf, log_accept)
+    accept_prob = torch.clamp(torch.exp(log_accept), max=1.0)
+    accept = u < accept_prob
+    acc2 = accept[:, None]
+    z = torch.where(acc2, z_new, z)
+    pe = torch.where(accept, pe_new, pe)
+    if grad is not None:
+        grad = torch.where(acc2, grad_new, grad)
+    if n_post > 0:
+        mean_ap = mean_accept_prob \
+            + (accept_prob - mean_accept_prob) / n_post
+        return z, pe, grad, accept_prob, diverging, mean_ap, None
+    return (z, pe, grad, accept_prob, diverging, accept_prob,
+            harmonic_mean_accept(accept_prob))
+
+
+_ACCEPT = {torch.float32: "mala_accept_f32", torch.float64: "mala_accept_f64"}
+
+
+def _accept_lib():
+    lib = _build.load("mala_step")
+    if lib.mala_accept_f32.argtypes is None:
+        for fn in (lib.mala_accept_f32, lib.mala_accept_f64):
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_double] * 2 \
+                + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 9
+            fn.restype = ctypes.c_int
+        lib.mala_accept_max_chains.restype = ctypes.c_int
+    return lib
+
+
+def mala_accept_cuda(z, pe, grad, z_new, pe_new, grad_new, noise, m_inv, u,
+                     eps, coef, mean_accept_prob, n_post):
+    """Launch ``mala_accept`` (``csrc/mala_step.cu``) once on the current
+    stream: one CTA per chain; the arguments and results are
+    :func:`mala_accept_ref`'s.  Selected rows, the running mean and the
+    harmonic mean are bit-identical to the plain version's on the card for
+    the same ``accept_prob``; MALA's two sums are taken in another order.
+    Raises on a wrong device, dtype, shape or layout, on more chains than
+    the kernel folds, and on a failed build or launch."""
+    name = "mala_accept_cuda"
+    has_grad = grad is not None
+    if (grad_new is not None) != has_grad or (noise is not None) != has_grad:
+        raise ValueError(f"{name}: grad, grad_new and noise are given "
+                         "together (MALA) or not at all (RWM)")
+    operands = {"z_new": z_new, "m_inv": m_inv}
+    if has_grad:
+        operands.update(grad=grad, grad_new=grad_new, noise=noise)
+    check_ensemble(name, _ACCEPT, z, **operands)
+    rows, cols = z.shape
+    n_post = int(n_post)
+    per_chain = {"pe": pe, "pe_new": pe_new, "u": u}
+    if n_post > 0:
+        per_chain["mean_accept_prob"] = mean_accept_prob
+    elif n_post < 0:
+        raise ValueError(f"{name}: n_post must be >= 0, got {n_post}")
+    for key, t in per_chain.items():
+        if (t.device != z.device or t.dtype != z.dtype
+                or tuple(t.shape) != (rows,) or not t.is_contiguous()):
+            raise ValueError(f"{name}: {key} is {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}; expected contiguous {z.dtype} "
+                             f"({rows},) on {z.device}")
+    lib = _accept_lib()
+    if rows > lib.mala_accept_max_chains():
+        raise ValueError(f"{name}: {rows} chains, at most "
+                         f"{lib.mala_accept_max_chains()}")
+    eps = host_scalar(eps, "eps", name)
+    coef = host_scalar(coef, "coef", name)
+    z_out = torch.empty_like(z)
+    pe_out, accept_prob = torch.empty_like(pe), torch.empty_like(pe)
+    g_out = torch.empty_like(z) if has_grad else None
+    diverging = torch.empty(rows, dtype=torch.bool, device=z.device)
+    mean_out = torch.empty_like(pe) if n_post > 0 else None
+    hmean = None if n_post > 0 else torch.empty((), dtype=z.dtype,
+                                                device=z.device)
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    ticket = None if n_post > 0 else fold_ticket(z.device, stream)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(z.device):
+        rc = getattr(lib, _ACCEPT[z.dtype])(
+            z.data_ptr(), pe.data_ptr(), ptr(grad), z_new.data_ptr(),
+            pe_new.data_ptr(), ptr(grad_new), ptr(noise), m_inv.data_ptr(),
+            u.data_ptr(), ptr(mean_accept_prob if n_post > 0 else None), eps,
+            coef, n_post, rows, cols, z_out.data_ptr(), pe_out.data_ptr(),
+            ptr(g_out), accept_prob.data_ptr(), diverging.data_ptr(),
+            ptr(mean_out), ptr(hmean), ptr(ticket), stream)
+    if rc != 0:
+        raise RuntimeError(f"mala_accept kernel launch failed: cudaError "
+                           f"{rc}")
+    mala_accept_cuda.launches += 1
+    if n_post > 0:
+        return z_out, pe_out, g_out, accept_prob, diverging, mean_out, None
+    return z_out, pe_out, g_out, accept_prob, diverging, accept_prob, hmean
+
+
+mala_accept_cuda.launches = 0

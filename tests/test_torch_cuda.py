@@ -6,6 +6,8 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (ENS_SHAPES, NUTS_LEAVES, NUTS_SIZES, accept_operands,
+                        accept_prob_tolerance, leaf_scales, same_bits)
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels.enum_contract import (EnumContract,
@@ -22,11 +24,15 @@ from repro_torch.kernels.glm_potential import (glm_potential_grad_cuda,
 from repro_torch.kernels.leapfrog import (leapfrog_halfstep_batch_cuda,
                                           leapfrog_halfstep_batch_ref,
                                           leapfrog_halfstep_cuda,
-                                          leapfrog_halfstep_ref)
+                                          leapfrog_halfstep_ref,
+                                          nuts_leaf_cuda, nuts_leaf_ref,
+                                          nuts_turning_cuda, nuts_turning_ref)
 from repro_torch.kernels import softmax_xent as xent
 from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
                                          rmsnorm_cuda, rmsnorm_ref)
-from repro_torch.kernels.rwm_mala import mala_step_cuda, mala_step_ref
+from repro_torch.kernels.rwm_mala import (harmonic_mean_accept,
+                                         mala_accept_cuda, mala_accept_ref,
+                                         mala_step_cuda, mala_step_ref)
 from repro_torch.kernels import ssd_scan as ssd
 
 TOL = {spec.name: spec.tol for spec in ops.OP_TABLE}
@@ -360,6 +366,188 @@ def test_ensemble_kernels_match_plain_on_card(dtype):
                                      torch.tensor(0.1, device=dev))
     with pytest.raises(ValueError, match="kick"):
         leapfrog_halfstep_batch_cuda(z, r, g, m_inv, 0.1, 0.25)
+
+
+def test_fused_step_wrappers_refuse_cpu_tensors():
+    z, ck = torch.zeros(4), torch.zeros(3, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        nuts_leaf_cuda(z, z, z, torch.zeros(()), z, 0.1, None, ck, ck, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        nuts_turning_cuda(z, z, z, z)
+    zz, c = torch.zeros(2, 4), torch.zeros(2)
+    for grad in (zz, None):
+        with pytest.raises(ValueError, match="CUDA"):
+            mala_accept_cuda(zz, c, grad, zz, c, grad, grad, torch.ones(4),
+                             c, 0.1, -2.5, c, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nuts_leaf_kernels_match_plain_on_card(dtype):
+    """nuts_leaf and nuts_turning against their plain versions on the card:
+    vectors and checkpoint rows bit-identical, pe copied, ke and the dots
+    within 1e-6 of their terms' magnitudes, repeated calls bit-identical;
+    one launch a call."""
+    dev = _need_card()
+    ops.reset_launch_counts()
+    calls = 0
+    for d in NUTS_SIZES:
+        gen = torch.Generator().manual_seed(d)
+
+        def rand(*shape, scale=1.0):
+            return (scale * torch.randn(*shape, generator=gen,
+                                        dtype=dtype)).to(dev)
+
+        r_half, z, g, r_sum = (rand(d) for _ in range(4))
+        m = (torch.rand(d, generator=gen, dtype=dtype) + 0.5).to(dev)
+        ck, sck = rand(8, d), rand(8, d, scale=2.0)
+        pe = torch.tensor(1.75, dtype=dtype, device=dev)
+        for eps_value in (0.0123, -0.0123):
+            eps = torch.tensor(eps_value, dtype=dtype, device=dev)
+            for has_sum, ckpt_i, rows in NUTS_LEAVES:
+                args = (r_half, z, g, pe, m, eps,
+                        r_sum if has_sum else None)
+                idx = rows or (0, -1)
+                ck_k, sck_k, ck_p, sck_p = (t.clone() for t in
+                                            (ck, sck, ck, sck))
+                got = nuts_leaf_cuda(*args, ck_k, sck_k, ckpt_i, *idx)
+                want = nuts_leaf_ref(*args, ck_p, sck_p, ckpt_i, *idx)
+                again = nuts_leaf_cuda(*args, ck.clone(), sck.clone(),
+                                       ckpt_i, *idx)
+                calls += 2
+                torch.cuda.synchronize()
+                for i in (0, 1, 3, 4):
+                    assert same_bits(got[i], want[i]), (d, ckpt_i, rows, i)
+                    assert same_bits(again[i], got[i])
+                assert same_bits(ck_k, ck_p) and same_bits(sck_k, sck_p)
+                assert same_bits(got[2], again[2])
+                assert got[2].shape == want[2].shape
+                assert float(got[2][0]) == float(want[2][0])
+                scale = leaf_scales(m, want, ck, sck, rows)
+                err = (got[2][1:].double() - want[2][1:].double()).abs().cpu()
+                assert bool((err <= 1e-6 * scale).all()), (d, rows, err)
+        r_left, r_right, total = rand(d), rand(d), rand(d, scale=3.0)
+        got = nuts_turning_cuda(m, r_left, r_right, total)
+        want = nuts_turning_ref(m, r_left, r_right, total)
+        mid = total - 0.5 * (r_left + r_right)
+        scale = torch.stack([(m * r_left * mid).abs().sum(),
+                             (m * r_right * mid).abs().sum()]).double()
+        assert same_bits(nuts_turning_cuda(m, r_left, r_right, total), got)
+        assert bool(((got.double() - want.double()).abs()
+                     <= 1e-6 * scale).all())
+    counts = ops.launch_counts()
+    assert counts["nuts_leaf"] == calls
+    assert counts["nuts_turning"] == 2 * len(NUTS_SIZES)
+
+
+@pytest.mark.cuda
+def test_nuts_leaf_wrappers_refuse_bad_operands_on_card():
+    dev = _need_card()
+    z, ck = torch.zeros(8, device=dev), torch.zeros(4, 8, device=dev)
+    pe = torch.zeros((), device=dev)
+    with pytest.raises(TypeError, match="float32/float64"):
+        nuts_leaf_cuda(z.half(), z.half(), z.half(), pe, z.half(), 0.1, None,
+                       ck.half(), ck.half(), 0)
+    with pytest.raises(ValueError, match="grad"):
+        nuts_leaf_cuda(z, z, z[:7], pe, z, 0.1, None, ck, ck, 0)
+    with pytest.raises(ValueError, match="r_ckpts"):
+        nuts_leaf_cuda(z, z, z, pe, z, 0.1, None, ck[:, :7], ck, 0)
+    with pytest.raises(ValueError, match="ckpt_i"):
+        nuts_leaf_cuda(z, z, z, pe, z, 0.1, None, ck, ck, 4)
+    with pytest.raises(ValueError, match="rows"):
+        nuts_leaf_cuda(z, z, z, pe, z, 0.1, z, ck, ck, None, 2, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        nuts_leaf_cuda(z, z, torch.zeros(8, 2, device=dev)[:, 0], pe, z, 0.1,
+                       None, ck, ck, 0)
+    with pytest.raises(ValueError, match="r_right"):
+        nuts_turning_cuda(z, z, z.double(), z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mala_accept_kernel_matches_plain_on_card(dtype):
+    """mala_accept against its plain version at ENS_SHAPES, MALA
+    and RWM, in warmup and after, proposals made as the sampler makes them
+    (chip_smoke.accept_operands: one chain's proposal potential inf, one
+    NaN): the divergences and accept choices equal, accept_prob within what
+    the sums' 1e-6 allows; the selections, the running mean and the
+    harmonic mean bit-identical to the plain version's for the kernel's
+    accept_prob; repeated calls bit-identical; one launch a call."""
+    dev = _need_card()
+    ops.reset_launch_counts()
+    eps = 0.0071
+    coef = float(np.float32(-0.25) / np.float32(eps))
+    calls, spread = 0, []
+    for seed, (c, d) in enumerate(ENS_SHAPES):
+        for algo in ("MALA", "RWM"):
+            base, mean = accept_operands(c, d, dtype, seed, dev,
+                                                    algo, eps)
+            z, pe, grad, z_new, pe_new, grad_new, noise, m, u = base
+            tol = accept_prob_tolerance(base, eps, coef)
+            for n_post in (0, 7):
+                args = base + (eps, coef, mean, n_post)
+                got = mala_accept_cuda(*args)
+                again = mala_accept_cuda(*args)
+                want = mala_accept_ref(*args)
+                calls += 2
+                torch.cuda.synchronize()
+                ap = got[3]
+                assert torch.equal(got[4], want[4])
+                nan = ap.isnan()
+                assert torch.equal(nan, want[3].isnan())
+                err = (ap - want[3]).abs().double()[~nan]
+                assert bool((err <= tol[~nan] * torch.maximum(
+                    ap, want[3]).double()[~nan]).all())
+                spread += ap[~nan].tolist()
+                # the plain selection from the kernel's accept_prob
+                acc = u < ap
+                assert torch.equal(acc, u < want[3])
+                assert same_bits(got[0], torch.where(acc[:, None], z_new, z))
+                assert same_bits(got[1], torch.where(acc, pe_new, pe))
+                if algo == "MALA":
+                    assert same_bits(got[2], torch.where(
+                        acc[:, None], grad_new, grad))
+                else:
+                    assert got[2] is None
+                if n_post:
+                    assert same_bits(got[5], mean + (ap - mean) / n_post)
+                    assert got[6] is None
+                else:
+                    assert got[5] is ap
+                    assert same_bits(got[6], harmonic_mean_accept(ap))
+                for a, b in zip(got, again):
+                    if isinstance(a, torch.Tensor) and a.dtype != torch.bool:
+                        assert same_bits(a, b)
+    assert ops.launch_counts()["mala_accept"] == calls
+    # the proposals test the accept step, not only its saturation at 1
+    assert 0.05 < float(np.mean(np.array(spread) < 1.0)) < 0.95
+
+
+@pytest.mark.cuda
+def test_mala_accept_wrapper_refuses_bad_operands_on_card():
+    dev = _need_card()
+    z, c = torch.zeros(4, 6, device=dev), torch.zeros(4, device=dev)
+    m = torch.ones(6, device=dev)
+    with pytest.raises(TypeError, match="float32/float64"):
+        mala_accept_cuda(z.half(), c.half(), None, z.half(), c.half(), None,
+                         None, m.half(), c.half(), 0.1, -2.5, c.half(), 0)
+    with pytest.raises(ValueError, match="together"):
+        mala_accept_cuda(z, c, z, z, c, None, None, m, c, 0.1, -2.5, c, 0)
+    with pytest.raises(ValueError, match="pe_new"):
+        mala_accept_cuda(z, c, None, z, c[:3], None, None, m, c, 0.1, -2.5,
+                         c, 0)
+    with pytest.raises(ValueError, match="m_inv"):
+        mala_accept_cuda(z, c, None, z, c, None, None, m[:5], c, 0.1, -2.5,
+                         c, 0)
+    with pytest.raises(ValueError, match="host number"):
+        mala_accept_cuda(z, c, None, z, c, None, None, m, c,
+                         torch.tensor(0.1, device=dev), -2.5, c, 0)
+    with pytest.raises(ValueError, match="chains"):
+        big = torch.zeros(5000, 6, device=dev)
+        mala_accept_cuda(big, big[:, 0].contiguous(), None, big,
+                         big[:, 0].contiguous(), None, None, m,
+                         big[:, 0].contiguous(), 0.1, -2.5,
+                         big[:, 0].contiguous(), 0)
 
 
 def test_lm_kernel_wrappers_refuse_cpu_tensors():
