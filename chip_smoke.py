@@ -26,7 +26,13 @@ result line if any fails):
    1,000,003, every leaf kind, vectors bit-identical and sums within 1e-6
    of their terms; ``mala_accept`` at the ensembles' shapes, MALA and RWM,
    in warmup and after, with divergent chains, the selections, running
-   mean and harmonic mean bit-identical for the kernel's accept_prob).
+   mean and harmonic mean bit-identical for the kernel's accept_prob; the
+   batch leapfrog with its step size read from device memory bit-identical
+   to the by-value form, ``chees_open`` bit-identical, and ``chees_accept``
+   after warmup and in warmup, with the gradient, the Welford fold and an
+   all-divergent ensemble, its sums within 1e-6 of their terms and the
+   rest bit-identical for the kernel's accept_prob; then ChEES's graphed
+   trajectory bit-identical to the eager one for 1 and 5 steps).
    Then drive the main paths through the user's entry points,
    each with every kernel launch counter set to 0 just before and read just
    after: ``MCMC(NUTS(logreg_model_glm), 100, 100).run(...)`` on 581,012 x
@@ -40,7 +46,11 @@ result line if any fails):
    ``nuts_leaf`` launch a leapfrog of its trees and ``leapfrog_halfstep``
    opening every subtree; then the ensemble samplers on the same logreg
    data: ``MCMC(ChEES(logreg_model_glm), 300, 1500, num_chains=8)``
-   (lockstep trajectories through ``leapfrog_halfstep_batch``),
+   (lockstep trajectories replayed from two CUDA graphs, ``chees_open``
+   and ``chees_accept`` once an iteration, ``leapfrog_halfstep_batch``
+   once an interior step, and over 20 profiled transitions, in a fresh
+   process, the profiler's count of each kernel equal to its launch
+   counter's increase),
    ``MCMC(MALA(logreg_model_glm), 500, 500, num_chains=16)`` and ``RWM``
    at the same setting warm-started at MALA's posterior mean (one
    ``mala_step`` and one ``mala_accept`` launch per iteration, RWM's
@@ -1141,7 +1151,8 @@ def ensemble_kernel_checks(dev):
     ``ENS_SHAPES`` in float32 and float64, within OP_TABLE's 1e-6 (both
     kernels round every operation as the plain version does, so the error
     is expected to be 0); timings at the main shapes and the large one;
-    then the accept step after the proposal (``mala_accept_checks``)."""
+    then the accept step after the proposal (``mala_accept_checks``) and
+    ChEES's opening and close (``chees_checks``)."""
     from repro_torch.kernels.leapfrog import (leapfrog_halfstep_batch_cuda,
                                               leapfrog_halfstep_batch_ref)
     from repro_torch.kernels.ops import SPECS
@@ -1155,11 +1166,13 @@ def ensemble_kernel_checks(dev):
                                           dtype=dtype).to(dev)
                               for _ in range(4))
             m_inv = (torch.rand(d, generator=gen, dtype=dtype) + 0.5).to(dev)
+            # the step size as the graphed trajectory holds it, on the card
+            eps_dev = torch.full((1,), eps, dtype=dtype, device=dev)
             cases = [("leapfrog_halfstep_batch", f"kick={kick}",
                       lambda k=kick: leapfrog_halfstep_batch_cuda(
-                          z, r, g, m_inv, eps, k),
+                          z, r, g, m_inv, eps_dev, k),
                       lambda k=kick: leapfrog_halfstep_batch_ref(
-                          z, r, g, m_inv, eps, k))
+                          z, r, g, m_inv, eps_dev, k))
                      for kick in (0.5, 1.0)]
             cases += [("mala_step", variant,
                        lambda gr=grad: (mala_step_cuda(z, gr, noise, m_inv,
@@ -1192,7 +1205,315 @@ def ensemble_kernel_checks(dev):
     results += accept
     for (variant, phase), entry in accept_timing.items():
         timing[("mala_accept", f"{variant}, {phase}", ENS_MRW)] = entry
+    chees, chees_timing = chees_checks(dev)
+    return results + chees, {**timing, **chees_timing}
+
+
+# chees_accept's modes: (name, n_post, the gradient, the Welford fold)
+CHEES_MODES = (("sampling", 7, False, False), ("warmup", 0, False, False),
+               ("warmup, gradient", 0, True, False),
+               ("warmup, gradient, fold", 0, True, True))
+CHEES_H = 0.37  # the jitter factor h of the ChEES gradient's checks
+CHEES_EPS = 0.0123
+
+
+def chees_operands(c, d, dtype, seed, dev, eps):
+    """A ChEES transition's close as the sampler makes it: the state (z0,
+    pe0, g0), the standard-normal draw n, the trajectory's end (z1, r, g1)
+    after a plain opening and one interior step, and potentials pe1 that
+    put delta = energy_new - energy_cur near N(0, 0.5^2), so accept_prob
+    spreads over (0, 1]; chain 0's pe1 inf and chain 1's NaN where C >= 3.
+    Returns chees_accept's first ten arguments (eps a device scalar), the
+    uniforms u, a running mean and a Welford accumulator (mean, m2)."""
+    from repro_torch.kernels.leapfrog import (chees_open_ref,
+                                              leapfrog_halfstep_batch_ref)
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, dtype=dtype)
+
+    z0, g0, n = rand(c, d), rand(c, d), rand(c, d)
+    m = torch.rand(d, generator=gen, dtype=dtype) + 0.5
+    z1, r = chees_open_ref(z0, n, g0, m, eps)
+    g1 = g0 + 0.2 * rand(c, d)
+    z1, r = leapfrog_halfstep_batch_ref(z1, r, g1, m, eps, 1.0)
+    pe0 = 3.0 * rand(c).abs()
+    r0, r1 = n / torch.sqrt(m), r - 0.5 * eps * g1
+
+    def ke(v):
+        v = v.double()
+        return 0.5 * (v * (m.double() * v)).sum(-1)
+
+    pe1 = (pe0.double() + ke(r0) - ke(r1) + 0.5 * rand(c).double()) \
+        .to(dtype)
+    if c >= 3:
+        pe1[0], pe1[1] = float("inf"), float("nan")
+    u, mean = (torch.rand(c, generator=gen, dtype=dtype) for _ in range(2))
+    wf = (rand(d), rand(d).abs())
+    eps_dev = torch.full((1,), eps, dtype=dtype)
+    moved = [t.to(dev) for t in (z0, pe0, g0, n, m, z1, r, pe1, g1, eps_dev,
+                                 u, mean, *wf)]
+    return tuple(moved[:10]), moved[10], moved[11], tuple(moved[12:])
+
+
+def chees_plain_sums(args, ap, div):
+    """The five sums over D of chees_accept (ke0, ke1, |z1c|^2, |z0c|^2,
+    z1c . v1) as the plain version forms them on the card (``torch.sum`` in
+    the dtype; the centred ones from the kernel's accept_prob and
+    divergences, as ``chees_gradient`` does), and the sums of their terms'
+    magnitudes in float64, the scale of FUSED_REL_TOL."""
+    from repro_torch.kernels.leapfrog import chain_sum
+    z0, pe0, g0, n, m, z1, r, pe1, g1, eps = args
+    r0, r1 = n / torch.sqrt(m), r - 0.5 * eps * g1
+    weights = torch.where(div, 0.0, ap)
+    keep = (weights > 0)[:, None]
+    z1k, v1 = torch.where(keep, z1, 0.0), torch.where(keep, m * r1, 0.0)
+    w_sum = torch.clamp(chain_sum(weights), min=1e-10)
+    w = weights[:, None]
+    z0c = z0 - chain_sum(w * z0) / w_sum
+    z1c = torch.where(keep, z1k - chain_sum(w * z1k) / w_sum, 0.0)
+    terms = [r0 * (m * r0), r1 * (m * r1), z1c * z1c, z0c * z0c, z1c * v1]
+    half = [0.5, 0.5, 1.0, 1.0, 1.0]
+    plain = torch.stack([k * t.sum(-1) for k, t in zip(half, terms)], 1)
+    scale = torch.stack([k * t.double().abs().sum(-1)
+                         for k, t in zip(half, terms)], 1)
+    return plain, scale
+
+
+def chees_checks(dev, shapes=ENS_SHAPES, dtypes=(torch.float32,
+                                                  torch.float64)):
+    """Row 3 with its device eps against the by-value form (a host number
+    the wrapper stages) and the plain version, in place and not;
+    ``chees_open`` against its plain version; ``chees_accept`` in each of
+    ``CHEES_MODES`` against its plain version: every shape of
+    ``ENS_SHAPES``, float32 and float64, chain 0's pe1 inf and chain 1's
+    NaN (C >= 3), and an all-divergent warmup.  The sums over D within
+    FUSED_REL_TOL of their terms' magnitudes; from the kernel's own sums
+    the plain arithmetic gives its energies, accept_prob and divergences;
+    for the kernel's accept_prob the selections, the running mean, the
+    harmonic mean, the gradient and the Welford fold bit-identical;
+    accept_prob within what the sums' tolerance allows of the plain
+    version's, the same divergences; a repeated call bit-identical.
+    Timings in float32 at ChEES's (8, 54) and at (64, 1,000,003) where
+    ``shapes`` holds them."""
+    from repro_torch.kernels.leapfrog import (
+        chain_sum, chees_accept_cuda, chees_accept_ref, chees_open_cuda,
+        chees_open_ref, harmonic_mean_accept, leapfrog_halfstep_batch_cuda,
+        leapfrog_halfstep_batch_ref, welford_merge, welford_moments)
+    from repro_torch.core.infer.hmc_util import welford_ratios
+    results, timing = [], {}
+    eps = CHEES_EPS
+    for dtype in dtypes:
+        for seed, (c, d) in enumerate(shapes):
+            args, u, mean, wf = chees_operands(c, d, dtype, seed, dev, eps)
+            z0, pe0, g0, n, m, z1, r, pe1, g1, eps_dev = args
+            # row 3 and chees_open: device eps == by value == plain
+            row3, opening = {}, {}
+            for kick in (0.5, 1.0):
+                dev_eps = leapfrog_halfstep_batch_cuda(z0, r, g1, m, eps_dev,
+                                                       kick)
+                by_value = leapfrog_halfstep_batch_cuda(z0, r, g1, m, eps,
+                                                        kick)
+                plain = leapfrog_halfstep_batch_ref(z0, r, g1, m, eps, kick)
+                zc, rc = z0.clone(), r.clone()
+                leapfrog_halfstep_batch_cuda(zc, rc, g1, m, eps_dev, kick,
+                                             out=(zc, rc))
+                row3[kick] = all(
+                    same_bits(a, b) and same_bits(a, p) and same_bits(a, q)
+                    for a, b, p, q in zip(dev_eps, by_value, plain,
+                                          (zc, rc)))
+            got = chees_open_cuda(z0, n, g0, m, eps_dev)
+            want = chees_open_ref(z0, n, g0, m, eps)
+            zc = z0.clone()
+            rc = torch.empty_like(r)
+            chees_open_cuda(zc, n, g0, m, eps_dev, out=(zc, rc))
+            opening = all(same_bits(a, b) and same_bits(a, q)
+                          for a, b, q in zip(got, want, (zc, rc)))
+            results.append({"name": "leapfrog_halfstep_batch",
+                            "variant": "device eps", "shape": [c, d],
+                            "dtype": str(dtype),
+                            "bit_identical_to_by_value_and_plain":
+                                row3[0.5] and row3[1.0], "max_abs_err": 0.0})
+            results.append({"name": "chees_open", "shape": [c, d],
+                            "dtype": str(dtype),
+                            "bit_identical": opening, "max_abs_err": float(
+                                max((a - b).abs().max()
+                                    for a, b in zip(got, want)))})
+            check(row3[0.5] and row3[1.0] and opening,
+                  f"row 3 (device eps {row3}) or chees_open ({opening}) "
+                  f"differs at {(c, d)} {dtype}")
+            cases = [(name, n_post, grad, fold, pe1)
+                     for name, n_post, grad, fold in CHEES_MODES]
+            cases.append(("warmup, gradient, all divergent", 0, True, False,
+                          torch.full_like(pe1, float("inf"))))
+            for name, n_post, grad, fold, pe1_case in cases:
+                a = args[:7] + (pe1_case,) + args[8:]
+                h = CHEES_H if grad else None
+                welford = (*wf, *welford_ratios(40, c)) if fold else None
+                call = (*a, u, 1000.0, mean, n_post, h, welford)
+                sums = torch.empty((c, 5), dtype=dtype, device=dev)
+                got = chees_accept_cuda(*call, sums=sums)
+                again = chees_accept_cuda(*call)
+                want = chees_accept_ref(*call)
+                torch.cuda.synchronize()
+                ap, div = got[4], got[5]
+                plain_sums, scale = chees_plain_sums(a, ap, div)
+                cols = 5 if grad else 2
+                sums_rel = float(((sums[:, :cols].double()
+                                   - plain_sums[:, :cols].double()).abs()
+                                  / scale[:, :cols].clamp(min=1e-300))
+                                 .nan_to_num(nan=0.0).max())
+                e_cur, e_new = a[1] + sums[:, 0], a[7] + sums[:, 1]
+                delta = torch.where(torch.isnan(e_new), math.inf,
+                                    e_new - e_cur)
+                ap_s = torch.clamp(torch.exp(-delta), max=1.0)
+                from_sums = same_bits(ap_s, ap) and torch.equal(
+                    delta > 1000.0, div)
+                acc = u < ap
+                picks = [(got[0], torch.where(acc[:, None], z1, z0)),
+                         (got[1], torch.where(acc, a[7], pe0)),
+                         (got[2], torch.where(acc[:, None], g1, g0)),
+                         (got[3], torch.where(acc, e_new, e_cur))]
+                if n_post:
+                    picks.append((got[6], mean + (ap - mean) / n_post))
+                else:
+                    weights = torch.where(div, 0.0, ap)
+                    w_sum = torch.clamp(chain_sum(weights), min=1e-10)
+                    stat = torch.zeros((), dtype=dtype, device=dev)
+                    if grad:
+                        per_chain = h * (sums[:, 2] - sums[:, 3]) \
+                            * sums[:, 4]
+                        stat = chain_sum(weights * per_chain) / w_sum
+                        stat = torch.where(torch.isfinite(stat), stat, 0.0)
+                    picks.append((got[7], torch.stack(
+                        [harmonic_mean_accept(ap), stat])))
+                    if fold:
+                        picks += list(zip(got[8], welford_merge(
+                            *wf, *welford_moments(got[0]), welford[2],
+                            welford[3])))
+                identical = all(same_bits(x, y) for x, y in picks)
+                both_nan = ap.isnan() & want[4].isnan()
+                err = torch.where(both_nan, 0.0,
+                                  (ap - want[4]).abs()).double()
+                tol = torch.expm1(FUSED_REL_TOL * (
+                    a[1].double().abs() + a[7].double().abs().nan_to_num(
+                        nan=0.0, posinf=0.0) + scale[:, 0] + scale[:, 1]))
+                within = bool((err <= tol * torch.maximum(
+                    ap, want[4]).double().nan_to_num() + 1e-300).all())
+                same_div = torch.equal(div, want[5])
+                repeat = all(same_bits(x, y) for x, y in zip(
+                    got[:5] + (got[6],), again[:5] + (again[6],))) and \
+                    torch.equal(got[5], again[5]) and (
+                        n_post > 0 or same_bits(got[7], again[7]))
+                spread = ap[~ap.isnan()]
+                results.append({
+                    "name": "chees_accept", "mode": name, "shape": [c, d],
+                    "dtype": str(dtype), "sums_rel_err": sums_rel,
+                    "max_abs_err": float(err.max()),
+                    "accept_prob_within_tolerance": within,
+                    "accept_prob_range": [float(spread.min()),
+                                          float(spread.max())]
+                    if spread.numel() else None,
+                    "selections_bit_identical": identical,
+                    "scalars_from_sums_bit_identical": from_sums,
+                    "same_divergences_as_plain": same_div,
+                    "repeat_bit_identical": repeat})
+                check(sums_rel <= FUSED_REL_TOL and identical and within
+                      and same_div and repeat,
+                      f"chees_accept ({name}) disagrees at {(c, d)} "
+                      f"{dtype}: sums {sums_rel} of their terms, selections "
+                      f"{identical}, accept_prob within {within}, the same "
+                      f"divergences {same_div}, repeat {repeat}")
+            if dtype == torch.float32 and (c, d) in (ENS_CHEES, ENS_LARGE):
+                iters = 200 if (c, d) == ENS_CHEES else 10
+                timing[("chees_open", "", (c, d))] = (
+                    timings(lambda: chees_open_cuda(z0, n, g0, m, eps_dev),
+                            lambda: chees_open_ref(z0, n, g0, m, eps_dev),
+                            iters),
+                    bound(4 * (5 * c * d + d + 1), 7 * c * d,
+                          torch.float32), 0.0)
+                for name, n_post, grad, fold in CHEES_MODES[::3]:
+                    h = CHEES_H if grad else None
+                    welford = (*wf, *welford_ratios(40, c)) if fold else None
+                    call = (*args, u, 1000.0, mean, n_post, h, welford)
+                    err = max(r_["max_abs_err"] for r_ in results
+                              if r_["name"] == "chees_accept"
+                              and r_["mode"] == name
+                              and r_["shape"] == [c, d]
+                              and r_["dtype"] == str(dtype))
+                    timing[("chees_accept", name, (c, d))] = (
+                        timings(lambda a=call: chees_accept_cuda(*a),
+                                lambda a=call: chees_accept_ref(*a), iters),
+                        chees_accept_bound(c, d, grad, fold), err)
     return results, timing
+
+
+def chees_accept_bound(c, d, grad, fold):
+    """Bytes of one float32 call: n, r, g1, z0, z1 and g0 read and z, g
+    written, each (C, D) once, plus m_inv, eps, pe0, pe1, u and the mean in,
+    pe, energy, accept_prob, diverging (a byte) and the mean or the two
+    statistics out, and with the fold the accumulator's (mean, m2) in and
+    out.  Operations an element: 9 for the two kinetic energies' terms and
+    sums, 14 for the gradient's column means and centred sums, 4 for the
+    fold."""
+    cells = c * d
+    moved = 8 * cells + d + 1 + 5 * c + (4 * d if fold else 0)
+    flops = (9 + (14 if grad else 0) + (4 if fold else 0)) * cells
+    return bound(4 * moved + c, flops, torch.float32)
+
+
+def trajectory_checks(dev, data, chains=CHEES_CHAINS):
+    """The graphed trajectory (``graphs.EnsembleTrajectory``) against the
+    same functions run eagerly, on ChEES's potential (the fused GLM logreg
+    on the 581,012 x 54 data) at (8, 54): 1 step (the opening's eager run,
+    then its capture), 5 steps (the opening replayed; the interior's eager
+    run, capture and three replays) and 5 steps again (replays only).  z,
+    r, pe and the gradient bit-identical each time, and the launch counters
+    moved by what the eager run launched."""
+    from repro_torch.bench.models import logreg_model_glm
+    from repro_torch.core.infer import ChEES
+    from repro_torch.core.infer.graphs import EnsembleTrajectory
+    from repro_torch.core.infer.hmc_util import chain_value_and_grad
+    from repro_torch.kernels import ops
+    x, y = (torch.from_numpy(data[k]).to(dev) for k in ("x", "y"))
+    pot = ChEES(logreg_model_glm).setup(
+        torch.Generator().manual_seed(0), 10, model_args=(x,),
+        model_kwargs={"y": y}).potential_fn
+    check(pot.glm_prior_batch == "vmap", "ChEES's potential does not batch "
+          "its prior under torch.func.vmap")
+    graphed, eager = EnsembleTrajectory(pot, True), EnsembleTrajectory(pot,
+                                                                       False)
+    gen = torch.Generator().manual_seed(11)
+    c, d = chains, data["x"].shape[1]
+    z = (0.1 * torch.randn(c, d, generator=gen)).to(dev)
+    _, g = chain_value_and_grad(pot)(z)
+    m = (torch.rand(d, generator=gen) + 0.5).to(dev)
+    results = []
+    keys = ("chees_open", "leapfrog_halfstep_batch", "glm_potential_grad")
+    for steps in (1, 5, 5):
+        n, u = torch.randn(c, d, generator=gen), torch.rand(c, generator=gen)
+        ops.reset_launch_counts()
+        n_g, _, eps_g = graphed.stage(n, u, 0.01, dev)
+        got = graphed(z, g, n_g, m, eps_g, steps)
+        torch.cuda.synchronize()
+        counts_g = ops.launch_counts()
+        ops.reset_launch_counts()
+        want = eager(z, g, n.to(dev), m, eps_g.clone(), steps)
+        torch.cuda.synchronize()
+        counts_e = ops.launch_counts()
+        identical = all(same_bits(a, b) for a, b in zip(got, want))
+        counted = all(counts_g[k] == counts_e[k] for k in keys) and \
+            counts_e["chees_open"] == 1 and \
+            counts_e["leapfrog_halfstep_batch"] == steps - 1 and \
+            counts_e["glm_potential_grad"] == steps
+        results.append({"steps": steps, "bit_identical": identical,
+                        "launches_graphed": {k: counts_g[k] for k in keys},
+                        "launches_eager": {k: counts_e[k] for k in keys},
+                        **graphed.stats()})
+        check(identical and counted, f"the graphed trajectory ({steps} "
+              f"steps) differs from the eager one: bit-identical "
+              f"{identical}, launches {counts_g} vs {counts_e}")
+    return results
 
 
 def ensemble_bound(name, variant, c, d):
@@ -1206,22 +1527,27 @@ def ensemble_bound(name, variant, c, d):
     return bound(4 * (3 * cells + d), 2 * cells + 2 * d, torch.float32)
 
 
-def profile_transitions(mcmc, num):
+def profile_transitions(mcmc, num, kernels=None):
     """Device busy share and device time per leapfrog over ``num`` more
     sampling transitions of the adapted chain (or ensemble: there a
     "leapfrog" moves every chain, and a MALA/RWM proposal counts as one),
     under ``torch.profiler``.  The profiler adds host cost, so its wall
-    time is not the run's."""
+    time is not the run's.  ``kernels`` (op name -> a substring of its
+    device kernel's name) adds, per op, the profiler's count of that
+    kernel and the op's launch counter's increase over the same
+    transitions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.infer import GeneratorDraws, sample
+    from repro_torch.kernels import ops
 
     setup, state = mcmc.kernel_setup, mcmc.last_state[0]
     draws = GeneratorDraws(torch.Generator().manual_seed(7))
     state = sample(setup, state, draws)
     torch.cuda.synchronize()
     leapfrogs = 0
+    counts0 = ops.launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1230,6 +1556,7 @@ def profile_transitions(mcmc, num):
             leapfrogs += getattr(state, "num_steps", 1)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    counts = ops.launch_counts()
     rows = [(getattr(a, "self_device_time_total", 0.0), a.count, a.key)
             for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
     busy_us = sum(r[0] for r in rows)
@@ -1237,7 +1564,7 @@ def profile_transitions(mcmc, num):
         return {"device_busy_share": None,
                 "note": "the profiler recorded no device time"}
     top = sorted(rows, reverse=True)[:8]
-    return {
+    out = {
         "transitions": num, "leapfrogs": leapfrogs,
         "wall_ms_per_leapfrog_profiled": wall_us / 1e3 / leapfrogs,
         "device_busy_ms_per_leapfrog": busy_us / 1e3 / leapfrogs,
@@ -1246,6 +1573,12 @@ def profile_transitions(mcmc, num):
         "top_device_kernels": [
             {"name": k[:80], "ms_per_leapfrog": t / 1e3 / leapfrogs,
              "launches_per_leapfrog": c / leapfrogs} for t, c, k in top]}
+    if kernels:
+        out["kernel_counts"] = {
+            name: {"profiler": sum(c for _, c, k in rows if sub in k),
+                   "counter": counts[name] - counts0[name]}
+            for name, sub in kernels.items()}
+    return out
 
 
 def run_main_path(dev, data, data_s):
@@ -1605,10 +1938,23 @@ def _ensemble_summary(mcmc, data, counts, chain_evals, extra_keys=()):
     return out, w
 
 
+# ChEES's kernels and a substring of each one's device kernel name
+CHEES_KERNELS = {"chees_open": "leapfrog_batch_kernel<float, true>",
+                 "leapfrog_halfstep_batch":
+                     "leapfrog_batch_kernel<float, false>",
+                 "chees_accept": "chees_accept_kernel",
+                 "glm_potential_grad": "glm_chains_kernel"}
+
+
 def run_chees(dev, data):
     """``MCMC(ChEES(logreg_model_glm), 300, 1500, num_chains=8)`` on the
-    581,012 x 54 data: lockstep trajectories through the batch leapfrog
-    kernel, the 8 chains' gradients in one GLM launch an evaluation."""
+    581,012 x 54 data: the trajectory replayed from two CUDA graphs (one
+    ``chees_open`` and the potential, then the batch leapfrog and the
+    potential ``num_steps - 1`` times), the 8 chains' gradients in one GLM
+    launch an evaluation, one ``chees_accept`` a transition; over 20
+    profiled transitions of the same setting in a fresh process the
+    profiler's count of each of these kernels equals its launch counter's
+    increase."""
     from repro_torch.bench.models import logreg_model_glm
     from repro_torch.core.infer import MCMC, ChEES
     from repro_torch.kernels import ops
@@ -1623,19 +1969,73 @@ def run_chees(dev, data):
     out, _ = _ensemble_summary(mcmc, data, counts, chain_evals,
                                ("trajectory_length", "num_steps"))
     steps = mcmc.get_extra_fields(group_by_chain=True)["num_steps"]
-    out["leapfrog_halfstep_batch_per_leapfrog"] = \
-        counts["leapfrog_halfstep_batch"] / out["num_leapfrog"]
+    stats = mcmc.stats
+    for key in ("trajectory_graph", "graph_replays", "graph_eager_bodies",
+                "graph_capture_seconds"):
+        out[key] = stats[key]
+    iterations, leapfrogs = out["num_iterations"], out["num_leapfrog"]
+    for name in ("chees_open", "leapfrog_halfstep_batch", "chees_accept"):
+        out[f"{name}_per_leapfrog"] = counts[name] / leapfrogs
     print("ChEES:", json.dumps(out), flush=True)
     check(bool((steps == steps[:1]).all()),
           "the chains report different num_steps at some draw: not lockstep")
     check(out["max_split_rhat"] < RHAT_MAX,
           f"max split R-hat {out['max_split_rhat']} >= {RHAT_MAX}")
-    check(counts["leapfrog_halfstep_batch"] == out["num_leapfrog"],
-          f"leapfrog_halfstep_batch: {counts['leapfrog_halfstep_batch']} "
-          f"launches != {out['num_leapfrog']} ensemble leapfrogs")
-    out["profile"] = profile_transitions(mcmc, 20)
+    check(stats["trajectory_graph"] is True,
+          "ChEES's trajectory does not replay from CUDA graphs")
+    for name, want in (("chees_open", iterations),
+                       ("chees_accept", iterations),
+                       ("leapfrog_halfstep_batch", leapfrogs - iterations)):
+        check(counts[name] == want,
+              f"{name}: {counts[name]} launches != {want}")
+    replays, eager = stats["graph_replays"], stats["graph_eager_bodies"]
+    check(replays["opening"] + eager["opening"] == iterations and
+          replays["interior"] + eager["interior"] == leapfrogs - iterations,
+          f"graph replays {replays} and eager runs {eager} do not make "
+          f"{iterations} openings and {leapfrogs - iterations} interior "
+          "leapfrogs")
+    out["profile"] = profile_transitions(mcmc, 20, CHEES_KERNELS)
     print("ChEES profile:", json.dumps(out["profile"]), flush=True)
+    # the count check in a fresh process: late in this long one the
+    # profiler loses records (PERF.md, lesson 4; here ~19 of ~1,430 device
+    # records of the window, once a chees_open)
+    kernel_counts = in_fresh_process("chees_profile_check")
+    out["profile"]["kernel_counts_fresh_process"] = kernel_counts
+    print("ChEES kernel counts (fresh process):", json.dumps(kernel_counts),
+          flush=True)
+    check(kernel_counts and all(v["profiler"] == v["counter"]
+                                for v in kernel_counts.values()),
+          f"the profiler's kernel counts differ from the launch counters: "
+          f"{kernel_counts}")
     return out, counts
+
+
+def chees_profile_check():
+    """ChEES at ``run_chees``'s setting (the draws cut to 20) and 20
+    profiled transitions after it: per ChEES kernel, the profiler's count
+    and its launch counter's increase (``profile_transitions``)."""
+    from repro_torch.bench.models import covtype_data, logreg_model_glm
+    from repro_torch.core.infer import MCMC, ChEES
+    data = covtype_data(seed=0, n=N, d=D)
+    mcmc = MCMC(ChEES(logreg_model_glm), num_warmup=CHEES_WARMUP,
+                num_samples=20, num_chains=CHEES_CHAINS)
+    mcmc.run(0, data["x"], y=data["y"])
+    return profile_transitions(mcmc, 20, CHEES_KERNELS)["kernel_counts"]
+
+
+def in_fresh_process(name):
+    """``chip_smoke.<name>()`` run in a new Python process (the kernels are
+    built already); its JSON result."""
+    code = ("import json, sys; sys.path.insert(0, %r); import chip_smoke; "
+            "print('RESULT ' + json.dumps(chip_smoke.%s()))" % (HERE, name))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600, cwd=HERE)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    check(proc.returncode == 0 and bool(lines),
+          f"{name} failed in its process (exit {proc.returncode}):\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return json.loads(lines[-1][len("RESULT "):])
 
 
 def run_mrw(dev, data, algo, init_w=None):
@@ -1674,10 +2074,11 @@ def run_mrw(dev, data, algo, init_w=None):
 
 
 def ensemble_kernel_rows(checks, timing, phases):
-    """The kernel-table rows of the batch leapfrog, ``mala_step`` and
-    ``mala_accept``: the main shape's times (the merged kick, MALA's
-    variant, MALA's accept after warmup) and bound, the other variants' and
-    the large shape's beside them, and the launches of every phase that ran
+    """The kernel-table rows of the batch leapfrog, ``mala_step``,
+    ``mala_accept``, ``chees_open`` and ``chees_accept``: the main shape's
+    times (the merged kick, MALA's variant, MALA's accept after warmup,
+    ChEES's close after warmup) and bound, the other variants' and the
+    large shape's beside them, and the launches of every phase that ran
     the kernel (``phases``: name -> {phase: (summary, launch counts)})."""
     from repro_torch.kernels.ops import FUSED, SPECS
     rows = []
@@ -1685,7 +2086,9 @@ def ensemble_kernel_rows(checks, timing, phases):
             ("leapfrog_halfstep_batch", "leapfrog_batch.cu", "kick=1.0",
              ENS_CHEES),
             ("mala_step", "mala_step.cu", "MALA", ENS_MRW),
-            ("mala_accept", "mala_step.cu", "MALA, after warmup", ENS_MRW)):
+            ("mala_accept", "mala_step.cu", "MALA, after warmup", ENS_MRW),
+            ("chees_open", "leapfrog_batch.cu", "", ENS_CHEES),
+            ("chees_accept", "chees.cu", "sampling", ENS_CHEES)):
         times, (bound_ms, bound_by), err = timing[(name, variant, shape)]
         runs = phases[name]
         spec = SPECS.get(name) or FUSED[name]
@@ -1697,6 +2100,9 @@ def ensemble_kernel_rows(checks, timing, phases):
             "launches_by_phase": {p: c[name] for p, (_, c) in runs.items()},
             "launches_per_iteration": {
                 p: c[name] / o["num_iterations"]
+                for p, (o, c) in runs.items()},
+            "launches_per_leapfrog": {
+                p: c[name] / o["num_leapfrog"]
                 for p, (o, c) in runs.items()},
             "max_abs_err": max(c["max_abs_err"] for c in checks
                                if c["name"] == name),
@@ -3150,6 +3556,8 @@ def run_samplers(dev):
     lap("enumerated HMM")
     hmm, hmm_counts = run_hmm(dev)
     lap("semi-supervised HMM")
+    print("graphed trajectory checks:", json.dumps(
+        trajectory_checks(dev, data)), flush=True)
     chees, chees_counts = run_chees(dev, data)
     lap("ChEES")
     mala, mala_counts, mala_mean = run_mrw(dev, data, "MALA")
@@ -3315,6 +3723,8 @@ def run_samplers(dev):
             "note": note})
     kernels += ensemble_kernel_rows(ens_checks, ens_timing, {
         "leapfrog_halfstep_batch": {"ChEES": (chees, chees_counts)},
+        "chees_open": {"ChEES": (chees, chees_counts)},
+        "chees_accept": {"ChEES": (chees, chees_counts)},
         "mala_step": {"MALA": (mala, mala_counts), "RWM": (rwm, rwm_counts)},
         "mala_accept": {"MALA": (mala, mala_counts),
                         "RWM": (rwm, rwm_counts)}})
@@ -3334,7 +3744,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     build_s = _build.build_all(["leapfrog", "glm_potential",
-                                "enum_contract", "leapfrog_batch",
+                                "enum_contract", "leapfrog_batch", "chees",
                                 "mala_step", "rmsnorm", "flash_attention",
                                 "flash_attention_bwd", "softmax_xent",
                                 "ssd_scan"])

@@ -5,8 +5,12 @@ Sountsov, 2021):
 
 - **Lockstep trajectories.** Every chain runs the same number of leapfrog
   steps per iteration, one ``(C, D)`` ensemble through
-  :func:`~repro_torch.core.infer.hmc_util.velocity_verlet_batch` (the
-  ``leapfrog_halfstep_batch`` kernel, interior kicks merged).
+  :class:`~repro_torch.core.infer.graphs.EnsembleTrajectory`: the momentum
+  draw and opening half-kick in one ``chees_open`` launch (row 3's kernel),
+  the interior steps through ``leapfrog_halfstep_batch`` with merged kicks,
+  each followed by the potential of all chains.  On a card, with a
+  potential that can be replayed, the opening and the interior leapfrog
+  each replay from a CUDA graph (``MCMC.stats["trajectory_graph"]``).
 - **Halton jitter.** The shared trajectory length is scaled each iteration
   by a van der Corput factor in (0, 1).
 - **ChEES criterion.** Adam ascends the Rao-Blackwellized estimate of the
@@ -22,44 +26,42 @@ The ensemble's vectors (positions, momenta, gradients, energies, accept
 probabilities) stay on the device.  Its shared scalars live on the host in
 float32, with the JAX package's float32 arithmetic: the step size, the log
 trajectory length, Adam and dual averaging, and ``num_steps`` from
-:func:`halton`.  So a warmup iteration makes one device->host read, in which
-the harmonic-mean accept probability and the ChEES gradient (computed on the
-device from ``accept_prob`` and ``diverging``) come back together, and a
-sampling iteration makes none.  ``MCMC.stats["host_syncs"]`` counts them.
+:func:`halton`.  After the trajectory one ``ops.chees_accept`` launch closes
+the transition: the closing half-kick, both energies, the Metropolis test,
+the selection, the running mean after warmup, and in warmup the
+harmonic-mean accept probability and the ChEES gradient packed for the
+host's one read of the iteration, and, in a middle window, the pooled
+Welford fold.  A sampling iteration reads nothing.
+``MCMC.stats["host_syncs"]`` counts the reads.
 
 Randomness: one shared draw source moves the whole ensemble (its ``(C, D)``
-momenta and ``(C,)`` accept uniforms), as the reference splits one shared
-key; each chain keeps its own source for its initial-point search.
+momenta and ``(C,)`` accept uniforms, drawn in that order), as the
+reference splits one shared key; on a card both go to the device with the
+step size in one copy.  Each chain keeps its own source for its
+initial-point search.
 """
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ...kernels.rwm_mala import harmonic_mean_accept
+from ...kernels import ops
+from .graphs import EnsembleTrajectory
 from .hmc import counting, flat_model_ingredients, resolve_device
 from .hmc_util import (
     DAState,
     HostReads,
-    IntegratorState,
     WelfordState,
     build_adaptation_schedule,
-    chain_sum,
     dual_averaging_init,
     dual_averaging_update,
     find_reasonable_step_size,
-    kinetic_energy,
-    momentum_sample,
-    to_device,
     value_and_grad,
-    velocity_verlet_batch,
-    welford_batch,
-    welford_combine,
     welford_covariance,
     welford_init,
+    welford_ratios,
     window_predicates,
 )
 from .kernel_api import KernelSetup
@@ -183,27 +185,6 @@ def _make_init_fn(potential_fn, prototype, reads, *, z_fixed,
     return init_fn
 
 
-def chees_gradient(h, z0, z1, v1, weights):
-    """Rao-Blackwellized Monte Carlo estimate of d ChEES / d log trajectory
-    length, on the device.  ``z0``/``z1`` are the (C, D) initial and
-    proposed positions, ``v1`` the final velocities, ``weights`` the chains'
-    accept probabilities (0 for divergent chains).  A divergent proposal
-    carries non-finite coordinates, so it is zeroed before any arithmetic
-    (``0 * inf`` would poison the estimate); an all-divergent ensemble gives
-    0."""
-    keep = (weights > 0)[:, None]
-    z1 = torch.where(keep, z1, 0.0)
-    v1 = torch.where(keep, v1, 0.0)
-    w_sum = torch.clamp(chain_sum(weights), min=1e-10)
-    w = weights[:, None]
-    z0c = z0 - chain_sum(w * z0) / w_sum
-    z1c = torch.where(keep, z1 - chain_sum(w * z1) / w_sum, 0.0)
-    per_chain = h * (torch.sum(z1c * z1c, -1) - torch.sum(z0c * z0c, -1)) \
-        * torch.sum(z1c * v1, -1)
-    grad = chain_sum(weights * per_chain) / w_sum
-    return torch.where(torch.isfinite(grad), grad, 0.0)
-
-
 def refresh_mass(wf: WelfordState, da: DAState, step_size,
                  adapt_step_size):
     """A middle window's end: the pooled estimate becomes the shared
@@ -220,24 +201,20 @@ def refresh_mass(wf: WelfordState, da: DAState, step_size,
 def _make_sample_fn(potential_fn, num_warmup, schedule, reads, *,
                     adapt_step_size, adapt_mass_matrix, adapt_trajectory,
                     target_accept_prob, learning_rate, max_num_steps,
-                    max_delta_energy=1000.0):
+                    graphed, max_delta_energy=1000.0):
     """The ensemble transition ``(ChEESState, draws) -> ChEESState``."""
     in_middle_window, window_end_is_middle = window_predicates(schedule)
-    trajectory = velocity_verlet_batch(potential_fn)
+    trajectory = EnsembleTrajectory(potential_fn, graphed)
     # static bounds on the learned length, wide enough to be inert
     log_traj_lo, log_traj_hi = np.log(_F32(1e-3)), np.log(_F32(1e3))
 
-    def adapt_update(adapt: ChEESAdaptState, t, z0, z1, v1, z_next,
-                     accept_prob, diverging, h) -> ChEESAdaptState:
-        # the one host read of the iteration: harmonic-mean accept prob and
-        # ChEES gradient together
-        parts = []
-        if adapt_step_size:
-            parts.append(harmonic_mean_accept(accept_prob))
-        if adapt_trajectory:
-            weights = torch.where(diverging, 0.0, accept_prob)
-            parts.append(chees_gradient(float(h), z0, z1, v1, weights))
-        vals = reads.read(torch.stack(parts)) if parts else []
+    def adapt_update(adapt: ChEESAdaptState, t, vals, folded,
+                     num_chains) -> ChEESAdaptState:
+        """The host's half of a warmup iteration, from its one read
+        ``vals = [harmonic-mean accept prob, ChEES gradient]`` and the
+        device's fold of the ``num_chains`` new draws into the pooled
+        Welford accumulator (``folded``, or None outside a middle
+        window)."""
         # 1) dual averaging on the harmonic-mean accept prob
         da, step_size = adapt.da_state, adapt.step_size
         if adapt_step_size:
@@ -247,14 +224,14 @@ def _make_sample_fn(potential_fn, num_warmup, schedule, reads, *,
         # 2) the ChEES ascent on the log trajectory length
         log_traj, adam = adapt.log_traj, adapt.adam_state
         if adapt_trajectory:
-            delta, adam = adam_step(adam, vals[-1], learning_rate)
+            delta, adam = adam_step(adam, vals[1], learning_rate)
             log_traj = _F32(np.clip(_F32(log_traj + delta), log_traj_lo,
                                     log_traj_hi))
         imm, wf = adapt.inverse_mass_matrix, adapt.welford
         if adapt_mass_matrix:
             # 3) pooled Welford: the whole ensemble folded in at once
-            if in_middle_window(t):
-                wf = welford_combine(wf, welford_batch(z_next))
+            if folded is not None:
+                wf = WelfordState(*folded, wf.n + num_chains)
             # 4) a middle window's end: refresh the mass, restart Adam too
             #    (its moments belong to the old geometry)
             if window_end_is_middle(t):
@@ -276,39 +253,33 @@ def _make_sample_fn(potential_fn, num_warmup, schedule, reads, *,
         num_steps = int(np.clip(np.nan_to_num(steps, nan=1.0,
                                               posinf=max_num_steps),
                                 1, max_num_steps))
-        r = momentum_sample(to_device(draws.momentum_batch(
-            num_chains, dim, state.z.dtype), state.z.device), imm)
-        energy_cur = state.potential_energy + kinetic_energy(imm, r)
-        end = trajectory(float(step_size), imm,
-                         IntegratorState(state.z, r, state.potential_energy,
-                                         state.z_grad), num_steps)
-        energy_new = end.potential_energy + kinetic_energy(imm, end.r)
-        delta = torch.where(torch.isnan(energy_new), math.inf,
-                            energy_new - energy_cur)
-        accept_prob = torch.clamp(torch.exp(-delta), max=1.0)
-        diverging = delta > max_delta_energy
-        u = to_device(draws.accept_uniforms(num_chains, state.z.dtype),
-                      state.z.device)
-        accept = u < accept_prob
-        acc2 = accept[:, None]
-        z = torch.where(acc2, end.z, state.z)
-        pe = torch.where(accept, end.potential_energy, state.potential_energy)
-        grad = torch.where(acc2, end.z_grad, state.z_grad)
-        energy = torch.where(accept, energy_new, energy_cur)
+        n = draws.momentum_batch(num_chains, dim, state.z.dtype)
+        u = draws.accept_uniforms(num_chains, state.z.dtype)
+        n, u, eps = trajectory.stage(n, u, step_size, state.z.device)
+        z1, r, pe1, g1 = trajectory(state.z, state.z_grad, n, imm, eps,
+                                    num_steps)
         t = state.i
         in_warmup = t < num_warmup
+        fold = None
+        if in_warmup and adapt_mass_matrix and in_middle_window(t):
+            wf = adapt.welford
+            fold = (wf.mean, wf.m2, *welford_ratios(wf.n, num_chains))
+        (z, pe, grad, energy, accept_prob, diverging, mean_ap, stats,
+         folded) = ops.chees_accept(
+            state.z, state.potential_energy, state.z_grad, n, imm, z1, r,
+            pe1, g1, eps, u, max_delta_energy, state.mean_accept_prob,
+            0 if in_warmup else t + 1 - num_warmup,
+            float(h) if in_warmup and adapt_trajectory else None, fold)
+        new_adapt = adapt
         if in_warmup:
-            new_adapt = adapt_update(adapt, t, state.z, end.z, imm * end.r,
-                                     z, accept_prob, diverging, h)
-            mean_ap = accept_prob
-        else:
-            new_adapt = adapt
-            n_post = max(t + 1 - num_warmup, 1)
-            mean_ap = state.mean_accept_prob \
-                + (accept_prob - state.mean_accept_prob) / n_post
+            # the one host read of a warmup iteration
+            vals = reads.read(stats) \
+                if adapt_step_size or adapt_trajectory else None
+            new_adapt = adapt_update(adapt, t, vals, folded, num_chains)
         return ChEESState(t + 1, z, pe, grad, energy, num_steps, accept_prob,
                           mean_ap, diverging, new_adapt)
 
+    sample_fn.trajectory_stats = trajectory.stats
     return sample_fn
 
 
@@ -353,12 +324,16 @@ def chees_setup(generator, num_warmup, *, model=None, potential_fn=None,
         counted, prototype, reads, z_fixed=z_fixed,
         adapt_step_size=adapt_step_size, step_size0=step_size,
         init_strategy=init_strategy)
+    # replay the trajectory from CUDA graphs where the potential can be
+    # replayed: the batched prior under torch.func.vmap (graphs.py)
+    graphed = prototype.device.type == "cuda" and getattr(
+        potential_flat, "glm_prior_batch", None) == "vmap"
     sample_fn = _make_sample_fn(
         counted, num_warmup, schedule, reads,
         adapt_step_size=adapt_step_size, adapt_mass_matrix=adapt_mass_matrix,
         adapt_trajectory=adapt_trajectory,
         target_accept_prob=target_accept_prob, learning_rate=learning_rate,
-        max_num_steps=max_num_steps)
+        max_num_steps=max_num_steps, graphed=graphed)
     return KernelSetup(
         init_fn=init_fn, sample_fn=sample_fn, collect_fn=_collect_fn,
         potential_fn=potential_flat, unravel_fn=unravel,

@@ -22,10 +22,11 @@ direction bits, and the transition uniforms (and, for the ensemble samplers,
 their ``(C, D)`` momenta and noise and ``(C,)`` uniforms).
 
 The cross-chain helpers at the end serve the ensemble samplers (ChEES,
-MALA/RWM): the pairwise ``chain_sum`` fold (``kernels/rwm_mala.py``, where
-the MALA/RWM accept step's plain version needs it), the pooled Welford
-accumulators, the chain-batched potential gradient and the ``(C, D)``
-trajectory with merged interior kicks.
+MALA/RWM): the pairwise ``chain_sum`` fold (``kernels/leapfrog.py``, where
+the plain versions of the ensembles' fused steps need it), the pooled
+Welford accumulators, the chain-batched potential gradient and the ``(C,
+D)`` trajectory with merged interior kicks (ChEES runs its own through
+``graphs.EnsembleTrajectory``).
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 
 from ...kernels import ops
-from ...kernels.rwm_mala import chain_sum
+from ...kernels.leapfrog import chain_sum, welford_merge, welford_moments
 
 _F32 = np.float32
 
@@ -490,23 +491,27 @@ def chain_mean(x):
     return chain_sum(x) / x.shape[0]
 
 
+def welford_ratios(n_a, n_b):
+    """The count ratios ``n_b / n`` and ``n_a n_b / n`` of merging two
+    accumulators of ``n_a`` and ``n_b`` draws, in float32 as in the JAX
+    package, as host numbers."""
+    n_a, n_b = _F32(n_a), _F32(n_b)
+    n_safe = max(n_a + n_b, _F32(1))
+    return float(n_b / n_safe), float(n_a * n_b / n_safe)
+
+
 def welford_combine(a: WelfordState, b: WelfordState) -> WelfordState:
     """Exact merge of two Welford accumulators (Chan et al. 1979); either
-    may be empty.  The count ratios are float32, as in the JAX package."""
-    n_a, n_b = _F32(a.n), _F32(b.n)
-    n_safe = max(n_a + n_b, _F32(1))
-    delta = b.mean - a.mean
-    mean = a.mean + delta * float(n_b / n_safe)
-    m2 = a.m2 + b.m2 + (delta * delta) * float(n_a * n_b / n_safe)
+    may be empty."""
+    mean, m2 = welford_merge(a.mean, a.m2, b.mean, b.m2,
+                             *welford_ratios(a.n, b.n))
     return WelfordState(mean, m2, a.n + b.n)
 
 
 def welford_batch(x) -> WelfordState:
     """The accumulator of every row of ``x`` (``(batch, dim)``) in one
     vectorized pass, reduced with :func:`chain_sum`."""
-    mean = chain_mean(x)
-    centered = x - mean
-    return WelfordState(mean, chain_sum(centered * centered), x.shape[0])
+    return WelfordState(*welford_moments(x), x.shape[0])
 
 
 def welford_pool(states: WelfordState) -> WelfordState:

@@ -74,7 +74,10 @@ class MCMC:
     potential is not fused) and ``glm_prior_batch`` (``"vmap"`` or
     ``"loop"``: how its batched entry, which the ensembles call once per
     evaluation of all chains, evaluates the prior term; None when the
-    potential is not fused).
+    potential is not fused).  ChEES adds ``trajectory_graph`` (whether its
+    trajectory replays from CUDA graphs, ``core/infer/graphs.py``),
+    ``graph_replays`` and ``graph_eager_bodies`` (per graph, its replays
+    and the eager runs before its capture) and ``graph_capture_seconds``.
     """
 
     def __init__(self, kernel, num_warmup: int, num_samples: int,
@@ -150,6 +153,8 @@ class MCMC:
                                            None),
                       "glm_prior_batch": getattr(setup.potential_fn,
                                                  "glm_prior_batch", None)}
+        self.stats.update(getattr(setup.sample_fn, "trajectory_stats",
+                                  dict)())
         return self
 
     def _run_chains(self, setup, draws):

@@ -9,7 +9,15 @@ The chain-batched form (``leapfrog_halfstep_batch``, the ChEES ensemble's
 integrator) takes ``(C, D)`` positions, momenta and gradients with one
 shared ``(D,)`` ``m_inv`` and a ``kick`` of 0.5 (a half-kick) or 1.0 (the
 two half-kicks between interior steps merged):
-``r' = r - (kick * eps) * g``, ``z' = z + eps * (r' * m_inv)``.
+``r' = r - (kick * eps) * g``, ``z' = z + eps * (r' * m_inv)``, with
+``eps`` read from device memory, so a launch captured in a CUDA graph reads
+the step size current at replay.  ``chees_open`` is the same kernel with
+the momentum draw in front (``r = n / sqrt(m_inv)`` from the standard-normal
+``n``, then the opening half-kick).  After a ChEES trajectory,
+``chees_accept`` closes the transition in one launch: the closing
+half-kick, both energies, the accept test, the selection, the running mean,
+and in warmup the harmonic mean, the ChEES gradient and the pooled Welford
+fold.
 
 Inside a NUTS subtree the step runs fused into the leaf op,
 ``nuts_leaf``: one launch between two potential evaluations closes
@@ -20,14 +28,16 @@ dots...]`` for the leaf's one host read, and opens leapfrog k + 1 with the
 step above.  ``nuts_turning`` forms the two U-turn dots of a merged tree.
 
 ``ops.leapfrog_halfstep``, ``ops.leapfrog_halfstep_batch``,
-``ops.nuts_leaf`` and ``ops.nuts_turning`` take the plain versions for
-tensors on the CPU and the CUDA kernels (``csrc/leapfrog.cu``,
-``csrc/leapfrog_batch.cu``) for tensors on a card; they never fall back
-from one to the other.
+``ops.nuts_leaf``, ``ops.nuts_turning``, ``ops.chees_open`` and
+``ops.chees_accept`` take the plain versions for tensors on the CPU and the
+CUDA kernels (``csrc/leapfrog.cu``, ``csrc/leapfrog_batch.cu``,
+``csrc/chees.cu``) for tensors on a card; they never fall back from one to
+the other.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -290,11 +300,23 @@ nuts_turning_cuda.launches = 0
 
 _BATCH_DTYPES = {torch.float32: "leapfrog_halfstep_batch_f32",
                  torch.float64: "leapfrog_halfstep_batch_f64"}
+_OPEN_DTYPES = {torch.float32: "chees_open_f32",
+                torch.float64: "chees_open_f64"}
 
 
-def leapfrog_halfstep_batch_ref(z, r, grad, m_inv, eps, kick=0.5):
+def _into(out, z_new, r_new):
+    """``(z_new, r_new)``, or copied into ``out = (z_out, r_out)``."""
+    if out is None:
+        return z_new, r_new
+    out[0].copy_(z_new)
+    out[1].copy_(r_new)
+    return out
+
+
+def leapfrog_halfstep_batch_ref(z, r, grad, m_inv, eps, kick=0.5, out=None):
     """The plain PyTorch version of the batch op, in ``promote(dtype,
-    float32)`` like the TPU kernel (float64 stays float64)."""
+    float32)`` like the TPU kernel (float64 stays float64); ``out`` takes
+    the results in place."""
     z_dtype, r_dtype = z.dtype, r.dtype
     cd = torch.promote_types(z_dtype, torch.float32)
     if not isinstance(eps, torch.Tensor):
@@ -302,7 +324,17 @@ def leapfrog_halfstep_batch_ref(z, r, grad, m_inv, eps, kick=0.5):
     kick = float(kick)
     z, r, grad, m_inv = (t.to(cd) for t in (z, r, grad, m_inv))
     r_new = r - (kick * eps) * grad
-    return (z + eps * (r_new * m_inv)).to(z_dtype), r_new.to(r_dtype)
+    return _into(out, (z + eps * (r_new * m_inv)).to(z_dtype),
+                 r_new.to(r_dtype))
+
+
+def chees_open_ref(z, n, grad, m_inv, eps, out=None):
+    """The plain version of a ChEES trajectory's opening: the momenta from
+    the standard-normal draw ``n`` (``hmc_util.momentum_sample``'s ``n /
+    sqrt(m_inv)``), then the opening half-kick and drift of
+    :func:`leapfrog_halfstep_batch_ref`."""
+    r0 = n / torch.sqrt(m_inv)
+    return leapfrog_halfstep_batch_ref(z, r0, grad, m_inv, eps, 0.5, out)
 
 
 def host_scalar(value, name, kernel):
@@ -316,9 +348,14 @@ def host_scalar(value, name, kernel):
     return float(value)
 
 
+# check_ensemble's operands of one value a chain; m_inv and wf_* are rows
+_PER_CHAIN = ("pe0", "pe1", "u", "mean_accept_prob")
+
+
 def check_ensemble(kernel, dtypes, z, **others):
     """Raise unless ``z`` is a contiguous (C, D) CUDA tensor of a supported
-    dtype and every other operand (``m_inv`` a (D,) row) matches it."""
+    dtype and every other operand matches it: (C, D), a (D,) row
+    (``m_inv``, ``wf_*``) or a (C,) vector (``_PER_CHAIN``)."""
     if z.device.type != "cuda":
         raise ValueError(f"{kernel} needs CUDA tensors, got {z.device}")
     if z.dtype not in dtypes:
@@ -327,7 +364,8 @@ def check_ensemble(kernel, dtypes, z, **others):
         raise ValueError(f"{kernel} takes a (C, D) ensemble, got shape "
                          f"{tuple(z.shape)}")
     for name, t in others.items():
-        shape = z.shape[1:] if name == "m_inv" else z.shape
+        shape = z.shape[1:] if name.startswith(("m_inv", "wf_")) \
+            else z.shape[:1] if name in _PER_CHAIN else z.shape
         if t.device != z.device or t.dtype != z.dtype or t.shape != shape:
             raise ValueError(
                 f"{kernel}: {name} is {t.dtype} {tuple(t.shape)} on "
@@ -337,35 +375,314 @@ def check_ensemble(kernel, dtypes, z, **others):
         raise ValueError(f"{kernel} needs contiguous tensors")
 
 
-def leapfrog_halfstep_batch_cuda(z, r, grad, m_inv, eps, kick=0.5):
-    """Launch ``csrc/leapfrog_batch.cu`` on the current stream: one thread
-    per element of the (C, D) ensemble.  ``eps`` and ``kick`` are host
-    numbers passed by value.  Raises on a wrong device, dtype, shape or
-    layout, on a ``kick`` other than 0.5 or 1.0, and on a failed build or
-    launch."""
-    name = "leapfrog_halfstep_batch_cuda"
+def _out_pair(kernel, z, r, out):
+    """The output pair of a batch launch: fresh, or ``out`` checked (it may
+    be ``(z, r)`` itself: each element is read and written by one thread)."""
+    if out is None:
+        return torch.empty_like(z), torch.empty_like(r)
+    check_ensemble(kernel, _BATCH_DTYPES, z, z_out=out[0], r_out=out[1])
+    return out
+
+
+def _batch_launch(name, symbol, z, r, grad, m_inv, eps, kick, out):
+    """One launch of ``csrc/leapfrog_batch.cu``'s ``symbol``: row 3 with
+    ``kick``, or ``chees_open`` (``kick=None``, ``r`` the draw)."""
     check_ensemble(name, _BATCH_DTYPES, z, r=r, grad=grad, m_inv=m_inv)
-    eps = host_scalar(eps, "eps", name)
-    kick = host_scalar(kick, "kick", name)
-    if kick not in (0.5, 1.0):
-        raise ValueError(f"{name}: kick must be 0.5 or 1.0, got {kick}")
-    fn = getattr(_build.load("leapfrog_batch"), _BATCH_DTYPES[z.dtype])
+    eps = _device_scalar(eps, "eps", z, name)
+    z_out, r_out = _out_pair(name, z, r, out)
+    fn = getattr(_build.load("leapfrog_batch"), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_double] * 2 \
+        by_value = [] if kick is None else [ctypes.c_double]
+        fn.argtypes = [ctypes.c_void_p] * 7 + by_value \
             + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    z_out, r_out = torch.empty_like(z), torch.empty_like(r)
     rows, cols = z.shape
+    ptrs = (z.data_ptr(), r.data_ptr(), grad.data_ptr(), m_inv.data_ptr(),
+            eps.data_ptr(), z_out.data_ptr(), r_out.data_ptr())
     stream = torch.cuda.current_stream(z.device).cuda_stream
     with torch.cuda.device(z.device):
-        rc = fn(z.data_ptr(), r.data_ptr(), grad.data_ptr(), m_inv.data_ptr(),
-                z_out.data_ptr(), r_out.data_ptr(), eps, kick, rows, cols,
+        rc = fn(*ptrs, *(() if kick is None else (kick,)), rows, cols,
                 stream)
     if rc != 0:
-        raise RuntimeError(f"leapfrog_halfstep_batch kernel launch failed: "
-                           f"cudaError {rc}")
-    leapfrog_halfstep_batch_cuda.launches += 1
+        raise RuntimeError(f"{name.removesuffix('_cuda')} kernel launch "
+                           f"failed: cudaError {rc}")
     return z_out, r_out
 
 
+def leapfrog_halfstep_batch_cuda(z, r, grad, m_inv, eps, kick=0.5,
+                                 out=None):
+    """Launch ``csrc/leapfrog_batch.cu`` on the current stream: one thread
+    per element of the (C, D) ensemble.  ``eps`` is read by the kernel from
+    a one-element device tensor of the ensemble's dtype (a host number is
+    staged there first); ``kick`` (0.5 or 1.0) is a host number passed by
+    value; ``out = (z_out, r_out)`` takes the results, in place when it is
+    ``(z, r)``.  Raises on a wrong device, dtype, shape or layout, on
+    another ``kick``, and on a failed build or launch."""
+    name = "leapfrog_halfstep_batch_cuda"
+    kick = host_scalar(kick, "kick", name)
+    if kick not in (0.5, 1.0):
+        raise ValueError(f"{name}: kick must be 0.5 or 1.0, got {kick}")
+    res = _batch_launch(name, _BATCH_DTYPES.get(z.dtype), z, r, grad, m_inv,
+                        eps, kick, out)
+    leapfrog_halfstep_batch_cuda.launches += 1
+    return res
+
+
 leapfrog_halfstep_batch_cuda.launches = 0
+
+
+def chees_open_cuda(z, n, grad, m_inv, eps, out=None):
+    """Launch ``chees_open`` (``csrc/leapfrog_batch.cu``: row 3's kernel
+    with the momentum draw in front) on the current stream: the arguments
+    and results are :func:`chees_open_ref`'s, bit-identical; ``eps`` as in
+    :func:`leapfrog_halfstep_batch_cuda`; ``out = (z_out, r_out)`` may hold
+    ``z`` (in place).  Raises on a wrong device, dtype, shape or layout, and
+    on a failed build or launch."""
+    res = _batch_launch("chees_open_cuda", _OPEN_DTYPES.get(z.dtype), z, n,
+                        grad, m_inv, eps, None, out)
+    chees_open_cuda.launches += 1
+    return res
+
+
+chees_open_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the close of a ChEES transition: chees_accept
+# ---------------------------------------------------------------------------
+
+def chain_sum(x):
+    """Sum over the leading (chain) axis by the JAX package's fixed pairwise
+    fold (halves added, an odd row carried), not ``torch.sum``: the pooled
+    statistics then have the reference's association exactly."""
+    while x.shape[0] > 1:
+        n = x.shape[0]
+        half = n // 2
+        folded = x[:half] + x[half:2 * half]
+        if n % 2:
+            folded = torch.cat([folded, x[2 * half:]], 0)
+        x = folded
+    return x[0]
+
+
+def harmonic_mean_accept(accept_prob):
+    """The chains' harmonic-mean accept probability (the worst chains
+    dominate), on the device."""
+    return 1.0 / (chain_sum(1.0 / torch.clamp(accept_prob, min=1e-10))
+                  / accept_prob.shape[0])
+
+
+def chees_gradient(h, z0, z1, v1, weights):
+    """Rao-Blackwellized Monte Carlo estimate of d ChEES / d log trajectory
+    length, on the device.  ``z0``/``z1`` are the (C, D) initial and
+    proposed positions, ``v1`` the final velocities, ``weights`` the chains'
+    accept probabilities (0 for divergent chains).  A divergent proposal
+    carries non-finite coordinates, so it is zeroed before any arithmetic
+    (``0 * inf`` would poison the estimate); an all-divergent ensemble gives
+    0."""
+    keep = (weights > 0)[:, None]
+    z1 = torch.where(keep, z1, 0.0)
+    v1 = torch.where(keep, v1, 0.0)
+    w_sum = torch.clamp(chain_sum(weights), min=1e-10)
+    w = weights[:, None]
+    z0c = z0 - chain_sum(w * z0) / w_sum
+    z1c = torch.where(keep, z1 - chain_sum(w * z1) / w_sum, 0.0)
+    per_chain = h * (torch.sum(z1c * z1c, -1) - torch.sum(z0c * z0c, -1)) \
+        * torch.sum(z1c * v1, -1)
+    grad = chain_sum(weights * per_chain) / w_sum
+    return torch.where(torch.isfinite(grad), grad, 0.0)
+
+
+def welford_moments(x):
+    """The mean and the summed squared deviations of the rows of ``x``
+    (``(batch, dim)``), each reduced with :func:`chain_sum`: the arithmetic
+    of ``hmc_util.welford_batch``."""
+    mean = chain_sum(x) / x.shape[0]
+    centered = x - mean
+    return mean, chain_sum(centered * centered)
+
+
+def welford_merge(mean_a, m2_a, mean_b, m2_b, ratio_mean, ratio_m2):
+    """Chan et al.'s merge of two accumulators' ``(mean, m2)``, with the
+    count ratios ``n_b / n`` and ``n_a n_b / n`` as host numbers: the
+    arithmetic of ``hmc_util.welford_combine``."""
+    delta = mean_b - mean_a
+    return mean_a + delta * ratio_mean, \
+        m2_a + m2_b + (delta * delta) * ratio_m2
+
+
+def chees_accept_ref(z0, pe0, g0, n, m_inv, z1, r, pe1, g1, eps, u,
+                     max_delta_energy, mean_accept_prob, n_post, h=None,
+                     welford=None):
+    """The plain version of a ChEES transition's close: the eager code of
+    ``ensemble.py``'s ``sample_fn`` after the trajectory, in its order.
+
+    ``z0``/``pe0``/``g0`` are the state's, ``n`` the (C, D) standard-normal
+    draw the momenta came from, ``z1``, ``r``, ``pe1``, ``g1`` the
+    trajectory's end before its closing half-kick, ``eps`` the step size, ``u``
+    the (C,) accept uniforms.  ``n_post > 0`` is the post-warmup draw count
+    of the running mean; ``n_post == 0`` is warmup, which packs ``stats =
+    [harmonic mean, ChEES gradient]`` for the host's one read (``h`` the
+    trajectory's jitter; ``h=None`` leaves the gradient 0) and, given
+    ``welford = (mean, m2, ratio_mean, ratio_m2)``, folds the selected z
+    into the pooled accumulator.  Returns ``(z, pe, grad, energy,
+    accept_prob, diverging, mean_accept_prob, stats, (mean, m2))``; in
+    warmup the mean is ``accept_prob`` itself, after it ``stats`` and the
+    fold are ``None``."""
+    r0 = n / torch.sqrt(m_inv)  # momentum_sample
+    # kinetic_energy, 0.5 r . (m_inv r), of the opening and closing momenta
+    energy_cur = pe0 + 0.5 * torch.sum(r0 * (m_inv * r0), -1)
+    r1 = r - 0.5 * eps * g1  # the closing half-kick
+    energy_new = pe1 + 0.5 * torch.sum(r1 * (m_inv * r1), -1)
+    delta = torch.where(torch.isnan(energy_new), math.inf,
+                        energy_new - energy_cur)
+    accept_prob = torch.clamp(torch.exp(-delta), max=1.0)
+    diverging = delta > max_delta_energy
+    accept = u < accept_prob
+    acc2 = accept[:, None]
+    z = torch.where(acc2, z1, z0)
+    pe = torch.where(accept, pe1, pe0)
+    grad = torch.where(acc2, g1, g0)
+    energy = torch.where(accept, energy_new, energy_cur)
+    if n_post > 0:
+        mean_ap = mean_accept_prob \
+            + (accept_prob - mean_accept_prob) / n_post
+        return z, pe, grad, energy, accept_prob, diverging, mean_ap, None, \
+            None
+    parts = [harmonic_mean_accept(accept_prob)]
+    if h is None:
+        parts.append(torch.zeros_like(parts[0]))
+    else:
+        weights = torch.where(diverging, 0.0, accept_prob)
+        parts.append(chees_gradient(float(h), z0, z1, m_inv * r1, weights))
+    folded = None
+    if welford is not None:
+        mean, m2, ratio_mean, ratio_m2 = welford
+        folded = welford_merge(mean, m2, *welford_moments(z), ratio_mean,
+                               ratio_m2)
+    return z, pe, grad, energy, accept_prob, diverging, accept_prob, \
+        torch.stack(parts), folded
+
+
+_ACCEPT = {torch.float32: "chees_accept_f32",
+           torch.float64: "chees_accept_f64"}
+# flags of csrc/chees.cu
+_STATS, _GRAD, _FOLD = 1, 2, 4
+
+
+def _accept_lib():
+    lib = _build.load("chees")
+    if lib.chees_accept_f32.argtypes is None:
+        for fn in (lib.chees_accept_f32, lib.chees_accept_f64):
+            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_double] * 4 \
+                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 14
+            fn.restype = ctypes.c_int
+        lib.chees_accept_ctas.argtypes = [ctypes.c_longlong,
+                                          ctypes.c_longlong, ctypes.c_int]
+        lib.chees_accept_ctas.restype = ctypes.c_int
+        lib.chees_accept_max_chains.restype = ctypes.c_int
+    return lib
+
+
+# CTAs of a launch per (device, C, D, dtype): the cooperative grid's size
+_CTAS = {}
+
+
+def chees_accept_cuda(z0, pe0, g0, n, m_inv, z1, r, pe1, g1, eps, u,
+                      max_delta_energy, mean_accept_prob, n_post, h=None,
+                      welford=None, sums=None):
+    """Launch ``chees_accept`` (``csrc/chees.cu``) once on the current
+    stream: a cooperative grid of column tiles, each with all C rows of its
+    columns.  The arguments and results are :func:`chees_accept_ref`'s;
+    ``eps`` is read from a one-element device tensor (a host number is
+    staged there); the fold's ``(mean, m2)`` are fresh tensors.  ``sums``, a
+    (C, 5) tensor, receives the five sums over D of each chain, rounded to
+    its dtype: ke0, ke1, |z1c|^2, |z0c|^2, z1c . v1 (0 without the
+    gradient).  The selections, the running mean, the harmonic mean and the
+    fold are bit-identical to the plain version's on the card for the same
+    accept_prob; the sums are taken in double, in another order.  Raises on
+    a wrong device, dtype, shape or layout, on more chains than the kernel
+    takes, and on a failed build or launch."""
+    name = "chees_accept_cuda"
+    n_post = int(n_post)
+    if n_post < 0:
+        raise ValueError(f"{name}: n_post must be >= 0, got {n_post}")
+    if n_post > 0 and (h is not None or welford is not None):
+        raise ValueError(f"{name}: the gradient and the Welford fold are "
+                         "warmup's (n_post == 0)")
+    per_chain = dict(pe0=pe0, pe1=pe1, u=u)
+    if n_post > 0:
+        per_chain["mean_accept_prob"] = mean_accept_prob
+    fold = {}
+    if welford is not None:
+        fold = dict(wf_mean=welford[0], wf_m2=welford[1])
+    check_ensemble(name, _ACCEPT, z0, g0=g0, n=n, m_inv=m_inv, z1=z1, r=r,
+                   g1=g1, **per_chain, **fold)
+    rows, cols = z0.shape
+    if sums is not None:
+        if sums.shape != (rows, 5) or sums.dtype != z0.dtype \
+                or sums.device != z0.device or not sums.is_contiguous():
+            raise ValueError(f"{name}: sums must be a contiguous "
+                             f"{z0.dtype} ({rows}, 5) tensor on {z0.device}")
+    lib = _accept_lib()
+    if rows > lib.chees_accept_max_chains():
+        raise ValueError(f"{name}: {rows} chains, at most "
+                         f"{lib.chees_accept_max_chains()}")
+    eps = _device_scalar(eps, "eps", z0, name)
+    key = (z0.device.index, rows, cols, z0.dtype)
+    ctas = _CTAS.get(key)
+    if ctas is None:
+        with torch.cuda.device(z0.device):
+            ctas = lib.chees_accept_ctas(rows, cols,
+                                         int(z0.dtype == torch.float64))
+        if ctas < 1:
+            raise RuntimeError(f"{name}: no launch fits ({rows}, {cols})")
+        _CTAS[key] = ctas
+    flags = 0 if n_post else _STATS | (_GRAD if h is not None else 0) \
+        | (_FOLD if welford is not None else 0)
+    z, grad = torch.empty_like(z0), torch.empty_like(g0)
+    pe, energy, accept_prob = (torch.empty_like(pe0) for _ in range(3))
+    diverging = torch.empty(rows, dtype=torch.bool, device=z0.device)
+    mean_out = torch.empty_like(pe0) if n_post else None
+    stats = None if n_post else torch.empty(2, dtype=z0.dtype,
+                                            device=z0.device)
+    folded = None if welford is None else (torch.empty_like(welford[0]),
+                                           torch.empty_like(welford[1]))
+    if sums is None:
+        sums = torch.empty((rows, 5), dtype=z0.dtype, device=z0.device)
+    # the gradient's weighted column means of z0 and z1
+    colmean = None if h is None or n_post else torch.empty(
+        2 * cols, dtype=z0.dtype, device=z0.device)
+    part = torch.empty(ctas * 5 * rows, dtype=torch.float64,
+                       device=z0.device)
+    ratios = (0.0, 0.0) if welford is None else (float(welford[2]),
+                                                  float(welford[3]))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    stream = torch.cuda.current_stream(z0.device).cuda_stream
+    with torch.cuda.device(z0.device):
+        rc = getattr(lib, _ACCEPT[z0.dtype])(
+            z0.data_ptr(), pe0.data_ptr(), g0.data_ptr(), n.data_ptr(),
+            m_inv.data_ptr(), z1.data_ptr(), r.data_ptr(), pe1.data_ptr(),
+            g1.data_ptr(), eps.data_ptr(), u.data_ptr(),
+            ptr(mean_accept_prob if n_post else None),
+            ptr(fold.get("wf_mean")), ptr(fold.get("wf_m2")),
+            float(max_delta_energy), 0.0 if h is None else float(h),
+            *ratios, n_post, flags, rows, cols, ctas, z.data_ptr(),
+            pe.data_ptr(), grad.data_ptr(), energy.data_ptr(),
+            accept_prob.data_ptr(), diverging.data_ptr(), ptr(mean_out),
+            ptr(stats), *(ptr(t) for t in folded or (None, None)),
+            sums.data_ptr(), ptr(colmean), part.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"chees_accept kernel launch failed: cudaError "
+                           f"{rc}")
+    chees_accept_cuda.launches += 1
+    mean_ap = mean_out if n_post else accept_prob
+    return z, pe, grad, energy, accept_prob, diverging, mean_ap, stats, \
+        folded
+
+
+chees_accept_cuda.launches = 0

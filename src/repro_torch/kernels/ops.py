@@ -32,7 +32,9 @@ does around or in a loop over a ported op: ``enum_chain``, the T-1
 ``enum_chain_bwd`` in ``BACKWARD``; ``nuts_leaf``, a NUTS leaf's closing
 kick, energy, momentum sum, checkpoint or U-turn dots and the next leaf's
 ``leapfrog_halfstep``, and ``nuts_turning``, a merged tree's U-turn dots;
-``mala_accept``, the MALA/RWM accept step after ``mala_step``'s proposal.
+``mala_accept``, the MALA/RWM accept step after ``mala_step``'s proposal;
+``chees_open``, a ChEES trajectory's momentum draw and opening half-kick in
+row 3's kernel, and ``chees_accept``, the transition's close after it.
 They are routed like the rest and their launches are counted with them.
 """
 from __future__ import annotations
@@ -151,6 +153,15 @@ FUSED = {spec.name: spec for spec in (
     # the same accept_prob; accept_prob within 1e-6 relative
     OpSpec("mala_accept", rwm_mala.mala_accept_cuda, rwm_mala.mala_accept_ref,
            "cuda", _I + "mala.py:184", False, 1e-6),
+    # row 3's kernel with momentum_sample in front: bit-identical
+    OpSpec("chees_open", leapfrog.chees_open_cuda, leapfrog.chees_open_ref,
+           "cuda", _K + "leapfrog.py:104", True, 0.0),
+    # selections, the running mean, the harmonic mean and the Welford fold
+    # bit-identical for the same accept_prob; the sums over D within 1e-6
+    # relative
+    OpSpec("chees_accept", leapfrog.chees_accept_cuda,
+           leapfrog.chees_accept_ref, "cuda", _I + "ensemble.py:339", False,
+           1e-6),
 )}
 
 
@@ -233,12 +244,39 @@ def leapfrog_halfstep(z, r, grad, m_inv, eps):
     return _route("leapfrog_halfstep", z)(z, r, grad, m_inv, eps)
 
 
-def leapfrog_halfstep_batch(z, r, grad, m_inv, eps, kick=0.5):
+def leapfrog_halfstep_batch(z, r, grad, m_inv, eps, kick=0.5, out=None):
     """Chain-batched leapfrog kick + drift over a (C, D) ensemble with a
     shared (D,) ``m_inv``: ``r' = r - (kick * eps) * g``, ``z' = z + eps *
     (r' * m_inv)``; ``kick`` 0.5 is a half-kick, 1.0 the merged kick between
-    interior steps; ``eps`` a host number -> (z', r')."""
-    return _route("leapfrog_halfstep_batch", z)(z, r, grad, m_inv, eps, kick)
+    interior steps; ``eps`` a host number or a one-element device tensor
+    -> (z', r'), into ``out = (z_out, r_out)`` when given (it may be ``(z,
+    r)``)."""
+    return _route("leapfrog_halfstep_batch", z)(z, r, grad, m_inv, eps, kick,
+                                                out)
+
+
+def chees_open(z, n, grad, m_inv, eps, out=None):
+    """A ChEES trajectory's opening over a (C, D) ensemble: momenta ``r =
+    n / sqrt(m_inv)`` from the standard-normal draw ``n``, then the
+    half-kick and drift of :func:`leapfrog_halfstep_batch` -> (z', r'),
+    into ``out`` when given (``out[0]`` may be ``z``)."""
+    return _route("chees_open", z)(z, n, grad, m_inv, eps, out)
+
+
+def chees_accept(z0, pe0, g0, n, m_inv, z1, r, pe1, g1, eps, u,
+                 max_delta_energy, mean_accept_prob, n_post, h=None,
+                 welford=None):
+    """The close of a ChEES transition after its trajectory (``z1``, ``r``,
+    ``pe1``, ``g1`` before the closing half-kick): the energies, the
+    Metropolis test, the selection and the running mean (``n_post > 0``), or
+    in warmup (``n_post == 0``) the packed ``[harmonic mean, ChEES
+    gradient]`` (``h`` the jitter; None: no gradient) and the Welford fold
+    (``welford = (mean, m2, ratio_mean, ratio_m2)``) -> ``(z, pe, grad,
+    energy, accept_prob, diverging, mean_accept_prob, stats, (mean,
+    m2))``."""
+    return _route("chees_accept", z0)(z0, pe0, g0, n, m_inv, z1, r, pe1, g1,
+                                      eps, u, max_delta_energy,
+                                      mean_accept_prob, n_post, h, welford)
 
 
 def nuts_leaf(r_half, z, grad, pe, m_inv, eps, r_sum, r_ckpts, r_sum_ckpts,
@@ -304,6 +342,16 @@ def enum_chain(alpha0, mats):
     chain on a card, the plain chain on the CPU
     (:class:`~repro_torch.kernels.enum_contract.EnumChain`)."""
     return _enum_contract.EnumChain.apply(alpha0, mats)
+
+
+def counters() -> list:
+    """Every launch counter as ``(object, attribute)``: each kernel's
+    ``launches`` (``launch_counts``; a stand-in without one has none), the
+    GLM kernel's chain evaluations and the random walk's proposals."""
+    return [(kernel, "launches") for kernel in _counted().values()
+            if hasattr(kernel, "launches")] + [
+        (glm_potential.glm_potential_grad_cuda, "chain_evals"),
+        (rwm_mala.mala_step_cuda, "launches_without_grad")]
 
 
 def launch_counts() -> dict:

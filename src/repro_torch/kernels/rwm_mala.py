@@ -26,7 +26,8 @@ import math
 import torch
 
 from . import _build
-from .leapfrog import check_ensemble, fold_ticket, host_scalar
+from .leapfrog import (check_ensemble, fold_ticket, harmonic_mean_accept,
+                       host_scalar)
 
 _DTYPES = {torch.float32: "mala_step_f32", torch.float64: "mala_step_f64"}
 
@@ -82,27 +83,6 @@ def mala_step_cuda(z, grad, noise, m_inv, eps):
 mala_step_cuda.launches = 0
 # of those, the random walk's (the variant that reads no gradient)
 mala_step_cuda.launches_without_grad = 0
-
-
-def chain_sum(x):
-    """Sum over the leading (chain) axis by the JAX package's fixed pairwise
-    fold (halves added, an odd row carried), not ``torch.sum``: the pooled
-    statistics then have the reference's association exactly."""
-    while x.shape[0] > 1:
-        n = x.shape[0]
-        half = n // 2
-        folded = x[:half] + x[half:2 * half]
-        if n % 2:
-            folded = torch.cat([folded, x[2 * half:]], 0)
-        x = folded
-    return x[0]
-
-
-def harmonic_mean_accept(accept_prob):
-    """The chains' harmonic-mean accept probability (the worst chains
-    dominate), on the device."""
-    return 1.0 / (chain_sum(1.0 / torch.clamp(accept_prob, min=1e-10))
-                  / accept_prob.shape[0])
 
 
 def mala_accept_ref(z, pe, grad, z_new, pe_new, grad_new, noise, m_inv, u,

@@ -7,7 +7,8 @@ import pytest
 import torch
 
 from chip_smoke import (ENS_SHAPES, NUTS_LEAVES, NUTS_SIZES, accept_operands,
-                        accept_prob_tolerance, leaf_scales, same_bits)
+                        accept_prob_tolerance, chees_checks, leaf_scales,
+                        same_bits, trajectory_checks)
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels.enum_contract import (EnumContract,
@@ -21,7 +22,8 @@ from repro_torch.kernels.enum_contract import (EnumContract,
                                                enum_contract_ref)
 from repro_torch.kernels.glm_potential import (glm_potential_grad_cuda,
                                                glm_potential_grad_ref)
-from repro_torch.kernels.leapfrog import (leapfrog_halfstep_batch_cuda,
+from repro_torch.kernels.leapfrog import (chees_accept_cuda, chees_open_cuda,
+                                          leapfrog_halfstep_batch_cuda,
                                           leapfrog_halfstep_batch_ref,
                                           leapfrog_halfstep_cuda,
                                           leapfrog_halfstep_ref,
@@ -336,7 +338,8 @@ ENSEMBLE_SHAPES = [(8, 54), (16, 54), (1, 1), (3, 130), (5, 4097)]
 def test_ensemble_kernels_match_plain_on_card(dtype):
     """The batch leapfrog (kick 0.5 and 1.0) and the MALA/RWM proposal
     (with and without grad) against their plain versions within OP_TABLE's
-    1e-6; each launch counted; a device-tensor eps and a bad kick refused."""
+    1e-6; each launch counted; the batch leapfrog's eps read from a device
+    tensor as from the host number it stages; a bad kick refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -361,11 +364,86 @@ def test_ensemble_kernels_match_plain_on_card(dtype):
     n = len(ENSEMBLE_SHAPES)
     assert counts["leapfrog_halfstep_batch"] == 2 * n
     assert counts["mala_step"] == 2 * n
-    with pytest.raises(ValueError, match="host number"):
+    on_card = leapfrog_halfstep_batch_cuda(
+        z, r, g, m_inv, torch.tensor([0.1], dtype=dtype, device=dev))
+    by_value = leapfrog_halfstep_batch_cuda(z, r, g, m_inv, 0.1)
+    assert all(same_bits(a, b) for a, b in zip(on_card, by_value))
+    with pytest.raises(ValueError, match="eps"):
         leapfrog_halfstep_batch_cuda(z, r, g, m_inv,
-                                     torch.tensor(0.1, device=dev))
+                                     torch.zeros(2, dtype=dtype, device=dev))
     with pytest.raises(ValueError, match="kick"):
         leapfrog_halfstep_batch_cuda(z, r, g, m_inv, 0.1, 0.25)
+
+
+def test_chees_wrappers_refuse_cpu_tensors():
+    zz, c, m = torch.zeros(2, 4), torch.zeros(2), torch.ones(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        chees_open_cuda(zz, zz, zz, m, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        chees_accept_cuda(zz, c, zz, zz, m, zz, zz, c, zz, 0.1, c, 1000.0, c,
+                          3)
+    with pytest.raises(ValueError, match="n_post"):
+        chees_accept_cuda(zz, c, zz, zz, m, zz, zz, c, zz, 0.1, c, 1000.0, c,
+                          3, h=0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chees_kernels_match_plain_on_card(dtype):
+    """Row 3 with its device eps bit-identical to the by-value form and the
+    plain version; ``chees_open`` and ``chees_accept`` (after warmup, in
+    warmup, with the gradient, the Welford fold, an all-divergent
+    ensemble) against their plain versions at the ensembles' shapes: the
+    sums over D within 1e-6 of their terms, the rest bit-identical for the
+    kernel's accept_prob (``chip_smoke.chees_checks``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    results, _ = chees_checks(torch.device("cuda"), ENSEMBLE_SHAPES,
+                              (dtype,))
+    assert len(results) == 7 * len(ENSEMBLE_SHAPES)
+
+
+@pytest.mark.cuda
+def test_graphed_chees_trajectory_matches_eager_on_card():
+    """The CUDA-graph replays of ChEES's trajectory bit-identical to the
+    same functions run eagerly, 1 and 5 steps at 8 chains, and the launch
+    counters moved by what ran (``chip_smoke.trajectory_checks``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA graphs have no CPU mode")
+    from repro_torch.bench.models import covtype_data
+    results = trajectory_checks(torch.device("cuda"),
+                                covtype_data(seed=0, n=4000, d=54))
+    assert [r["steps"] for r in results] == [1, 5, 5]
+    assert results[-1]["graph_replays"] == {"opening": 2, "interior": 7}
+
+
+@pytest.mark.cuda
+def test_chees_run_replays_its_trajectory_on_card():
+    """A ChEES run on the card: its trajectory replays from the two graphs,
+    one ``chees_open`` and one ``chees_accept`` a transition, the batch
+    leapfrog once an interior step, every counter equal to what ran."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA graphs have no CPU mode")
+    from repro_torch.bench.models import covtype_data, logreg_model_glm
+    from repro_torch.core.infer import MCMC, ChEES
+    data = covtype_data(seed=0, n=4000, d=6)
+    ops.reset_launch_counts()
+    mcmc = MCMC(ChEES(logreg_model_glm), num_warmup=40, num_samples=20,
+                num_chains=4)
+    mcmc.run(0, data["x"], y=data["y"])
+    counts, stats = ops.launch_counts(), mcmc.stats
+    iterations, leapfrogs = stats["num_iterations"], stats["num_leapfrog"]
+    assert stats["trajectory_graph"] is True
+    assert counts["chees_open"] == counts["chees_accept"] == iterations
+    assert counts["leapfrog_halfstep_batch"] == leapfrogs - iterations
+    replays, eager = stats["graph_replays"], stats["graph_eager_bodies"]
+    assert replays["opening"] + eager["opening"] == iterations
+    assert replays["interior"] + eager["interior"] == leapfrogs - iterations
+    init = stats["init_grad_evals"]
+    assert stats["num_grad_evals"] == 4 * leapfrogs + init
+    assert counts["glm_potential_grad"] == leapfrogs + init + 1
+    w = mcmc.get_samples()["w"]
+    assert w.shape == (80, 6) and bool(torch.isfinite(w).all())
 
 
 def test_fused_step_wrappers_refuse_cpu_tensors():
