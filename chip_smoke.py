@@ -22,8 +22,8 @@ result line if any fails):
    batch leapfrog and the MALA/RWM proposal also at (64, 1,000,003); the
    GLM kernel at C = 1, 8 and 16 chains a call, each chain bit-identical
    to a 1-chain call, timed at each C beside its bound; the NUTS leaf ops
-   ``nuts_leaf``/``nuts_turning`` at the three NUTS paths' D, ragged D and
-   1,000,003, every leaf kind, vectors bit-identical and sums within 1e-6
+   ``nuts_leaf``/``nuts_turning`` at the NUTS paths' D (SKIM's 260 too),
+   ragged D and 1,000,003, every leaf kind, vectors bit-identical and sums within 1e-6
    of their terms; ``mala_accept`` at the ensembles' shapes, MALA and RWM,
    in warmup and after, with divergent chains, the selections, running
    mean and harmonic mean bit-identical for the kernel's accept_prob; the
@@ -42,7 +42,17 @@ result line if any fails):
    50)`` at K = 8, T = 120, V = 16, whose states ``markov`` sums out
    through the chain kernels (one launch of each per gradient); and the
    paper's semi-supervised ``hmm_model`` at T = 600, T_sup = 100, K = 3,
-   V = 10 (50 warmup + 20 draws), each NUTS run gated on exactly one
+   V = 10 (50 warmup + 20 draws); SKIM, the third paper model,
+   ``MCMC(NUTS(skim_model, max_tree_depth=8), 100, 100)`` at p = 256, n =
+   200 through the generic autograd potential (the library's Cholesky
+   factor and triangular solve), gated on finite draws, at most 1 %
+   divergent and the 6 planted dimensions the 6 largest posterior-median
+   ``lambda``, then 4 transitions profiled in a fresh process from its
+   adapted state (device ms by kernel, the Cholesky and the solves named);
+   the README's eight schools, non-centered by ``reparam`` with
+   ``LocScaleReparam(0.0)``, NUTS 4 chains 150 + 200, gated on split
+   R-hat < 1.05, then ``Predictive`` of ``obs`` on the card, (800, 8) and
+   finite; each NUTS run gated on exactly one
    ``nuts_leaf`` launch a leapfrog of its trees and ``leapfrog_halfstep``
    opening every subtree; then the ensemble samplers on the same logreg
    data: ``MCMC(ChEES(logreg_model_glm), 300, 1500, num_chains=8)``
@@ -176,13 +186,29 @@ RHAT_MAX = 1.01  # tests/test_ensemble.py:144's gate
 ENS_CHEES, ENS_MRW, ENS_LARGE = (CHEES_CHAINS, D), (MRW_CHAINS, D), \
     (64, 1_000_003)
 ENS_SHAPES = (ENS_CHEES, ENS_MRW, (1, 1), (3, 130), (5, 4097), ENS_LARGE)
+# SKIM at benchmarks/skim.py:17's largest p and its --quick draws: p = 256
+# features (D = p + 4 latents), n = 200 rows, 3 planted interactions,
+# NUTS at max_tree_depth 8, at most 1 % of draws divergent
+SKIM_P, SKIM_N, SKIM_INTER = 256, 200, 3
+SKIM_WARMUP, SKIM_DRAWS = 100, 100
+SKIM_DIVERGENT_MAX = 0.01
+# its profile's transitions (~63 leapfrogs each once adapted): the
+# profiler's post-processing of SKIM's ~268 device kernels a leapfrog is
+# slow on the card's host (20 transitions, 4,141 leapfrogs, took ~275 s in
+# their process), so 4, not 20
+SKIM_PROFILE_TRANSITIONS = 4
+# eight schools, non-centered by LocScaleReparam: NUTS, 4 chains one after
+# another, 150 + 200, split R-hat under the example's cut
+# (examples/eight_schools.py:43, :99)
+ES_CHAINS, ES_WARMUP, ES_DRAWS = 4, 150, 200
+ES_RHAT_MAX = 1.05
 # the NUTS leaf ops: the main paths' D (logreg, the enumerated HMM, the
-# semi-supervised HMM), ragged ones and a large one (264 CTAs and the
+# semi-supervised HMM, SKIM), ragged ones and a large one (264 CTAs and the
 # ticket fold); leaf kinds (r_sum given, ckpt_i, (idx_min, idx_max)): a
 # subtree's first leaf, an even leaf, odd leaves with 1, 3 and 6 checkpoint
 # rows (6 takes two passes); timed: an odd leaf with one row (an odd leaf
 # reads one on average) at the logreg's D
-NUTS_SIZES = (D, 176, 33, 1, 4097, 1_000_003)
+NUTS_SIZES = (D, 176, 33, SKIM_P + 4, 1, 4097, 1_000_003)
 NUTS_LEAVES = ((False, 0, None), (True, 3, None), (True, None, (4, 4)),
                (True, None, (0, 2)), (True, None, (1, 6)))
 NUTS_TIMED = (True, None, (2, 2))
@@ -1527,7 +1553,8 @@ def ensemble_bound(name, variant, c, d):
     return bound(4 * (3 * cells + d), 2 * cells + 2 * d, torch.float32)
 
 
-def profile_transitions(mcmc, num, kernels=None):
+def profile_transitions(mcmc, num, kernels=None, named=None,
+                        host_ops=True):
     """Device busy share and device time per leapfrog over ``num`` more
     sampling transitions of the adapted chain (or ensemble: there a
     "leapfrog" moves every chain, and a MALA/RWM proposal counts as one),
@@ -1535,7 +1562,10 @@ def profile_transitions(mcmc, num, kernels=None):
     time is not the run's.  ``kernels`` (op name -> a substring of its
     device kernel's name) adds, per op, the profiler's count of that
     kernel and the op's launch counter's increase over the same
-    transitions."""
+    transitions; ``named`` (label -> substrings of device kernel names,
+    matched without case) adds each label's device ms and launches per
+    leapfrog.  ``host_ops=False`` records the device activity alone (the
+    host ops' events of a long window take minutes to aggregate)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1548,8 +1578,10 @@ def profile_transitions(mcmc, num, kernels=None):
     torch.cuda.synchronize()
     leapfrogs = 0
     counts0 = ops.launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(num):
             state = sample(setup, state, draws)
@@ -1573,6 +1605,14 @@ def profile_transitions(mcmc, num, kernels=None):
         "top_device_kernels": [
             {"name": k[:80], "ms_per_leapfrog": t / 1e3 / leapfrogs,
              "launches_per_leapfrog": c / leapfrogs} for t, c, k in top]}
+    if named:
+        out["named_kernels"] = {}
+        for label, subs in named.items():
+            hit = [(t, c) for t, c, k in rows
+                   if any(sub in k.lower() for sub in subs)]
+            out["named_kernels"][label] = {
+                "ms_per_leapfrog": sum(t for t, _ in hit) / 1e3 / leapfrogs,
+                "launches_per_leapfrog": sum(c for _, c in hit) / leapfrogs}
     if kernels:
         out["kernel_counts"] = {
             name: {"profiler": sum(c for _, c, k in rows if sub in k),
@@ -2023,11 +2063,12 @@ def chees_profile_check():
     return profile_transitions(mcmc, 20, CHEES_KERNELS)["kernel_counts"]
 
 
-def in_fresh_process(name):
-    """``chip_smoke.<name>()`` run in a new Python process (the kernels are
-    built already); its JSON result."""
+def in_fresh_process(name, *args):
+    """``chip_smoke.<name>(*args)`` run in a new Python process (the kernels
+    are built already; ``args`` are JSON values); its JSON result."""
     code = ("import json, sys; sys.path.insert(0, %r); import chip_smoke; "
-            "print('RESULT ' + json.dumps(chip_smoke.%s()))" % (HERE, name))
+            "print('RESULT ' + json.dumps(chip_smoke.%s(*json.loads(%r))))"
+            % (HERE, name, json.dumps(args)))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=600, cwd=HERE)
     lines = [ln for ln in proc.stdout.splitlines()
@@ -3512,9 +3553,174 @@ def ssm_kernel_rows(checks, timing, ssm):
                 "TPU kernel"}]
 
 
+# device kernels of SKIM's gradient named in its profile: the library's
+# Cholesky factor and triangular solves (forward and backward), the
+# products, and the NUTS leaf kernels
+SKIM_NAMED = {"cholesky (cusolver potrf)": ("potrf", "getrf", "cholesky"),
+              "triangular solve (trsm/trsv)": ("trsm", "trsv"),
+              "matrix products (gemm)": ("gemm", "gemv"),
+              "nuts_leaf": ("nuts_leaf",),
+              "leapfrog_halfstep": ("leapfrog_halfstep",),
+              "nuts_turning": ("nuts_turning",)}
+
+
+def skim_planted_gate(lam_draws, true_pairs):
+    """Are the ``2 * n_inter`` dimensions of largest posterior-median
+    ``lambda`` exactly the planted ones?  Returns ``(ok, top)``."""
+    planted = np.unique(np.asarray(true_pairs).ravel())
+    med = np.median(np.asarray(lam_draws).reshape(-1, lam_draws.shape[-1]),
+                    axis=0)
+    top = np.argsort(-med, kind="stable")[:planted.size]
+    return bool(set(top.tolist()) == set(planted.tolist())), top.tolist()
+
+
+def skim_profile(state_path):
+    """``SKIM_PROFILE_TRANSITIONS`` profiled SKIM transitions
+    (``profile_transitions`` with ``SKIM_NAMED``, device activity alone)
+    from the adapted chain state
+    ``run_skim`` saved to ``state_path``, through a setup built as
+    ``MCMC.run`` builds it."""
+    from types import SimpleNamespace
+
+    from repro_torch.bench.models import skim_data, skim_model
+    from repro_torch.core.infer import NUTS
+    data = skim_data(SKIM_P, seed=0, n=SKIM_N, n_inter=SKIM_INTER)
+    dev = torch.device("cuda")
+    setup = NUTS(skim_model, max_tree_depth=8).setup(
+        torch.Generator().manual_seed(0), SKIM_WARMUP,
+        model_args=(torch.from_numpy(data["x"]).to(dev),),
+        model_kwargs={"y": torch.from_numpy(data["y"]).to(dev)})
+    state = torch.load(state_path, weights_only=False)
+    mcmc = SimpleNamespace(kernel_setup=setup, last_state=[state])
+    return profile_transitions(mcmc, SKIM_PROFILE_TRANSITIONS,
+                               named=SKIM_NAMED, host_ops=False)
+
+
+def run_skim(dev):
+    """The third paper model: SKIM at p = 256, n = 200 under NUTS, through
+    the generic autograd potential (five prior terms with their
+    transforms, the kernel matrix, the library's Cholesky factor and
+    triangular solve), one ``nuts_leaf`` launch a leapfrog.  Gates: finite
+    draws, at most 1 % divergent, the planted dimensions the largest
+    posterior-median ``lambda``, the tree's launches; then a profile in a
+    fresh process."""
+    import tempfile
+
+    from repro_torch.bench.models import skim_data, skim_model
+    from repro_torch.core.infer import MCMC, NUTS, effective_sample_size
+    from repro_torch.kernels import ops
+
+    data = skim_data(SKIM_P, seed=0, n=SKIM_N, n_inter=SKIM_INTER)
+    reset_peak(dev)
+    ops.reset_launch_counts()
+    mcmc = MCMC(NUTS(skim_model, max_tree_depth=8), num_warmup=SKIM_WARMUP,
+                num_samples=SKIM_DRAWS)
+    mcmc.run(0, data["x"], y=data["y"])
+    counts = ops.launch_counts()
+    stats = mcmc.stats
+    samples = mcmc.get_samples(group_by_chain=True)
+    extra = mcmc.get_extra_fields()
+    lf = stats["num_leapfrog"]
+    lam = samples["lambda"].detach().cpu().numpy()
+    finite = all(bool(torch.isfinite(v).all()) for v in samples.values())
+    divergences = int(extra["diverging"].sum())
+    planted_ok, top = skim_planted_gate(lam, data["true_pairs"])
+    out = {
+        "p": SKIM_P, "n": SKIM_N, "n_inter": SKIM_INTER,
+        "num_warmup": SKIM_WARMUP, "num_samples": SKIM_DRAWS,
+        "setup_seconds": stats["setup_seconds"],
+        "chain_seconds": stats["chain_seconds"], "num_leapfrog": lf,
+        "ms_per_leapfrog": 1e3 * stats["chain_seconds"] / lf,
+        "num_grad_evals": stats["num_grad_evals"],
+        "ms_per_grad_eval": 1e3 * stats["chain_seconds"]
+        / stats["num_grad_evals"],
+        "mean_num_steps": float(extra["num_steps"].float().mean()),
+        "host_syncs_per_leapfrog": stats["host_syncs"] / lf,
+        "launches": counts,
+        "mean_accept_prob": float(extra["accept_prob"].float().mean()),
+        "step_size": float(extra["step_size"][-1]),
+        "divergences": divergences,
+        "true_pairs": np.asarray(data["true_pairs"]).tolist(),
+        "top_median_lambda": top,
+        "min_ess_lambda": float(np.min(effective_sample_size(lam))),
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+    }
+    print("SKIM NUTS:", json.dumps(out), flush=True)
+    check(finite, "a SKIM draw is not finite")
+    check(divergences <= SKIM_DIVERGENT_MAX * SKIM_DRAWS,
+          f"{divergences} of {SKIM_DRAWS} SKIM draws divergent")
+    check(planted_ok, f"the largest posterior-median lambda are {top}, not "
+          f"the planted {out['true_pairs']}")
+    tree_gates(counts, stats)
+    # in a fresh process (late in this long one the profiler loses
+    # records), from this run's adapted state
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "skim_state.pt")
+        torch.save(mcmc.last_state[0], path)
+        out["profile"] = in_fresh_process("skim_profile", path)
+    print("SKIM profile (fresh process):", json.dumps(out["profile"]),
+          flush=True)
+    return out, counts
+
+
+def run_eight_schools(dev):
+    """The README's eight schools, non-centered by ``reparam`` with
+    ``LocScaleReparam(0.0)``: NUTS, 4 chains one after another, gated on
+    split R-hat < 1.05 for every site and the tree's launches; then
+    ``Predictive`` of the posterior on the card, gated on the shape and
+    finiteness of ``obs``."""
+    from repro_torch.bench.models import eight_schools, eight_schools_data
+    from repro_torch.core.handlers import reparam
+    from repro_torch.core.infer import MCMC, NUTS, Predictive, gelman_rubin
+    from repro_torch.core.reparam import LocScaleReparam
+    from repro_torch.kernels import ops
+
+    data = eight_schools_data()
+    model = reparam(eight_schools, config={"theta": LocScaleReparam(0.0)})
+    ops.reset_launch_counts()
+    mcmc = MCMC(NUTS(model), num_warmup=ES_WARMUP, num_samples=ES_DRAWS,
+                num_chains=ES_CHAINS, chain_method="sequential")
+    mcmc.run(0, data["sigma"], y=data["y"])
+    counts = ops.launch_counts()
+    stats = mcmc.stats
+    grouped = mcmc.get_samples(group_by_chain=True)
+    rhat = {k: float(np.max(gelman_rubin(v.detach().cpu().numpy())))
+            for k, v in grouped.items()}
+    lf = stats["num_leapfrog"]
+    t0 = time.perf_counter()
+    sigma = torch.from_numpy(data["sigma"]).to(dev)
+    post = Predictive(model, mcmc.get_samples())(1, sigma)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    obs = post["obs"]
+    out = {
+        "chains": ES_CHAINS, "num_warmup": ES_WARMUP, "num_samples": ES_DRAWS,
+        "chain_seconds": stats["chain_seconds"], "num_leapfrog": lf,
+        "ms_per_leapfrog": 1e3 * stats["chain_seconds"] / lf,
+        "host_syncs_per_leapfrog": stats["host_syncs"] / lf,
+        "launches": counts,
+        "divergences": int(mcmc.get_extra_fields()["diverging"].sum()),
+        "max_split_rhat_by_site": rhat,
+        "predictive_seconds": pred_s,
+        "predictive_obs_shape": list(obs.shape),
+        "predictive_obs_device": str(obs.device),
+        "predictive_theta_mean": post["theta"].mean(0).tolist(),
+    }
+    print("eight schools NUTS:", json.dumps(out), flush=True)
+    check(max(rhat.values()) < ES_RHAT_MAX,
+          f"max split R-hat {max(rhat.values())} >= {ES_RHAT_MAX}")
+    check(tuple(obs.shape) == (ES_CHAINS * ES_DRAWS, 8)
+          and obs.device.type == "cuda" and bool(torch.isfinite(obs).all()),
+          f"Predictive obs has shape {tuple(obs.shape)} on {obs.device} or "
+          "is not finite")
+    tree_gates(counts, stats)
+    return out, counts
+
+
 def run_samplers(dev):
     """The kernels of slices 1-3 against their plain versions, then their
-    main paths (NUTS logreg, the two HMMs, ChEES, MALA, RWM); returns their
+    main paths (NUTS logreg, the two HMMs, SKIM, eight schools, ChEES,
+    MALA, RWM); returns their
     rows of the kernel table and prints the seconds of each part."""
     part_s, t0 = {}, time.perf_counter()
     lf_checks, lf_timing, nuts_timing = leapfrog_checks(dev)
@@ -3556,6 +3762,10 @@ def run_samplers(dev):
     lap("enumerated HMM")
     hmm, hmm_counts = run_hmm(dev)
     lap("semi-supervised HMM")
+    skim, skim_counts = run_skim(dev)
+    lap("SKIM")
+    schools, schools_counts = run_eight_schools(dev)
+    lap("eight schools")
     print("graphed trajectory checks:", json.dumps(
         trajectory_checks(dev, data)), flush=True)
     chees, chees_counts = run_chees(dev, data)
@@ -3572,7 +3782,9 @@ def run_samplers(dev):
     times, (bound_ms, bound_by), err = lf_timing
     nuts_phases = {"NUTS": (path["adaptive"], counts),
                    "enumerated HMM": (enum_path, enum_counts),
-                   "semi-supervised HMM": (hmm, hmm_counts)}
+                   "semi-supervised HMM": (hmm, hmm_counts),
+                   "SKIM": (skim, skim_counts),
+                   "eight schools": (schools, schools_counts)}
     kernels.append({
         "name": "leapfrog_halfstep", "route": SPECS["leapfrog_halfstep"].route,
         "source": "src/repro_torch/csrc/leapfrog.cu",

@@ -1,15 +1,17 @@
 """The paper's benchmark models (Sec. 4) in the port's API: the counterparts
-of ``benchmarks/models.py``'s logistic regression, semi-supervised HMM and
-fully-latent (enumerated) HMM.
+of ``benchmarks/models.py``'s logistic regression, semi-supervised HMM,
+fully-latent (enumerated) HMM and SKIM, and ``examples/eight_schools.py``'s
+hierarchical model.
 
 Data is made from a seed with numpy, following the JAX package's recipes
 (which use ``jax.random``): CoverType-shaped logistic regression with
 features ~ N(0, 1), ``true_w ~ N(0, 0.5^2)``, ``y ~ Bernoulli(sigmoid(x @
 true_w))``; HMM chains started in state 0 with Dirichlet-drawn transition
-and emission matrices.  Each data function also returns the parameters that
+and emission matrices; SKIM's features ~ N(0, 1) with ``n_inter`` planted
+pairwise interactions.  Each data function also returns the parameters that
 generated it (``true_*``).  The model code mirrors the JAX models line for
 line, but for the semi-supervised HMM's forward pass, which multiplies the
-same steps out as a tree (see ``hmm_model``).  SKIM waits for its slice.
+same steps out as a tree (see ``hmm_model``).
 """
 from __future__ import annotations
 
@@ -145,3 +147,69 @@ def enum_hmm_model(data):
         return z
 
     markov(step, 0, w)
+
+
+# ---------------------------------------------------------------------------
+# SKIM — sparse kernel interaction model (Agrawal et al. 2019)
+# ---------------------------------------------------------------------------
+
+def skim_data(p, seed=0, n=200, n_inter=3):
+    """numpy float32 ``{"x": (n, p), "y": (n,), "true_pairs": (n_inter,
+    2)}``: features ~ N(0, 1); ``n_inter`` disjoint pairs of dimensions, the
+    first of each pair with a main effect of 1 and each pair's product an
+    interaction of weight 2; noise sd 0.1."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, p)).astype(np.float32)
+    pairs = rng.choice(p, size=(n_inter, 2), replace=False)
+    beta = np.zeros(p, np.float32)
+    beta[pairs[:, 0]] = 1.0
+    inter = np.prod(x[:, pairs], axis=-1) @ np.ones(n_inter, np.float32)
+    y = x @ beta + 2.0 * inter \
+        + np.float32(0.1) * rng.standard_normal(n).astype(np.float32)
+    return {"x": x, "y": y.astype(np.float32), "true_pairs": pairs}
+
+
+def skim_model(x, y=None):
+    """Kernel-trick formulation: per-dimension sparsity scales kappa with a
+    horseshoe-like prior; interactions live in the quadratic kernel."""
+    n, p = x.shape
+    lam = pc.sample("lambda", dist.HalfCauchy(x.new_ones(p)).to_event(1))
+    tau = pc.sample("tau", dist.HalfCauchy(x.new_ones(())))
+    eta1 = pc.sample("eta1", dist.HalfCauchy(x.new_ones(())))
+    c2 = pc.sample("c2", dist.InverseGamma(x.new_full((), 2.0), 2.0))
+    sigma = pc.sample("sigma", dist.HalfNormal(x.new_ones(())))
+    lam2 = lam ** 2
+    kappa = torch.sqrt(eta1 ** 2 * c2 * lam2 / (eta1 ** 2 + c2 * lam2))
+    xk = x * kappa * tau
+    # quadratic kernel captures main + pairwise effects (kernel trick)
+    k1 = xk @ xk.T
+    K = (k1 + 1.0) ** 2 - 1.0
+    K = K + (sigma ** 2 + 1e-4) * torch.eye(n, dtype=x.dtype, device=x.device)
+    pc.sample("y", dist.MultivariateNormal(x.new_zeros(n),
+                                           covariance_matrix=K), obs=y)
+
+
+# ---------------------------------------------------------------------------
+# eight schools (Rubin 1981): the hierarchical funnel of the README
+# ---------------------------------------------------------------------------
+
+def eight_schools_data():
+    """numpy float32 ``{"y": (8,), "sigma": (8,)}``: the schools' estimated
+    effects and their standard errors."""
+    return {"y": np.array([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0],
+                          np.float32),
+            "sigma": np.array([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0,
+                               18.0], np.float32)}
+
+
+def eight_schools(sigma, y=None):
+    """The centered model of ``examples/eight_schools.py``, with the
+    standard errors an argument (so they lie on the sampler's device);
+    ``reparam(eight_schools, config={"theta": LocScaleReparam(0.0)})`` is
+    its non-centered form."""
+    mu = pc.sample("mu", dist.Normal(sigma.new_zeros(()), 5.0))
+    tau = pc.sample("tau", dist.HalfCauchy(sigma.new_full((), 5.0)))
+    with pc.plate("J", sigma.shape[0]):
+        theta = pc.sample("theta", dist.Normal(mu, tau))
+        pc.sample("obs", dist.Normal(theta, sigma), obs=y)
+    return theta

@@ -3,7 +3,8 @@
 # library.  Inference lives in `repro_torch.core.infer`.
 from . import handlers, primitives
 from . import dist
-from .primitives import deterministic, param, plate, sample
+from . import reparam
+from .primitives import deterministic, param, plate, sample, subsample
 
-__all__ = ["dist", "handlers", "primitives", "sample", "param",
-           "deterministic", "plate"]
+__all__ = ["dist", "handlers", "primitives", "reparam", "sample", "param",
+           "deterministic", "plate", "subsample"]

@@ -6,11 +6,18 @@ constraint supports and a ``biject_to`` registry.  This package stays free
 of intra-``repro_torch.core`` imports other than ``errors``.
 """
 from . import constraints, transforms
-from .continuous import Delta, Dirichlet, Normal
-from .discrete import Bernoulli, Categorical
-from .distribution import Distribution, ExpandedDistribution, Independent
-from .transforms import biject_to
+from .continuous import (Beta, Cauchy, Delta, Dirichlet, Exponential, Gamma,
+                         HalfCauchy, HalfNormal, InverseGamma, LogNormal,
+                         MultivariateNormal, Normal, StudentT)
+from .discrete import Bernoulli, Categorical, DiscreteUniform
+from .distribution import (Distribution, ExpandedDistribution, Independent,
+                           TransformedDistribution)
+from .transforms import AffineTransform, biject_to
 
-__all__ = ["Bernoulli", "Categorical", "Delta", "Dirichlet", "Distribution",
-           "ExpandedDistribution", "Independent", "Normal", "biject_to",
-           "constraints", "transforms"]
+__all__ = ["AffineTransform", "Bernoulli", "Beta", "Categorical", "Cauchy",
+           "Delta", "Dirichlet", "DiscreteUniform", "Distribution",
+           "ExpandedDistribution", "Exponential", "Gamma", "HalfCauchy",
+           "HalfNormal", "Independent", "InverseGamma", "LogNormal",
+           "MultivariateNormal", "Normal", "StudentT",
+           "TransformedDistribution", "biject_to", "constraints",
+           "transforms"]

@@ -5,19 +5,18 @@ boolean tensor saying whether ``x`` lies in the support, with the trailing
 ``event_dim`` dimensions reduced away.  Constraints double as dispatch keys
 for :func:`repro_torch.core.dist.transforms.biject_to`.
 
-``positive``, ``positive_vector`` and ``unit_interval`` are here as
-parameter constraints (they tell ``expand`` each parameter's event rank);
-their bijections wait for the distributions slice.  ``simplex`` is both a
-parameter constraint and a support (``Dirichlet``), and ``integer_interval``
-the support of ``Categorical``.
+Every continuous constraint is a support with a bijection in
+:mod:`~repro_torch.core.dist.transforms` (``real``, ``positive``,
+``unit_interval``, ``interval``, ``simplex``, ``lower_cholesky``); the
+discrete ones (``boolean``, ``integer_interval``) have none.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["Constraint", "boolean", "integer_interval", "positive",
-           "positive_vector", "real", "real_vector", "simplex",
-           "unit_interval"]
+__all__ = ["Constraint", "boolean", "integer_interval", "interval",
+           "lower_cholesky", "positive", "positive_vector", "real",
+           "real_vector", "simplex", "unit_interval"]
 
 
 class Constraint:
@@ -57,10 +56,23 @@ class _PositiveVector(_Positive):
         return torch.all(torch.as_tensor(x) > 0, dim=-1)
 
 
-class _UnitInterval(Constraint):
+class _Interval(Constraint):
+    def __init__(self, lower_bound, upper_bound):
+        self.lower_bound = lower_bound
+        self.upper_bound = upper_bound
+
     def __call__(self, x):
         x = torch.as_tensor(x)
-        return (x >= 0) & (x <= 1)
+        return (x >= self.lower_bound) & (x <= self.upper_bound)
+
+    def __repr__(self):
+        return (f"interval(lower_bound={self.lower_bound}, "
+                f"upper_bound={self.upper_bound})")
+
+
+class _UnitInterval(_Interval):
+    def __init__(self):
+        super().__init__(0.0, 1.0)
 
 
 class _Boolean(Constraint):
@@ -90,6 +102,16 @@ class _Simplex(Constraint):
         return torch.all(x >= 0, dim=-1) & (torch.abs(x.sum(-1) - 1.0) < 1e-5)
 
 
+class _LowerCholesky(Constraint):
+    event_dim = 2
+
+    def __call__(self, x):
+        x = torch.as_tensor(x)
+        tril = torch.all(torch.abs(torch.triu(x, 1)) < 1e-6, dim=-1).all(-1)
+        pos_diag = torch.all(torch.diagonal(x, dim1=-2, dim2=-1) > 0, dim=-1)
+        return tril & pos_diag
+
+
 real = _Real()
 real_vector = _RealVector()
 positive = _Positive()
@@ -97,4 +119,6 @@ unit_interval = _UnitInterval()
 boolean = _Boolean()
 positive_vector = _PositiveVector()
 simplex = _Simplex()
+lower_cholesky = _LowerCholesky()
+interval = _Interval
 integer_interval = _IntegerInterval

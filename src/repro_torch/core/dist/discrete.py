@@ -3,15 +3,18 @@
 space, so densities stay finite for extreme logits.  Both have finite
 supports and implement ``enumerate_support``, which is what lets the
 enumeration subsystem (:mod:`repro_torch.core.infer.enum`) marginalize them
-exactly instead of needing a ``biject_to`` bijection.  DiscreteUniform waits
-for the distributions slice."""
+exactly instead of needing a ``biject_to`` bijection; so does
+``DiscreteUniform``."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from . import constraints
-from .distribution import Distribution, param_like, shape_of
+from .distribution import (Distribution, ExpandedDistribution, param_like,
+                           shape_of)
 
 
 def _clip_probs(probs):
@@ -127,3 +130,45 @@ class Categorical(Distribution):
         param = self.probs if self.probs is not None else self.logits
         return _enum_values(self._num_categories, self.batch_shape, expand,
                             _device(param))
+
+
+class DiscreteUniform(Distribution):
+    """Uniform over the integers ``low .. high`` (both inclusive).  ``low``
+    and ``high`` are Python ints, so the support size is known without a
+    read for ``enumerate_support``."""
+
+    arg_constraints: dict = {}
+    has_enumerate_support = True
+
+    def __init__(self, low=0, high=1):
+        low, high = int(low), int(high)
+        if high < low:
+            raise ValueError(
+                f"DiscreteUniform needs low <= high, got [{low}, {high}]")
+        self.low = low
+        self.high = high
+        super().__init__(())
+
+    @property
+    def support(self):
+        return constraints.integer_interval(self.low, self.high)
+
+    def expand(self, batch_shape):
+        # no parameter to broadcast: expanded dims draw independently
+        return ExpandedDistribution(self, tuple(batch_shape))
+
+    def sample(self, generator=None, sample_shape=()):
+        return torch.randint(self.low, self.high + 1,
+                             self.shape(sample_shape), generator=generator,
+                             dtype=torch.int32)
+
+    def log_prob(self, value):
+        value = torch.as_tensor(value)
+        n = self.high - self.low + 1
+        lp = torch.full(value.shape, -math.log(n),
+                        dtype=torch.get_default_dtype(), device=value.device)
+        return torch.where(self.support(value), lp, -math.inf)
+
+    def enumerate_support(self, expand=True):
+        return _enum_values(self.high - self.low + 1, self.batch_shape,
+                            expand, torch.device("cpu")) + self.low

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from . import constraints
+from . import transforms as transforms_mod
 
 
 def shape_of(value) -> tuple:
@@ -207,3 +208,108 @@ class ExpandedDistribution(Distribution):
 
     def expand(self, batch_shape):
         return ExpandedDistribution(self.base_dist, tuple(batch_shape))
+
+
+def _sum_rightmost(value, k):
+    """Sum a tensor over its rightmost ``k`` dimensions (no-op for k == 0)."""
+    return torch.sum(value, dim=tuple(range(-k, 0))) if k > 0 else value
+
+
+def _chain_forward(transforms, x):
+    for t in transforms:
+        x = t(x)
+    return x
+
+
+class TransformedDistribution(Distribution):
+    """Push a base distribution through a chain of bijective transforms.
+
+    ``sample`` draws from ``base_distribution`` and applies the transforms
+    left to right; ``log_prob`` inverts right to left and subtracts each
+    transform's log-|det Jacobian| (change of variables).  Only elementwise,
+    shape-preserving transforms are supported, which is what
+    ``TransformReparam`` needs.  Batched transform parameters broadcast:
+    the output shape is computed from the shapes alone
+    (``Transform.forward_shape``, no compute and no draw) and the base
+    distribution is expanded to it, so every output component gets an
+    independent base draw.
+    """
+
+    arg_constraints: dict = {}
+
+    def __init__(self, base_distribution, transforms):
+        if isinstance(transforms, transforms_mod.Transform):
+            transforms = [transforms]
+        if not transforms:
+            raise ValueError("TransformedDistribution needs >= 1 transform")
+        self.transforms = list(transforms)
+        out = tuple(base_distribution.shape())
+        for t in self.transforms:
+            out = t.forward_shape(out)
+        event_dim = base_distribution.event_dim
+        if out[len(out) - event_dim:] != tuple(base_distribution.event_shape):
+            raise ValueError(
+                f"transforms changed the event shape "
+                f"{base_distribution.event_shape} -> {out}: only "
+                "shape-preserving (elementwise, batch-broadcasting) "
+                "transforms are supported")
+        batch_shape = out[:len(out) - event_dim]
+        if batch_shape != tuple(base_distribution.batch_shape):
+            base_distribution = base_distribution.expand(batch_shape)
+        self.base_dist = base_distribution
+        super().__init__(batch_shape, base_distribution.event_shape)
+
+    @property
+    def support(self):
+        # the final transform's codomain is the support only if every
+        # earlier transform maps onto the final one's whole domain: a
+        # constraining transform followed by e.g. an affine has a support
+        # that cannot be represented, so fail at setup rather than hand
+        # NUTS a wrong bijection
+        base_support = self.base_dist.support
+        if base_support is not None and not isinstance(
+                base_support, (type(constraints.real),
+                               type(constraints.real_vector))):
+            raise NotImplementedError(
+                f"support of a transformed {type(self.base_dist).__name__} "
+                f"(base support {base_support!r}) is not representable: the "
+                "transform image of a constrained base is not the final "
+                "transform's codomain. Express the constraint as a transform "
+                "from an unconstrained base instead")
+        for t in self.transforms[:-1]:
+            if not isinstance(t.codomain, type(constraints.real)):
+                raise NotImplementedError(
+                    f"support of a transform chain with a constraining "
+                    f"non-final transform ({type(t).__name__}) is not "
+                    "representable; put the constraining transform last, or "
+                    "reparameterize the site (TransformReparam) so inference "
+                    "sees only the base distribution")
+        return self.transforms[-1].codomain
+
+    def sample(self, generator=None, sample_shape=()):
+        x = self.base_dist.sample(generator=generator,
+                                  sample_shape=sample_shape)
+        return _chain_forward(self.transforms, x)
+
+    def log_prob(self, value):
+        event_dim = self.event_dim
+        # broadcast first, so the bookkeeping below sees every batch dim (a
+        # scalar value against batched transform parameters would otherwise
+        # have its per-component Jacobians counted as event dims and summed)
+        value = torch.as_tensor(value)
+        value = value.broadcast_to(torch.broadcast_shapes(
+            value.shape, self.shape()))
+        y = value
+        log_det = 0.0
+        for t in reversed(self.transforms):
+            x = t.inv(y)
+            ladj = t.log_abs_det_jacobian(x, y)
+            # an elementwise ladj has value's ndim; transforms that reduced
+            # their event dims already need no further reduction
+            extra = ladj.dim() - (value.dim() - event_dim)
+            log_det = log_det + _sum_rightmost(ladj, max(extra, 0))
+            y = x
+        return self.base_dist.log_prob(y) - log_det
+
+    def expand(self, batch_shape):
+        return ExpandedDistribution(self, tuple(batch_shape))

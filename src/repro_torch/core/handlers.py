@@ -1,17 +1,21 @@
-"""Effect handlers: ``trace``, ``seed``, ``substitute``, ``condition``,
-``block``, ``scope`` and ``infer_config`` (Table 1 of the paper).
+"""Effect handlers (Table 1 of the paper, plus the extended set):
+``trace``, ``replay``, ``seed``, ``substitute``, ``condition``, ``block``,
+``mask``, ``scale``, ``do``, ``scope``, ``infer_config`` and ``reparam``.
 
 A handler is a context manager that sits on the global stack and rewrites
 the messages the primitives produce.  Each acts through one or both hooks:
 
 - ``process_message`` runs innermost-handler-first, *before* the site value
-  exists: values are injected (``substitute``/``condition``), generators
-  handed out (``seed``), sites hidden (``block``).
+  exists: values are injected (``replay``/``substitute``/``condition``/
+  ``do``), names rewritten (``scope``), distributions replaced
+  (``reparam``), generators handed out (``seed``), sites hidden (``block``)
+  and density ``scale``/``mask`` accumulated (``scale``/``mask``/``plate``).
 - ``postprocess_message`` runs outermost-first *after* the value exists:
   results are recorded (``trace``).
 
-``replay``, ``mask``, ``scale``, ``do`` and ``reparam`` are still to be
-ported (ROADMAP.md, Queue 1).
+``scale`` and ``mask`` entries are consumed once, by
+:func:`repro_torch.core.infer.util.log_density`, as
+``where(mask, log_prob, 0) * scale``.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from . import primitives
-from .errors import ReproValueError
+from .errors import ReproRuntimeError, ReproValueError
 from .primitives import stack
 
 
@@ -78,6 +82,46 @@ class trace(Messenger):
         return self._trace
 
 
+class replay(Messenger):
+    """Replay sample statements against the values recorded in
+    ``guide_trace``.
+
+    Effect: ``process_message`` — injects the recorded value for matching
+    latent ``sample`` sites (they stay latent) and for ``plate`` sites, so
+    replaying a trace of a subsampled model reproduces its minibatch
+    indices.  An observed site keeps its data.
+    """
+
+    def __init__(self, fn=None, guide_trace: Optional[dict] = None):
+        super().__init__(fn)
+        if guide_trace is None:
+            raise ValueError("replay requires a guide_trace")
+        self.guide_trace = guide_trace
+
+    def process_message(self, msg: dict) -> None:
+        name = msg["name"]
+        if msg["type"] == "sample" and name in self.guide_trace:
+            if msg["is_observed"]:
+                return  # observed here: the data, not the recording, wins
+            guide_msg = self.guide_trace[name]
+            if guide_msg["type"] != "sample":
+                raise ReproRuntimeError(
+                    f"site {name} must be a sample site in the guide",
+                    code="RPL011", site=name)
+            if guide_msg["is_observed"]:
+                # recorded as data but latent here: resampling silently would
+                # score a different execution than the recording
+                raise ReproRuntimeError(
+                    f"site '{name}' was recorded as observed but is latent in "
+                    "the replayed model; condition the model on the same data",
+                    code="RPL011", site=name)
+            msg["value"] = guide_msg["value"]
+        elif msg["type"] == "plate" and name in self.guide_trace:
+            guide_msg = self.guide_trace[name]
+            if guide_msg["type"] == "plate":
+                msg["value"] = guide_msg["value"]
+
+
 def _as_generator(rng_seed) -> torch.Generator:
     if isinstance(rng_seed, torch.Generator):
         return rng_seed
@@ -123,6 +167,25 @@ def _default_param_init(generator, shape, dtype):
     fan_in = shape[-1] if len(shape) == 1 else shape[-2]
     scale = 1.0 / max(fan_in, 1) ** 0.5
     return (torch.randn(shape, generator=generator) * scale).to(dtype)
+
+
+# A deterministic site cannot take a value: it is computed, not drawn.  The
+# common way to reach this is a handler outside a `reparam` that rewrote the
+# site; dropping the data silently would evaluate the density elsewhere.
+_REPARAMED_SITE_ERR = (
+    "cannot {handler} deterministic site '{name}' (it is a computed value — "
+    "likely a reparameterized site). Target its auxiliary sites instead "
+    "(e.g. '{name}_decentered' / '{name}_base'), or drop the site's reparam "
+    "strategy.")
+
+# An enumerated site's value is its whole support broadcast into a fresh
+# enumeration dim; overwriting it from outside the enum handler would
+# corrupt the marginalization.
+_ENUMERATED_SITE_ERR = (
+    "cannot {handler} site '{name}': it is being enumerated (its value is "
+    "the distribution's full support, not a free choice). Apply {handler} "
+    "inside the enum handler, or drop the site's "
+    "infer={{'enumerate': 'parallel'}} mark.")
 
 
 def _check_unmatched(handler: str, data: Dict, seen: set) -> None:
@@ -179,7 +242,16 @@ class substitute(Messenger):
             return
         self._seen.add(msg["name"])
         if msg["type"] == "deterministic":
+            if msg["infer"].get("reparamed"):
+                # the value would be recomputed over our head
+                raise ReproValueError(_REPARAMED_SITE_ERR.format(
+                    handler="substitute", name=msg["name"]),
+                    code="RPL007", site=msg["name"])
             return  # recomputed from the same substituted latents
+        if msg["infer"].get("_enumerate_dim") is not None:
+            raise ReproValueError(_ENUMERATED_SITE_ERR.format(
+                handler="substitute", name=msg["name"]),
+                code="RPL008", site=msg["name"])
         msg["value"] = value
 
 
@@ -208,7 +280,16 @@ class condition(Messenger):
         return super().__exit__(exc_type, exc_value, tb)
 
     def process_message(self, msg: dict) -> None:
+        if msg["type"] == "deterministic" and msg["name"] in self.data \
+                and msg["infer"].get("reparamed"):
+            raise ReproValueError(_REPARAMED_SITE_ERR.format(
+                handler="condition", name=msg["name"]),
+                code="RPL007", site=msg["name"])
         if msg["type"] == "sample" and msg["name"] in self.data:
+            if msg["infer"].get("_enumerate_dim") is not None:
+                raise ReproValueError(_ENUMERATED_SITE_ERR.format(
+                    handler="condition", name=msg["name"]),
+                    code="RPL008", site=msg["name"])
             self._seen.add(msg["name"])
             msg["value"] = self.data[msg["name"]]
             msg["is_observed"] = True
@@ -236,6 +317,87 @@ class block(Messenger):
 
     def process_message(self, msg: dict) -> None:
         if self.hide_fn(msg):
+            msg["stop"] = True
+
+
+class mask(Messenger):
+    """Mask out (boolean) parts of a site's log density.
+
+    Effect: ``process_message`` — ANDs the boolean ``mask`` into each
+    sample message.  ``log_density`` zeroes masked elements before it
+    applies ``scale``, so ``mask`` wins over ``scale`` in either nesting
+    order (the two accumulate independently and commute).
+    """
+
+    def __init__(self, fn=None, mask=None):
+        super().__init__(fn)
+        self.mask = mask
+
+    def process_message(self, msg: dict) -> None:
+        if msg["type"] != "sample":
+            return
+        msg["mask"] = self.mask if msg["mask"] is None \
+            else msg["mask"] & self.mask
+
+
+class scale(Messenger):
+    """Rescale the log density of enclosed sites (e.g. data subsampling).
+
+    Effect: ``process_message`` — multiplies into each sample message's
+    ``scale``, so nested ``scale`` handlers and subsampled plates compose
+    multiplicatively.
+    """
+
+    def __init__(self, fn=None, scale=1.0):
+        super().__init__(fn)
+        self.scale_factor = scale
+
+    def process_message(self, msg: dict) -> None:
+        if msg["type"] != "sample":
+            return
+        msg["scale"] = (self.scale_factor if msg["scale"] is None
+                        else self.scale_factor * msg["scale"])
+
+
+class do(Messenger):
+    """Intervention: clamp a sample site to a value without observing it,
+    severing its dependence on upstream randomness (the causal
+    ``do``-operator).
+
+    Effect: ``process_message`` — sets the value and ``stop``s the message,
+    so outer handlers (``trace`` too) never see the site; downstream code
+    uses the clamped value.
+    """
+
+    def __init__(self, fn=None, data: Optional[Dict] = None,
+                 strict: bool = False):
+        super().__init__(fn)
+        self.data = data or {}
+        self.strict = strict
+        self._seen = set()
+
+    def __enter__(self):
+        self._seen = set()
+        return super().__enter__()
+
+    def __exit__(self, exc_type, exc_value, tb):
+        if exc_type is None and self.strict:
+            _check_unmatched("do", self.data, self._seen)
+        return super().__exit__(exc_type, exc_value, tb)
+
+    def process_message(self, msg: dict) -> None:
+        if msg["type"] == "deterministic" and msg["name"] in self.data \
+                and msg["infer"].get("reparamed"):
+            raise ReproValueError(_REPARAMED_SITE_ERR.format(
+                handler="do", name=msg["name"]),
+                code="RPL007", site=msg["name"])
+        if msg["type"] == "sample" and msg["name"] in self.data:
+            if msg["infer"].get("_enumerate_dim") is not None:
+                raise ReproValueError(_ENUMERATED_SITE_ERR.format(
+                    handler="do", name=msg["name"]),
+                    code="RPL008", site=msg["name"])
+            self._seen.add(msg["name"])
+            msg["value"] = self.data[msg["name"]]
             msg["stop"] = True
 
 
@@ -282,5 +444,64 @@ class infer_config(Messenger):
                 msg["infer"].update(extra)
 
 
-__all__ = ["Messenger", "trace", "seed", "substitute", "condition", "block",
-           "scope", "infer_config"]
+class reparam(Messenger):
+    """Reparameterize latent sample sites (see
+    :mod:`repro_torch.core.reparam`).
+
+    Effect: ``process_message`` — looks up a strategy for the site
+    (``config`` is a dict ``name -> Reparam`` or a callable ``msg -> Reparam
+    | None``) and calls it as ``new_fn, value = strategy(name, fn, obs)``.
+    The strategy's auxiliary sample statements (e.g.
+    ``f"{name}_decentered"``) re-enter the handler stack like any
+    hand-written site.  If ``new_fn`` is None the site becomes a
+    ``deterministic`` function of the auxiliaries, marked
+    ``infer["reparamed"]`` so that outer ``substitute``/``condition``/``do``
+    refuse it (RPL007) rather than drop their data.
+
+    Compose ``reparam`` innermost (directly around the model).  Sites a
+    strategy emits carry ``infer={"reparam_auxiliary": True}`` and are never
+    reparameterized again, so a broad callable config terminates.
+    """
+
+    def __init__(self, fn=None, config=None):
+        super().__init__(fn)
+        if config is None or not (callable(config) or isinstance(config, dict)):
+            raise ValueError("reparam requires a config dict or callable")
+        self.config = config
+
+    def process_message(self, msg: dict) -> None:
+        if msg["type"] != "sample" or msg["infer"].get("reparam_auxiliary"):
+            return
+        if isinstance(self.config, dict):
+            strategy = self.config.get(msg["name"])
+        else:
+            strategy = self.config(msg)
+        if strategy is None:
+            return
+        if msg["value"] is not None and not msg["is_observed"]:
+            # an inner substitute/replay pinned this site; sampling fresh
+            # auxiliaries would evaluate the density elsewhere
+            raise ValueError(
+                f"site '{msg['name']}' has a substituted/replayed value but "
+                "is configured for reparameterization — the strategy would "
+                "ignore it. Pin the auxiliary sites (e.g. "
+                f"'{msg['name']}_decentered' / '{msg['name']}_base') instead.")
+        obs = msg["value"] if msg["is_observed"] else None
+        new_fn, value = strategy(msg["name"], msg["fn"], obs)
+        if new_fn is None:
+            msg["type"] = "deterministic"
+            msg["value"] = value
+            msg["is_observed"] = False
+            msg["fn"] = lambda *a, **kw: value
+            msg["args"] = ()
+            msg["kwargs"] = {}
+            msg["infer"]["reparamed"] = True
+            return
+        msg["fn"] = new_fn
+        if value is not None:
+            msg["value"] = value
+
+
+__all__ = ["Messenger", "trace", "replay", "seed", "substitute", "condition",
+           "block", "mask", "scale", "do", "scope", "infer_config",
+           "reparam"]

@@ -14,10 +14,14 @@ from .kernel_api import KernelSetup, collect, init_state, sample
 from .mala import MALA, RWM, mrw_setup
 from .mcmc import MCMC
 from .util import (
+    Predictive,
+    constrain_fn,
     find_valid_initial_params,
     get_model_transforms,
+    initialize_model,
     initialize_model_structure,
     log_density,
+    log_likelihood,
     potential_energy,
     ravel,
     transform_fn,
@@ -32,5 +36,6 @@ __all__ = [
     "effective_sample_size", "gelman_rubin", "hpdi", "summary",
     "print_summary", "config_enumerate", "contract_enum_factors", "enum",
     "infer_discrete", "markov", "ChEES", "chees_setup", "MALA", "RWM",
-    "mrw_setup",
+    "mrw_setup", "Predictive", "constrain_fn", "initialize_model",
+    "log_likelihood",
 ]

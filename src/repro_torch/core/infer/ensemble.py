@@ -313,11 +313,12 @@ def chees_setup(generator, num_warmup, *, model=None, potential_fn=None,
     ``device`` (default ``"cuda"``; raises without CUDA unless
     ``device="cpu"``).  ``data_shards`` waits for the multi-GPU slice."""
     reads = HostReads()
-    (potential_flat, unravel, constrain, prototype,
-     z_fixed) = flat_model_ingredients(
+    (potential_flat, unravel, constrain, prototype, z_fixed,
+     init_strategy) = flat_model_ingredients(
         generator, device, model=model, potential_fn=potential_fn,
         init_params=init_params, model_args=model_args,
-        model_kwargs=model_kwargs, data_shards=data_shards)
+        model_kwargs=model_kwargs, data_shards=data_shards,
+        init_strategy=init_strategy)
     schedule = build_adaptation_schedule(num_warmup)
     counted = counting(potential_flat)
     init_fn = _make_init_fn(

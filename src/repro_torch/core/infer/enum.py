@@ -400,6 +400,26 @@ def contract_enum_factors(tr):
 # markov: sequential elimination along a chain
 # ---------------------------------------------------------------------------
 
+class RequirePinnedDiscrete(Messenger):
+    """Guard for utilities that score models without enumerating
+    (``log_likelihood``): an enumerable discrete latent that nothing pinned
+    and no generator reaches would fail mid-trace, so raise a diagnosis
+    instead."""
+
+    def __init__(self, fn=None, what: str = "this utility"):
+        super().__init__(fn)
+        self.what = what
+
+    def process_message(self, msg: dict) -> None:
+        if _is_enumerable_latent(msg) \
+                and msg["kwargs"].get("generator") is None:
+            raise NotImplementedError(
+                f"{self.what}: discrete latent site '{msg['name']}' is "
+                "marginalized by inference and absent from the posterior "
+                "samples; pin it by including infer_discrete draws in "
+                "posterior_samples")
+
+
 class _RequireEnumerable(Messenger):
     """Guard for markov transition bodies: any latent site that cannot be
     enumerated has no business inside the per-step factor computation."""

@@ -42,7 +42,8 @@ from .hmc_util import (
     window_predicates,
 )
 from .kernel_api import KernelSetup
-from .util import find_valid_initial_params, initialize_model_structure, ravel
+from .util import (find_valid_initial_params, initialize_model_structure,
+                   prior_init, ravel)
 
 _F32 = np.float32
 
@@ -245,14 +246,17 @@ def _collect_fn(state: HMCState):
 def flat_model_ingredients(generator, device, *, model=None,
                            potential_fn=None, init_params=None,
                            model_args=(), model_kwargs=None,
-                           data_shards=None):
+                           data_shards=None, init_strategy="uniform"):
     """The one-time work every gradient-based setup shares: trace the model
     (or take a raw ``potential_fn``) on ``device``, which must be there
     (raises ``RPL502`` for a card this process lacks) and where the model
     arguments must already lie.  Returns ``(potential_flat, unravel,
-    constrain, prototype, z_fixed)``: the flat potential, the flat-vector
-    closures, a flat prototype on ``device`` and the flat ``init_params``
-    (None without them).  ``data_shards`` waits for the multi-GPU slice."""
+    constrain, prototype, z_fixed, init_strategy)``: the flat potential, the
+    flat-vector closures, a flat prototype on ``device``, the flat
+    ``init_params`` (None without them) and the initial-point strategy for
+    :func:`find_valid_initial_params` (``"prior"`` becomes the model's
+    :func:`prior_init` proposal).  ``data_shards`` waits for the multi-GPU
+    slice."""
     if data_shards is not None:
         raise pending("data_shards", "multi-GPU")
     device = resolve_device(device)
@@ -267,6 +271,9 @@ def flat_model_ingredients(generator, device, *, model=None,
         if init_params is not None:
             z_fixed = ravel({k: transforms[k].inv(torch.as_tensor(v).to(device))
                              for k, v in init_params.items()})[0]
+        if init_strategy == "prior":
+            init_strategy = prior_init(model, model_args, model_kwargs,
+                                       transforms)
     else:
         if potential_fn is None:
             raise ValueError("need a model or a potential_fn")
@@ -275,7 +282,8 @@ def flat_model_ingredients(generator, device, *, model=None,
         z_fixed, unravel = ravel({k: torch.as_tensor(v).to(device)
                                   for k, v in init_params.items()})
         potential_flat, constrain, prototype = potential_fn, unravel, z_fixed
-    return potential_flat, unravel, constrain, prototype, z_fixed
+    return (potential_flat, unravel, constrain, prototype, z_fixed,
+            init_strategy)
 
 
 def counting(potential_fn):
@@ -314,11 +322,11 @@ def hmc_setup(generator, num_warmup, *, model=None, potential_fn=None,
     if dense_mass:
         raise pending("dense_mass=True", "dense mass matrix")
     reads = HostReads()
-    (potential_flat, unravel, constrain, prototype,
-     z_fixed) = flat_model_ingredients(
+    (potential_flat, unravel, constrain, prototype, z_fixed,
+     init_strategy) = flat_model_ingredients(
         generator, device, model=model, potential_fn=potential_fn,
         init_params=init_params, model_args=model_args,
-        model_kwargs=model_kwargs)
+        model_kwargs=model_kwargs, init_strategy=init_strategy)
     schedule = build_adaptation_schedule(num_warmup)
     counted = counting(potential_flat)
     init_fn = _make_init_fn(

@@ -196,11 +196,12 @@ def mrw_setup(generator, num_warmup, algo, *, model=None, potential_fn=None,
     if target_accept_prob is None:
         target_accept_prob = DEFAULT_TARGET_ACCEPT[algo]
     reads = HostReads()
-    (potential_flat, unravel, constrain, prototype,
-     z_fixed) = flat_model_ingredients(
+    (potential_flat, unravel, constrain, prototype, z_fixed,
+     init_strategy) = flat_model_ingredients(
         generator, device, model=model, potential_fn=potential_fn,
         init_params=init_params, model_args=model_args,
-        model_kwargs=model_kwargs, data_shards=data_shards)
+        model_kwargs=model_kwargs, data_shards=data_shards,
+        init_strategy=init_strategy)
     schedule = build_adaptation_schedule(num_warmup)
     counted = counting(potential_flat)
     init_fn = _make_init_fn(counted, prototype, reads, z_fixed=z_fixed,

@@ -1,5 +1,6 @@
 """Inference utilities: log densities, transforms to unconstrained space,
-the flat potential and model initialization (paper Sec 3.2).
+the flat potential, model initialization and predictive sampling (paper
+Sec 3.2).
 
 Latent sites are flattened into one vector in *sorted site-name order*, the
 order of ``jax.flatten_util.ravel_pytree`` on a dict, so a flat ``z`` means
@@ -7,12 +8,13 @@ the same point in this package and in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import math
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..dist.transforms import biject_to
-from ..errors import pending
 from ..handlers import Messenger, block, seed, substitute, trace
 
 
@@ -102,9 +104,17 @@ def get_model_transforms(model, model_args=(), model_kwargs=None,
     return transforms, tr
 
 
-def transform_fn(transforms, params):
-    """Unconstrained site values -> constrained ones."""
-    return {k: transforms[k](v) for k, v in params.items()}
+def transform_fn(transforms, params, invert=False):
+    """Unconstrained site values -> constrained ones (``invert``: the
+    other way)."""
+    return {k: transforms[k].inv(v) if invert else transforms[k](v)
+            for k, v in params.items()}
+
+
+def constrain_fn(model, model_args, model_kwargs, transforms, params_uncon):
+    """Unconstrained site values -> constrained ones (the JAX package's
+    signature; the model and its arguments are not needed)."""
+    return transform_fn(transforms, params_uncon)
 
 
 def potential_energy(model, model_args, model_kwargs, transforms,
@@ -200,24 +210,191 @@ def initialize_model_structure(generator, model, model_args=(),
     return potential_flat, unravel_fn, transforms, constrain, tr, flat_proto
 
 
+def prior_init(model, model_args, model_kwargs, transforms):
+    """The ``init_strategy="prior"`` proposal as a callable ``draws -> z``:
+    the model traced under ``seed`` with the chain's generator, its latent
+    sites mapped to unconstrained space and flattened."""
+    model_kwargs = model_kwargs or {}
+
+    def propose(draws):
+        with block():
+            tr = trace(seed(model, draws.generator)).get_trace(
+                *model_args, **model_kwargs)
+        return ravel({n: t.inv(tr[n]["value"])
+                      for n, t in transforms.items()})[0]
+
+    return propose
+
+
 def find_valid_initial_params(draws, potential_fn, prototype, *,
                               init_strategy="uniform", radius=2.0,
                               max_tries=100, reads=None):
     """Rejection search for a flat unconstrained init with finite potential
-    and gradient: draws uniform on ``[-radius, radius]^D`` from ``draws``
-    until one is valid or ``max_tries`` more tries are spent (the JAX
-    package's ``while_loop`` as a Python loop).  Returns ``(z, pe, grad)``.
-    """
+    and gradient (the JAX package's ``while_loop`` as a Python loop):
+    proposals are drawn from ``draws`` until one is valid or ``max_tries``
+    more tries are spent.  ``init_strategy`` is ``"uniform"`` (uniform on
+    ``[-radius, radius]^D``) or a callable ``draws -> z``, such as
+    :func:`prior_init`'s prior draw (the ``"prior"`` strategy, which
+    :func:`initialize_model` and the samplers' setups build from the
+    model).  Returns ``(z, pe, grad)``."""
     from .hmc_util import HostReads, value_and_grad
-    if init_strategy != "uniform":
-        raise pending(f"init_strategy={init_strategy!r}", "initialization")
+    if init_strategy != "uniform" and not callable(init_strategy):
+        raise ValueError(f"unknown init strategy {init_strategy}")
     reads = reads if reads is not None else HostReads()
     pe_and_grad = value_and_grad(potential_fn)
     for _ in range(max_tries + 1):
-        u = draws.init_uniform(prototype.numel(), prototype.dtype)
-        z = (u * (2 * radius) - radius).to(prototype.device)
+        if init_strategy == "uniform":
+            u = draws.init_uniform(prototype.numel(), prototype.dtype)
+            z = (u * (2 * radius) - radius).to(prototype.device)
+        else:
+            z = init_strategy(draws).to(prototype.device, prototype.dtype)
         pe, grad = pe_and_grad(z)
         ok = torch.isfinite(pe) & torch.all(torch.isfinite(grad))
         if reads.read(ok.reshape(1))[0]:
             break
     return z, pe, grad
+
+
+def initialize_model(generator, model, model_args=(), model_kwargs=None,
+                     init_strategy="uniform", radius=2.0, max_tries=100):
+    """Trace the model and find a valid initial point.
+
+    Returns ``(init_params_flat, potential_fn_flat, unravel_fn, transforms,
+    constrain, model_trace)``: :func:`initialize_model_structure` then
+    :func:`find_valid_initial_params`, drawing from ``generator`` (a CPU
+    ``torch.Generator``) on the device of the model's arguments;
+    ``init_strategy`` is ``"uniform"``, ``"prior"`` or a callable.
+    """
+    from .hmc_util import GeneratorDraws
+    (potential_flat, unravel_fn, transforms, constrain, tr,
+     flat_proto) = initialize_model_structure(generator, model, model_args,
+                                              model_kwargs)
+    if init_strategy == "prior":
+        init_strategy = prior_init(model, model_args, model_kwargs,
+                                   transforms)
+    z, _, _ = find_valid_initial_params(
+        GeneratorDraws(generator), potential_flat, flat_proto,
+        init_strategy=init_strategy, radius=radius, max_tries=max_tries)
+    return z, potential_flat, unravel_fn, transforms, constrain, tr
+
+
+# ---------------------------------------------------------------------------
+# predictive utilities (paper Fig. 1 / Listing 1)
+# ---------------------------------------------------------------------------
+
+def _draw_generators(seed, num):
+    """One CPU ``torch.Generator`` a draw, seeded from
+    ``np.random.SeedSequence(seed)`` as ``MCMC.run`` seeds its chains."""
+    states = np.random.SeedSequence(int(seed)).generate_state(num,
+                                                              dtype=np.uint64)
+    return [torch.Generator().manual_seed(int(s)) for s in states]
+
+
+def _stack_rows(rows):
+    return {k: torch.stack([torch.as_tensor(r[k]) for r in rows])
+            for k in rows[0]} if rows else {}
+
+
+class Predictive:
+    """Prior and posterior predictive sampling.
+
+    Composes the paper's three handlers for each draw — ``seed`` (a fresh
+    generator), ``substitute`` (the latents pinned to one posterior draw)
+    and ``trace`` (every site collected):
+
+    - prior predictive: ``Predictive(model, num_samples=N)``, every site a
+      fresh draw;
+    - posterior predictive: ``Predictive(model, posterior_samples=samples)``,
+      the latents pinned draw by draw, the remaining (observed) sites drawn.
+
+    ``posterior_samples`` holds ``(num_samples, ...)`` tensors
+    (``batch_ndims=1``, e.g. ``MCMC.get_samples()``) or ``(num_chains,
+    num_samples, ...)`` (``batch_ndims=2``; the outputs keep the chain dim).
+    ``return_sites`` restricts the output (deterministic sites, e.g. the
+    originals of reparameterized sites, are legal targets); by default every
+    sample and deterministic site not substituted is returned.
+
+    The JAX package batches the draws with ``jax.vmap`` over split keys
+    (or a loop, ``parallel=False``); ``torch.func.vmap`` takes no explicit
+    generator, so here the draws always run one after another, each with
+    its own generator.
+    """
+
+    def __init__(self, model, posterior_samples: Optional[Dict] = None,
+                 num_samples: Optional[int] = None, return_sites=None,
+                 batch_ndims: int = 1):
+        if batch_ndims not in (1, 2):
+            raise ValueError(f"batch_ndims must be 1 or 2, got {batch_ndims}")
+        self.model = model
+        self.posterior_samples = posterior_samples or {}
+        self.batch_ndims = batch_ndims
+        self._batch_shape = None
+        if self.posterior_samples:
+            if num_samples is not None:
+                raise ValueError(
+                    "num_samples is determined by posterior_samples; passing "
+                    "both is ambiguous")
+            shapes = {tuple(v.shape[:batch_ndims])
+                      for v in self.posterior_samples.values()}
+            if len(shapes) != 1:
+                raise ValueError(
+                    f"inconsistent posterior sample batch shapes: {shapes}")
+            self._batch_shape = shapes.pop()
+            num_samples = math.prod(self._batch_shape)
+        elif num_samples is None:
+            raise ValueError("need posterior_samples or num_samples")
+        self.num_samples = num_samples
+        self.return_sites = return_sites
+
+    def __call__(self, rng_seed, *args, **kwargs):
+        """Draws for the integer ``rng_seed``; tensors with the draws
+        stacked in front, on the device of the model's parameters."""
+        flat = {k: v.reshape((self.num_samples,)
+                             + tuple(v.shape[self.batch_ndims:]))
+                for k, v in self.posterior_samples.items()}
+        rows = []
+        for i, gen in enumerate(_draw_generators(rng_seed, self.num_samples)):
+            samples = {k: v[i] for k, v in flat.items()}
+            tr = trace(substitute(seed(self.model, gen),
+                                  data=samples)).get_trace(*args, **kwargs)
+            if self.return_sites is not None:
+                missing = [n for n in self.return_sites if n not in tr]
+                if missing:
+                    raise ValueError(
+                        f"return_sites {missing} not found in model trace "
+                        f"(available: {list(tr)})")
+                sites = self.return_sites
+            else:
+                sites = [n for n, s in tr.items()
+                         if s["type"] in ("sample", "deterministic")
+                         and n not in samples]
+            rows.append({n: tr[n]["value"] for n in sites})
+        out = _stack_rows(rows)
+        if self._batch_shape is not None and self.batch_ndims == 2:
+            out = {k: v.reshape(self._batch_shape + tuple(v.shape[1:]))
+                   for k, v in out.items()}
+        return out
+
+
+
+def log_likelihood(model, posterior_samples, *args, **kwargs):
+    """Per-draw log likelihood of the observed sites, ``{site: (num_samples,
+    ...)}``, the draws one after another (the JAX package vmaps them).
+
+    Enumerable discrete latents must be pinned: NUTS marginalizes them, so
+    they are absent from ``get_samples()``; an unpinned one raises
+    (``RequirePinnedDiscrete``) instead of failing mid-trace."""
+    from .enum import RequirePinnedDiscrete
+    num = {v.shape[0] for v in posterior_samples.values()}
+    if len(num) != 1:
+        raise ValueError(f"inconsistent posterior sample counts: {num}")
+    rows = []
+    for i in range(num.pop()):
+        samples = {k: v[i] for k, v in posterior_samples.items()}
+        with RequirePinnedDiscrete(what="log_likelihood"):
+            tr = trace(substitute(model, data=samples)).get_trace(*args,
+                                                                 **kwargs)
+        rows.append({name: site["fn"].log_prob(site["value"])
+                     for name, site in tr.items()
+                     if site["type"] == "sample" and site["is_observed"]})
+    return _stack_rows(rows)

@@ -1,5 +1,5 @@
-"""Core language primitives: ``sample``, ``param``, ``deterministic`` and
-``plate``.
+"""Core language primitives: ``sample``, ``param``, ``deterministic``,
+``subsample`` and ``plate``.
 
 Each primitive builds a *message* (a plain dict) and threads it through the
 handler stack (see :mod:`repro_torch.core.handlers`).  Handlers run in the
@@ -9,7 +9,8 @@ Python function of tensors.
 Message anatomy (the contract every handler programs against)::
 
     {
-      "type":   "sample" | "param" | "deterministic" | "plate",
+      "type":   "sample" | "param" | "deterministic" | "plate" |
+              "subsample",
       "name":   str,
       "fn":     callable,             # produces "value" when it is None
       "args", "kwargs":               # forwarded to fn; kwargs carries the
@@ -253,6 +254,35 @@ def _subsample_indices(size, subsample_size, generator=None):
     return torch.randperm(size, generator=generator)[:subsample_size]
 
 
+def subsample(data, event_dim: int = 0):
+    """Select the enclosing plates' minibatch rows of ``data``.
+
+    For each active :class:`plate` whose dimension (counted from the right
+    of the batch shape, i.e. offset left by ``event_dim``) has the plate's
+    full ``size`` in ``data``, the plate's current subsample indices are
+    taken along that dimension with ``torch.index_select``.  Data already
+    of minibatch size passes through unchanged, so the same model code
+    runs full-batch and subsampled.  Outside any handler, or outside any
+    plate, ``data`` is returned as it is.
+    """
+    if not _STACK:
+        return data
+    msg = {
+        "type": "subsample",
+        "name": None,
+        "fn": lambda *a, **kw: data,
+        "args": (),
+        "kwargs": {"event_dim": event_dim},
+        "value": data,
+        "is_observed": False,
+        "scale": None,
+        "mask": None,
+        "cond_indep_stack": [],
+        "infer": {},
+    }
+    return apply_stack(msg)["value"]
+
+
 class plate:
     """Conditional-independence context manager.
 
@@ -266,7 +296,8 @@ class plate:
     append a :class:`CondIndepStackFrame`, expand the distribution's batch
     shape along ``dim`` (its extent there must be 1 or ``subsample_size``),
     check the batch extent of an observed value, and accumulate the
-    ``size / subsample_size`` density scale.
+    ``size / subsample_size`` density scale.  On ``subsample`` messages:
+    take the plate's minibatch indices along the matching data dim.
 
     The index draw is a ``"plate"`` message, so ``seed`` supplies the
     generator, ``trace`` records the indices and ``substitute`` can pin
@@ -360,6 +391,9 @@ class plate:
         return False
 
     def process_message(self, msg: dict) -> None:
+        if msg["type"] == "subsample":
+            self._subsample(msg)
+            return
         if msg["type"] != "sample":
             return
         frame = self._frame
@@ -385,6 +419,25 @@ class plate:
         if self.size != self.subsample_size:
             scale = self.size / self.subsample_size
             msg["scale"] = scale if msg["scale"] is None else msg["scale"] * scale
+
+    def _subsample(self, msg: dict) -> None:
+        dim = self._frame.dim - msg["kwargs"].get("event_dim", 0)
+        shape = _shape(msg["value"])
+        if len(shape) < -dim:
+            return  # the data does not span this plate's dim
+        if shape[dim] == self.size:
+            if self.subsample_size != self.size:
+                value = msg["value"]
+                indices = self._get_indices().to(value.device)
+                msg["value"] = torch.index_select(value, dim % value.dim(),
+                                                  indices)
+        elif shape[dim] not in (1, self.subsample_size):
+            # extent 1 broadcasts, as for sample sites (_expanded_shape)
+            raise ReproValueError(
+                f"subsample inside plate '{self.name}': axis {dim} of data "
+                f"shape {shape} is {shape[dim]}, expected the full size "
+                f"{self.size}, the subsample size {self.subsample_size}, or "
+                "a broadcastable 1", code="RPL004", site=self.name)
 
     def postprocess_message(self, msg: dict) -> None:
         pass

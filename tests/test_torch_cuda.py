@@ -1265,3 +1265,51 @@ def test_reduced_mamba2_prefill_on_card():
         ops.SPECS.update(saved)
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_skim_potential_on_card_matches_cpu():
+    """SKIM's generic potential and gradient at chip_smoke.py's size (p =
+    256, n = 200) on the card against the CPU, float64 within 1e-10 and
+    float32 within 1e-4 of the largest magnitude (the card's Cholesky
+    factor and triangular solves sum in other orders)."""
+    from chip_smoke import SKIM_N, SKIM_P
+    from repro_torch.bench.models import skim_data, skim_model
+    from repro_torch.core.infer import initialize_model_structure
+    from repro_torch.core.infer.hmc_util import value_and_grad
+    dev = _need_card()
+    data = skim_data(SKIM_P, seed=0, n=SKIM_N)
+    z = np.random.default_rng(0).uniform(-2, 2, SKIM_P + 4)
+    for dtype, rtol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        out = []
+        for device in ("cpu", dev):
+            x = torch.from_numpy(data["x"]).to(device, dtype)
+            y = torch.from_numpy(data["y"]).to(device, dtype)
+            pot = initialize_model_structure(None, skim_model, (x,),
+                                             {"y": y})[0]
+            pe, grad = value_and_grad(pot)(torch.from_numpy(z).to(device,
+                                                                  dtype))
+            out.append((pe.double().cpu(), grad.double().cpu()))
+        (pe_c, g_c), (pe_g, g_g) = out
+        assert abs(float(pe_g - pe_c)) <= rtol * abs(float(pe_c))
+        assert float((g_g - g_c).abs().max()) <= rtol * float(g_c.abs().max())
+
+
+@pytest.mark.cuda
+def test_mvn_cholesky_failure_gives_nan_on_card():
+    """A covariance that is not positive definite gives a NaN density on
+    the card, without raising and without a host read (``cholesky_ex``);
+    the positive definite matrix of the same batch stays finite."""
+    from repro_torch.core.dist import MultivariateNormal
+    dev = _need_card()
+    cov = torch.tensor([[[1.0, 0.0], [0.0, 1.0]], [[1.0, 2.0], [2.0, 1.0]]],
+                       device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lp = MultivariateNormal(torch.zeros(2, device=dev),
+                                covariance_matrix=cov).log_prob(
+            torch.ones(2, device=dev))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    lp = lp.cpu()
+    assert bool(torch.isfinite(lp[0])) and bool(torch.isnan(lp[1]))
