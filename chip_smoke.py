@@ -32,12 +32,23 @@ result line if any fails):
    after warmup and in warmup, with the gradient, the Welford fold and an
    all-divergent ensemble, its sums within 1e-6 of their terms and the
    rest bit-identical for the kernel's accept_prob; then ChEES's graphed
-   trajectory bit-identical to the eager one for 1 and 5 steps).
+   trajectory bit-identical to the eager one for 1 and 5 steps; the
+   chain-batched NUTS leaf ops of lockstep NUTS, ``nuts_leaf_batch``,
+   ``nuts_turning_batch`` and ``halfstep_chains``, at C = 1, 4, 8, 16 and
+   D = 54, 10, 260, 4097, every leaf kind, active and inactive chains,
+   both directions, vectors bit-identical and each active row's vectors
+   bit-identical to a one-chain ``nuts_leaf`` launch).
    Then drive the main paths through the user's entry points,
    each with every kernel launch counter set to 0 just before and read just
    after: ``MCMC(NUTS(logreg_model_glm), 100, 100).run(...)`` on 581,012 x
    54 CoverType-shaped data made from a seed, then the paper's fixed-step
-   configuration (0 warmup, 40 draws, step 0.0015, no adaptation); the
+   configuration (0 warmup, 40 draws, step 0.0015, no adaptation), then the
+   same logreg with 8 chains in lockstep (``chain_method="vectorized"``,
+   100 + 100: one ``nuts_leaf_batch`` launch a lockstep leapfrog, one GLM
+   launch a lockstep gradient, no one-chain ``nuts_leaf``; 0 divergences,
+   the pooled mean within 0.05 of ``true_w``, split R-hat < 1.05; each
+   chain's departure from a lone run of its seed and a profile in a fresh
+   process printed); the
    fully-latent HMM ``MCMC(NUTS(enum_hmm_model, max_tree_depth=8), 50,
    50)`` at K = 8, T = 120, V = 16, whose states ``markov`` sums out
    through the chain kernels (one launch of each per gradient); and the
@@ -50,11 +61,17 @@ result line if any fails):
    ``lambda``, then 4 transitions profiled in a fresh process from its
    adapted state (device ms by kernel, the Cholesky and the solves named);
    the README's eight schools, non-centered by ``reparam`` with
-   ``LocScaleReparam(0.0)``, NUTS 4 chains 150 + 200, gated on split
-   R-hat < 1.05, then ``Predictive`` of ``obs`` on the card, (800, 8) and
-   finite; each NUTS run gated on exactly one
+   ``LocScaleReparam(0.0)``, NUTS 4 chains in lockstep 150 + 200, gated on
+   split R-hat < 1.05, then ``Predictive`` of ``obs`` on the card, (800,
+   8) and finite; ``NUTS(cross_chain_adapt=True)``, 4 chains 300 + 400 on
+   tests/test_ensemble.py:186's conjugate normal (its bounds, one shared
+   mass matrix); ``NUTS(dense_mass=True)`` 300 + 300 on
+   tests/test_mcmc.py:191's correlated Gaussian (finite, ``|mean| < 0.2``,
+   no leaf kernel); each one-chain NUTS run gated on exactly one
    ``nuts_leaf`` launch a leapfrog of its trees and ``leapfrog_halfstep``
-   opening every subtree; then the ensemble samplers on the same logreg
+   opening every subtree, each lockstep run on one ``nuts_leaf_batch`` a
+   lockstep leapfrog and ``halfstep_chains`` opening every lockstep
+   subtree; then the ensemble samplers on the same logreg
    data: ``MCMC(ChEES(logreg_model_glm), 300, 1500, num_chains=8)``
    (lockstep trajectories replayed from two CUDA graphs, ``chees_open``
    and ``chees_accept`` once an iteration, ``leapfrog_halfstep_batch``
@@ -213,6 +230,26 @@ NUTS_LEAVES = ((False, 0, None), (True, 3, None), (True, None, (4, 4)),
                (True, None, (0, 2)), (True, None, (1, 6)))
 NUTS_TIMED = (True, None, (2, 2))
 FUSED_REL_TOL = 1e-6  # a fused sum against the plain one, of its |terms|
+# lockstep NUTS over C chains: the chain-batched leaf ops at C chains and D
+# of the logreg (54), eight schools (10), SKIM (260) and 4097 (5 CTAs a
+# chain and the per-chain ticket fold), every leaf kind of NUTS_LEAVES,
+# active and inactive chains, both directions; timed at C = 8, D = 54
+NUTS_BATCH_CHAINS = (1, 4, 8, 16)
+NUTS_BATCH_SIZES = (D, 10, SKIM_P + 4, 4097)
+# the vectorized logreg: 8 chains in lockstep, 100 + 100 (the single
+# chain's draws), split R-hat under the example's 1.05; the first
+# VEC_DEPART_TRANSITIONS transitions of each chain against a lone run of
+# its seed (printed, not gated); a 4-transition profile in a fresh process
+VEC_CHAINS, VEC_WARMUP, VEC_DRAWS = 8, 100, 100
+VEC_RHAT_MAX = 1.05
+VEC_DEPART_TRANSITIONS = 20
+VEC_PROFILE_TRANSITIONS = 4
+# cross-chain mass adaptation: tests/test_ensemble.py:186's conjugate
+# normal model, 4 chains, 300 + 400, its bounds
+XCHAIN_CHAINS, XCHAIN_WARMUP, XCHAIN_DRAWS = 4, 300, 400
+# dense mass: tests/test_mcmc.py:191's correlated Gaussian (rho = 0.95),
+# one chain, 300 + 300
+DENSE_RHO, DENSE_WARMUP, DENSE_DRAWS = 0.95, 300, 300
 # the LM slice: the full Qwen3-8B, B = 4 prompts of 512 tokens (a multiple
 # of the JAX prefill's 128-row tiles), 32 sampled tokens
 LM_BATCH, LM_PROMPT, LM_TOKENS = 4, 512, 32
@@ -679,6 +716,186 @@ def nuts_leaf_bound(d, rows, has_sum, even, dtype):
     vectors = 4 + 3 + 2 * rows + 2 * int(has_sum) + 2 * int(even)
     nbytes = dtype.itemsize * (vectors * d + 2 + 2 + 2 * rows)
     flops = (9 + int(has_sum) + (1 + 10 * rows if rows else 0)) * d
+    return bound(nbytes, flops, dtype)
+
+
+def _batch_operands(c, size, dtype, dev):
+    """(C, D) operands of the chain-batched leaf ops: per-chain step sizes
+    signed for a mix of directions, and a mix of active chains."""
+    gen = torch.Generator().manual_seed(1000 * c + size)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen,
+                                    dtype=dtype)).to(dev)
+
+    r_half, z, g, r_sum = (rand(c, size) for _ in range(4))
+    m_inv = (torch.rand(c, size, generator=gen, dtype=dtype) + 0.5).to(dev)
+    ck, sck = rand(c, 8, size), rand(c, 8, size, scale=2.0)
+    pe = rand(c)
+    chains = torch.arange(c)
+    eps = torch.where(chains % 2 == 0, 1.0, -1.0) * 0.0123 * (1 + 0.1 * chains)
+    active = chains % 3 != 1 if c > 1 else torch.ones(1, dtype=torch.bool)
+    return (r_half, z, g, r_sum, m_inv, ck, sck, pe, eps.to(dtype).to(dev),
+            active.to(dev))
+
+
+def nuts_batch_checks(dev, chains=NUTS_BATCH_CHAINS, sizes=NUTS_BATCH_SIZES,
+                      timed=True):
+    """``nuts_leaf_batch``, ``nuts_turning_batch`` and ``halfstep_chains``
+    against their plain versions for C in ``NUTS_BATCH_CHAINS``, D in
+    ``NUTS_BATCH_SIZES``, float32 and float64, every leaf kind of
+    ``NUTS_LEAVES``, active and inactive chains, both directions: vectors
+    and checkpoint rows bit-identical (an inactive chain copied through),
+    ke and the dots within FUSED_REL_TOL of their terms; each active row's
+    vectors bit-identical to a one-chain ``nuts_leaf`` launch on that chain
+    (its sums' identity reported); the half-step bit-identical.  Timings
+    at C = 8, D = 54, every chain active (unless ``timed`` is false)."""
+    from repro_torch.kernels.leapfrog import (
+        halfstep_chains_cuda, halfstep_chains_ref, nuts_leaf_batch_cuda,
+        nuts_leaf_batch_ref, nuts_leaf_cuda, nuts_turning_batch_cuda,
+        nuts_turning_batch_ref, nuts_turning_cuda)
+    results, timing = [], {}
+    for c in chains:
+        for size in sizes:
+            for dtype in (torch.float32, torch.float64):
+                (r_half, z, g, r_sum, m, ck, sck, pe, eps,
+                 active) = _batch_operands(c, size, dtype, dev)
+                on = [i for i, a in enumerate(active.tolist()) if a]
+                for has_sum, ckpt_i, rows in NUTS_LEAVES:
+                    args = (r_half, z, g, pe, m, eps, active,
+                            r_sum if has_sum else None)
+                    idx = rows or (0, -1)
+                    ck_k, sck_k, ck_p, sck_p = (t.clone() for t in
+                                                (ck, sck, ck, sck))
+                    got = nuts_leaf_batch_cuda(*args, ck_k, sck_k, ckpt_i,
+                                               *idx)
+                    want = nuts_leaf_batch_ref(*args, ck_p, sck_p, ckpt_i,
+                                               *idx)
+                    torch.cuda.synchronize()
+                    pairs = [(got[i], want[i]) for i in (0, 1, 3, 4)] + \
+                        [(ck_k, ck_p), (sck_k, sck_p)]
+                    identical = all(same_bits(a, b) for a, b in pairs) and \
+                        same_bits(got[2][:, 0], want[2][:, 0])
+                    off = [i for i in range(c) if i not in on]
+                    identical &= all(same_bits(got[2][i], want[2][i])
+                                     for i in off)
+                    rel, one_vec, one_sums = 0.0, True, True
+                    for i in on:
+                        w_i = tuple(t[i] for t in want)
+                        diff = (got[2][i, 1:].double()
+                                - want[2][i, 1:].double()).abs()
+                        rel = max(rel, float((diff.cpu() / leaf_scales(
+                            m[i], w_i, ck[i], sck[i], rows).clamp(
+                                min=1e-300)).max()))
+                        ck_1, sck_1 = ck[i].clone(), sck[i].clone()
+                        one = nuts_leaf_cuda(
+                            r_half[i], z[i], g[i], pe[i], m[i], eps[i],
+                            r_sum[i] if has_sum else None, ck_1, sck_1,
+                            ckpt_i, *idx)
+                        one_vec &= all(same_bits(one[k], got[k][i])
+                                       for k in (0, 1, 3, 4)) and \
+                            same_bits(ck_1, ck_k[i]) and \
+                            same_bits(sck_1, sck_k[i])
+                        one_sums &= same_bits(one[2], got[2][i])
+                    err = max(float((a.double() - b.double()).abs().max())
+                              for a, b in pairs + [(got[2], want[2])])
+                    kind = "first" if not has_sum else (
+                        f"even, row {ckpt_i}" if rows is None
+                        else f"odd, rows {rows[0]}..{rows[1]}")
+                    results.append({
+                        "name": "nuts_leaf_batch", "C": c, "D": size,
+                        "dtype": str(dtype), "leaf": kind,
+                        "active": len(on), "vectors_bit_identical": identical,
+                        "one_chain_vectors_bit_identical": one_vec,
+                        "one_chain_sums_bit_identical": one_sums,
+                        "sums_rel_err": rel, "max_abs_err": err})
+                    check(identical and one_vec and rel <= FUSED_REL_TOL,
+                          f"nuts_leaf_batch disagrees at C={c} D={size} "
+                          f"{dtype} ({kind}): bit-identical {identical}, "
+                          f"one-chain {one_vec}, sums {rel} > "
+                          f"{FUSED_REL_TOL} of their terms")
+                total = 3.0 * r_sum
+                got = nuts_turning_batch_cuda(m, r_half, g, total)
+                want = nuts_turning_batch_ref(m, r_half, g, total)
+                mid = total - 0.5 * (r_half + g)
+                scale = torch.stack([(m * r_half * mid).abs().sum(-1),
+                                     (m * g * mid).abs().sum(-1)], 1).double()
+                diff = (got.double() - want.double()).abs()
+                rel = float((diff / scale).max())
+                one = all(same_bits(nuts_turning_cuda(m[i], r_half[i], g[i],
+                                                      total[i]), got[i])
+                          for i in range(c))
+                results.append({"name": "nuts_turning_batch", "C": c,
+                                "D": size, "dtype": str(dtype),
+                                "sums_rel_err": rel,
+                                "one_chain_bit_identical": one,
+                                "max_abs_err": float(diff.max())})
+                check(rel <= FUSED_REL_TOL, f"nuts_turning_batch disagrees "
+                      f"at C={c} D={size} {dtype}: {rel} > {FUSED_REL_TOL}")
+                got = halfstep_chains_cuda(z, r_half, g, m, eps, active)
+                want = halfstep_chains_ref(z, r_half, g, m, eps, active)
+                ok = all(same_bits(a, b) for a, b in zip(got, want))
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(got, want))
+                results.append({"name": "halfstep_chains", "C": c, "D": size,
+                                "dtype": str(dtype), "bit_identical": ok,
+                                "max_abs_err": err})
+                check(ok, f"halfstep_chains disagrees at C={c} D={size} "
+                      f"{dtype}: {err}")
+                if timed and (c, size, dtype) == (VEC_CHAINS, D,
+                                                  torch.float32):
+                    timing.update(nuts_batch_timings(
+                        c, size, dtype, (r_half, z, g, r_sum, m, ck, sck, pe,
+                                         eps), results))
+    return results, timing
+
+
+def nuts_batch_timings(c, d, dtype, operands, results):
+    """Kernel and plain times of the chain-batched ops at (c, d), every
+    chain active (the plain versions read a host mask: a capture cannot
+    wait for the card), beside their bounds."""
+    from repro_torch.kernels.leapfrog import (
+        halfstep_chains_cuda, halfstep_chains_ref, nuts_leaf_batch_cuda,
+        nuts_leaf_batch_ref, nuts_turning_batch_cuda, nuts_turning_batch_ref)
+    r_half, z, g, r_sum, m, ck, sck, pe, eps = operands
+    active = torch.ones(c, dtype=torch.bool, device=z.device)
+    host = active.cpu()
+    has_sum, ckpt_i, rows = NUTS_TIMED
+    leaf = (r_half, z, g, pe, m, eps)
+    tail = (r_sum, ck, sck, ckpt_i, *rows)
+
+    def err(name):
+        return max(r["max_abs_err"] for r in results if r["name"] == name)
+
+    total = 3.0 * r_sum
+    nrows = rows[1] - rows[0] + 1
+    item = dtype.itemsize
+    return {
+        "nuts_leaf_batch": (
+            timings(lambda: nuts_leaf_batch_cuda(*leaf, active, *tail),
+                    lambda: nuts_leaf_batch_ref(*leaf, host, *tail), 200),
+            nuts_leaf_batch_bound(c, d, nrows, has_sum, ckpt_i is not None,
+                                  dtype), err("nuts_leaf_batch")),
+        "nuts_turning_batch": (
+            timings(lambda: nuts_turning_batch_cuda(m, r_half, g, total),
+                    lambda: nuts_turning_batch_ref(m, r_half, g, total), 200),
+            bound(item * (4 * c * d + 2 * c), 9 * c * d, dtype),
+            err("nuts_turning_batch")),
+        "halfstep_chains": (
+            timings(lambda: halfstep_chains_cuda(z, r_half, g, m, eps,
+                                                 active),
+                    lambda: halfstep_chains_ref(z, r_half, g, m, eps, host),
+                    200),
+            bound(item * (6 * c * d + c) + c, 5 * c * d, dtype),
+            err("halfstep_chains"))}
+
+
+def nuts_leaf_batch_bound(c, d, rows, has_sum, even, dtype):
+    """C chains of :func:`nuts_leaf_bound`'s leaf (each chain's m_inv row
+    read too), plus each chain's active flag."""
+    vectors = 4 + 3 + 2 * rows + 2 * int(has_sum) + 2 * int(even)
+    nbytes = dtype.itemsize * c * (vectors * d + 2 + 2 + 2 * rows) + c
+    flops = c * (9 + int(has_sum) + (1 + 10 * rows if rows else 0)) * d
     return bound(nbytes, flops, dtype)
 
 
@@ -1572,11 +1789,25 @@ def profile_transitions(mcmc, num, kernels=None, named=None,
     from repro_torch.core.infer import GeneratorDraws, sample
     from repro_torch.kernels import ops
 
-    setup, state = mcmc.kernel_setup, mcmc.last_state[0]
-    draws = GeneratorDraws(torch.Generator().manual_seed(7))
-    state = sample(setup, state, draws)
+    setup = mcmc.kernel_setup
+    # a lockstep run's last state is one batched state: a "leapfrog" is
+    # then a lockstep leaf, moving every chain still growing its tree
+    batch = not isinstance(mcmc.last_state, list)
+    if batch:
+        state = mcmc.last_state
+        draws = [GeneratorDraws(torch.Generator().manual_seed(7 + c))
+                 for c in range(state.z.shape[0])]
+        step, lockstep = setup.sample_batch_fn, setup.sample_batch_fn.lockstep
+    else:
+        state = mcmc.last_state[0]
+        draws = GeneratorDraws(torch.Generator().manual_seed(7))
+
+        def step(s, d):
+            return sample(setup, s, d)
+    state = step(state, draws)
     torch.cuda.synchronize()
     leapfrogs = 0
+    leaves0 = lockstep.leapfrogs if batch else 0
     counts0 = ops.launch_counts()
     activities = [ProfilerActivity.CUDA]
     if host_ops:
@@ -1584,10 +1815,13 @@ def profile_transitions(mcmc, num, kernels=None, named=None,
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(num):
-            state = sample(setup, state, draws)
-            leapfrogs += getattr(state, "num_steps", 1)
+            state = step(state, draws)
+            if not batch:
+                leapfrogs += getattr(state, "num_steps", 1)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    if batch:
+        leapfrogs = lockstep.leapfrogs - leaves0
     counts = ops.launch_counts()
     rows = [(getattr(a, "self_device_time_total", 0.0), a.count, a.key)
             for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
@@ -1697,11 +1931,282 @@ def run_main_path(dev, data, data_s):
     return out, counts
 
 
+def chain_departures(setup, seed, chains, transitions):
+    """For each chain of a lockstep run (``setup``'s batched transition,
+    the draw sources ``MCMC.run(seed)`` gives its chains), the first
+    transition at which its position differs from a lone run of that
+    chain's source (0: the initial point), or None within
+    ``transitions``."""
+    from repro_torch.core.infer import GeneratorDraws
+
+    seeds = np.random.SeedSequence(seed).generate_state(chains,
+                                                        dtype=np.uint64)
+
+    def sources():
+        return [GeneratorDraws(torch.Generator().manual_seed(int(s)))
+                for s in seeds]
+
+    draws = sources()
+    state = setup.init_batch_fn(draws)
+    zs = [state.z.clone()]
+    for _ in range(transitions):
+        state = setup.sample_batch_fn(state, draws)
+        zs.append(state.z)
+    batched = torch.stack(zs, 1).cpu()
+    first = []
+    for c, lone in enumerate(sources()):
+        one = setup.init_fn(lone)
+        departed = None
+        for t in range(transitions + 1):
+            if t:
+                one = setup.sample_fn(one, lone)
+            if not torch.equal(one.z.cpu(), batched[c, t]):
+                departed = t
+                break
+        first.append(departed)
+    return first
+
+
+def vectorized_profile(state_path):
+    """``VEC_PROFILE_TRANSITIONS`` profiled lockstep transitions of the
+    vectorized logreg (``profile_transitions``, device activity alone) from
+    the adapted batched state ``run_nuts_vectorized`` saved to
+    ``state_path``, through a setup built as ``MCMC.run`` builds it."""
+    from types import SimpleNamespace
+
+    from repro_torch.bench.models import covtype_data, logreg_model_glm
+    from repro_torch.core.infer import NUTS
+    data = covtype_data(seed=0, n=N, d=D)
+    dev = torch.device("cuda")
+    setup = NUTS(logreg_model_glm).setup(
+        torch.Generator().manual_seed(0), VEC_WARMUP,
+        model_args=(torch.from_numpy(data["x"]).to(dev),),
+        model_kwargs={"y": torch.from_numpy(data["y"]).to(dev)})
+    state = torch.load(state_path, weights_only=False)
+    mcmc = SimpleNamespace(kernel_setup=setup, last_state=state)
+    return profile_transitions(mcmc, VEC_PROFILE_TRANSITIONS, host_ops=False)
+
+
+def run_nuts_vectorized(dev, data, single):
+    """``MCMC(NUTS(logreg_model_glm), 100, 100, num_chains=8)`` with the
+    default ``chain_method="vectorized"`` on the single chain's data: the
+    chains in lockstep, one ``nuts_leaf_batch`` launch a lockstep leapfrog
+    and one GLM launch for the live chains' gradients.  Gates: 0
+    divergences, the pooled posterior mean within 0.05 of ``true_w``, split
+    R-hat < 1.05, the lockstep tree's launches (no one-chain ``nuts_leaf``),
+    every GLM launch accounted for.  Prints the per-chain throughput beside
+    the single chain's (``single``: ``run_main_path``'s adaptive run), each
+    chain's departure from a lone run of its seed, and a profile in a fresh
+    process."""
+    import tempfile
+
+    from repro_torch.bench.models import logreg_model_glm
+    from repro_torch.core.infer import (MCMC, NUTS, effective_sample_size,
+                                        gelman_rubin)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.glm_potential import glm_potential_grad_cuda
+
+    reset_peak(dev)
+    ops.reset_launch_counts()
+    mcmc = MCMC(NUTS(logreg_model_glm), num_warmup=VEC_WARMUP,
+                num_samples=VEC_DRAWS, num_chains=VEC_CHAINS)
+    mcmc.run(0, data["x"], y=data["y"])
+    counts = ops.launch_counts()
+    chain_evals = glm_potential_grad_cuda.chain_evals
+    stats = mcmc.stats
+    w = mcmc.get_samples(group_by_chain=True)["w"].detach().cpu().numpy()
+    extra = mcmc.get_extra_fields()
+    lf, leaves = stats["num_leapfrog"], stats["lockstep_leapfrogs"]
+    secs, init = stats["chain_seconds"], stats["init_grad_evals"]
+    post_err = float(np.max(np.abs(w.mean((0, 1)) - data["true_w"])))
+    rhat = float(np.max(gelman_rubin(w)))
+    divergences = int(extra["diverging"].sum())
+    per_chain_rate = lf / secs
+    single_rate = single["num_leapfrog"] / single["chain_seconds"]
+    out = {
+        "num_chains": VEC_CHAINS, "num_warmup": VEC_WARMUP,
+        "num_samples": VEC_DRAWS, "setup_seconds": stats["setup_seconds"],
+        "chain_seconds": secs, "num_leapfrog": lf,
+        "lockstep_leapfrogs": leaves,
+        "lockstep_efficiency": stats["lockstep_efficiency"],
+        "ms_per_lockstep_leapfrog": 1e3 * secs / leaves,
+        "ms_per_leapfrog": 1e3 * secs / lf,
+        "per_chain_leapfrogs_per_s": per_chain_rate,
+        "single_chain_leapfrogs_per_s": single_rate,
+        "per_chain_throughput_ratio": per_chain_rate / single_rate,
+        "host_syncs": stats["host_syncs"],
+        "host_syncs_per_lockstep_leapfrog": stats["host_syncs"] / leaves,
+        "num_grad_evals": stats["num_grad_evals"], "init_grad_evals": init,
+        "launches": counts, "glm_chain_evals": chain_evals,
+        "mean_accept_prob": float(extra["accept_prob"].float().mean()),
+        "mean_num_steps": float(extra["num_steps"].float().mean()),
+        "divergences": divergences,
+        "max_abs_posterior_mean_minus_true_w": post_err,
+        "max_split_rhat": rhat,
+        "min_ess": float(np.min(effective_sample_size(w))),
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+    }
+    print("vectorized NUTS:", json.dumps(out), flush=True)
+    check(w.shape == (VEC_CHAINS, VEC_DRAWS, D) and np.all(np.isfinite(w)),
+          f"samples have shape {w.shape} or are not finite")
+    check(divergences == 0, f"{divergences} divergent transitions")
+    check(post_err < 0.05, f"pooled posterior mean is {post_err} from "
+                           "true_w")
+    check(rhat < VEC_RHAT_MAX, f"max split R-hat {rhat} >= {VEC_RHAT_MAX}")
+    lockstep_gates(counts, stats)
+    check(stats["num_grad_evals"] == lf + init,
+          f"{stats['num_grad_evals']} gradient evaluations != {lf} "
+          f"leapfrogs + {init} search evaluations")
+    check(counts["glm_potential_grad"] == leaves + init + 1,
+          f"glm_potential_grad: {counts['glm_potential_grad']} launches != "
+          f"{leaves} lockstep gradients + {init} search evaluations + 1 "
+          "(the setup's check)")
+    check(chain_evals == stats["num_grad_evals"] + 1,
+          f"glm_potential_grad: {chain_evals} chain evaluations != "
+          f"{stats['num_grad_evals']} + 1 (the setup's check)")
+    # the host's cost of a lockstep leaf's potential (eager calls at the
+    # final state): the batched entry for all chains and for half of them
+    # (gathered, scattered back), beside the one-chain potential
+    from repro_torch.core.infer.hmc_util import (rows_value_and_grad,
+                                                 value_and_grad)
+    potential = mcmc.kernel_setup.potential_fn
+    rows = rows_value_and_grad(potential)
+    one = value_and_grad(potential)
+    z = mcmc.last_state.z
+    half = np.arange(VEC_CHAINS) % 2 == 0
+    out["potential_call_ms"] = {
+        f"all {VEC_CHAINS} chains": call_ms(
+            lambda: rows(z, np.ones(VEC_CHAINS, bool)), 50),
+        f"{int(half.sum())} of {VEC_CHAINS}": call_ms(lambda: rows(z, half),
+                                                      50),
+        "one chain": call_ms(lambda: one(z[0]), 50)}
+    print("vectorized NUTS: potential ms a call:",
+          json.dumps(out["potential_call_ms"]), flush=True)
+    out["departures"] = chain_departures(mcmc.kernel_setup, 0, VEC_CHAINS,
+                                         VEC_DEPART_TRANSITIONS)
+    print("vectorized NUTS: first transition each chain departs from a lone "
+          f"run of its seed (of {VEC_DEPART_TRANSITIONS}):",
+          json.dumps(out["departures"]), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vectorized_state.pt")
+        torch.save(mcmc.last_state, path)
+        out["profile"] = in_fresh_process("vectorized_profile", path)
+    print("vectorized NUTS profile (fresh process):",
+          json.dumps(out["profile"]), flush=True)
+    return out, counts
+
+
+def _conjugate_normal(y, sigma0, sigma):
+    """tests/test_ensemble.py:186's model: mu ~ N(0, sigma0), y ~ N(mu,
+    sigma)."""
+    import repro_torch.core as pc
+    from repro_torch.core import dist
+    mu = pc.sample("mu", dist.Normal(0.0, sigma0))
+    with pc.plate("N", y.shape[0]):
+        pc.sample("obs", dist.Normal(mu, sigma), obs=y)
+
+
+def run_cross_chain(dev):
+    """``NUTS(cross_chain_adapt=True)``, 4 chains, 300 + 400, on the
+    reference test's conjugate normal model: its posterior mean and
+    variance bounds, split R-hat < 1.05, every chain's inverse mass matrix
+    the same pooled estimate after warmup, the lockstep tree's launches."""
+    from repro_torch.core.infer import MCMC, NUTS, gelman_rubin
+    from repro_torch.kernels import ops
+
+    sigma0, sigma = 2.0, 1.0
+    y = np.random.default_rng(0).normal(1.8, sigma, size=50).astype(
+        np.float32)
+    post_var = 1.0 / (1 / sigma0 ** 2 + len(y) / sigma ** 2)
+    post_mean = post_var * (float(y.sum()) / sigma ** 2)
+    ops.reset_launch_counts()
+    mcmc = MCMC(NUTS(lambda y: _conjugate_normal(y, sigma0, sigma),
+                     cross_chain_adapt=True),
+                num_warmup=XCHAIN_WARMUP, num_samples=XCHAIN_DRAWS,
+                num_chains=XCHAIN_CHAINS)
+    mcmc.run(0, y)
+    counts = ops.launch_counts()
+    stats = mcmc.stats
+    mu = mcmc.get_samples()["mu"].double()
+    grouped = mcmc.get_samples(group_by_chain=True)["mu"].cpu().numpy()
+    imm = mcmc.last_state.adapt_state.inverse_mass_matrix
+    shared = bool((imm == imm[0]).all())
+    out = {"num_chains": XCHAIN_CHAINS, "num_warmup": XCHAIN_WARMUP,
+           "num_samples": XCHAIN_DRAWS, "chain_seconds": stats["chain_seconds"],
+           "num_leapfrog": stats["num_leapfrog"],
+           "lockstep_leapfrogs": stats["lockstep_leapfrogs"],
+           "lockstep_efficiency": stats["lockstep_efficiency"],
+           "ms_per_lockstep_leapfrog": 1e3 * stats["chain_seconds"]
+           / stats["lockstep_leapfrogs"],
+           "mean_minus_posterior": float(mu.mean()) - post_mean,
+           "var_minus_posterior": float(mu.var()) - post_var,
+           "split_rhat": float(gelman_rubin(grouped)),
+           "inverse_mass_matrix": imm.reshape(-1).tolist(),
+           "shared_mass_matrix": shared, "launches": counts}
+    print("cross-chain NUTS:", json.dumps(out), flush=True)
+    check(abs(out["mean_minus_posterior"]) < 0.1,
+          f"posterior mean off by {out['mean_minus_posterior']}")
+    check(abs(out["var_minus_posterior"]) < 0.05,
+          f"posterior variance off by {out['var_minus_posterior']}")
+    check(out["split_rhat"] < 1.05, f"split R-hat {out['split_rhat']}")
+    check(shared and tuple(imm.shape) == (XCHAIN_CHAINS, 1),
+          f"the chains' inverse mass matrices differ after warmup: {imm}")
+    lockstep_gates(counts, stats)
+    return out, counts
+
+
+def run_dense(dev):
+    """``NUTS(dense_mass=True)`` on tests/test_mcmc.py:191's correlated
+    Gaussian (rho = 0.95), one chain, 300 + 300: finite draws, |mean| <
+    0.2, and no leaf kernel: the dense leaf is plain torch by design."""
+    import repro_torch.core as pc
+    from repro_torch.core import dist
+    from repro_torch.core.infer import MCMC, NUTS, effective_sample_size
+    from repro_torch.kernels import ops
+
+    cov = torch.tensor([[1.0, DENSE_RHO], [DENSE_RHO, 1.0]], device=dev)
+
+    def model():
+        pc.sample("x", dist.MultivariateNormal(torch.zeros(2, device=dev),
+                                               covariance_matrix=cov))
+
+    ops.reset_launch_counts()
+    mcmc = MCMC(NUTS(model, dense_mass=True), num_warmup=DENSE_WARMUP,
+                num_samples=DENSE_DRAWS)
+    mcmc.run(0)
+    counts = ops.launch_counts()
+    stats = mcmc.stats
+    x = mcmc.get_samples(group_by_chain=True)["x"].cpu().numpy()
+    mean = float(np.abs(x.mean()))
+    imm = mcmc.last_state[0].adapt_state.inverse_mass_matrix
+    out = {"num_warmup": DENSE_WARMUP, "num_samples": DENSE_DRAWS,
+           "chain_seconds": stats["chain_seconds"],
+           "num_leapfrog": stats["num_leapfrog"],
+           "ms_per_leapfrog": 1e3 * stats["chain_seconds"]
+           / stats["num_leapfrog"],
+           "abs_mean": mean,
+           "min_ess": float(min(effective_sample_size(x[..., 0]),
+                                effective_sample_size(x[..., 1]))),
+           "inverse_mass_matrix": imm.tolist(), "launches": counts}
+    print("dense-mass NUTS:", json.dumps(out), flush=True)
+    check(bool(np.all(np.isfinite(x))), "a dense-mass draw is not finite")
+    check(mean < 0.2, f"|mean| {mean} >= 0.2")
+    leaf_ops = ("nuts_leaf", "nuts_leaf_batch", "nuts_turning",
+                "leapfrog_halfstep", "halfstep_chains")
+    check(all(counts[k] == 0 for k in leaf_ops),
+          f"a dense-mass run launched a diagonal leaf kernel: "
+          f"{ {k: counts[k] for k in leaf_ops} }")
+    return out
+
+
 def tree_gates(counts, stats):
     """A NUTS run's launches: exactly one ``nuts_leaf`` a leapfrog of its
     trees; ``leapfrog_halfstep`` opens every subtree (at least one a
     transition) and the step-size search's leapfrogs (at most one a search
-    evaluation); at most one ``nuts_turning`` a subtree."""
+    evaluation); at most one ``nuts_turning`` a subtree.  A lockstep run
+    (``lockstep_gates``) launches the chain-batched ops instead."""
+    if stats["lockstep_leapfrogs"] is not None:
+        return lockstep_gates(counts, stats)
     lf, iters = stats["num_leapfrog"], stats["num_iterations"]
     check(counts["nuts_leaf"] == lf,
           f"nuts_leaf: {counts['nuts_leaf']} launches != {lf} leapfrogs in "
@@ -1714,6 +2219,34 @@ def tree_gates(counts, stats):
     check(counts["nuts_turning"] <= opens,
           f"nuts_turning: {counts['nuts_turning']} launches > {opens} "
           "subtrees")
+
+
+def lockstep_gates(counts, stats):
+    """A lockstep NUTS run's launches: exactly one ``nuts_leaf_batch`` a
+    lockstep leapfrog and no one-chain ``nuts_leaf``; ``halfstep_chains``
+    opens every lockstep subtree (at least one a transition, at most one a
+    lockstep leapfrog); at most one ``nuts_turning_batch`` a subtree; the
+    one-chain half-step only in the chains' step-size searches."""
+    leaves, iters = stats["lockstep_leapfrogs"], stats["num_iterations"]
+    check(counts["nuts_leaf_batch"] == leaves,
+          f"nuts_leaf_batch: {counts['nuts_leaf_batch']} launches != "
+          f"{leaves} lockstep leapfrogs")
+    check(counts["nuts_leaf"] == 0,
+          f"nuts_leaf: {counts['nuts_leaf']} one-chain launches in a "
+          "lockstep run")
+    opens = counts["halfstep_chains"]
+    check(iters <= opens <= leaves,
+          f"halfstep_chains: {opens} launches outside [{iters} "
+          f"transitions, {leaves} lockstep leapfrogs]")
+    check(counts["nuts_turning_batch"] <= opens,
+          f"nuts_turning_batch: {counts['nuts_turning_batch']} launches > "
+          f"{opens} subtrees")
+    check(counts["nuts_turning"] == 0
+          and counts["leapfrog_halfstep"] <= stats["init_grad_evals"],
+          f"one-chain launches in a lockstep run: nuts_turning "
+          f"{counts['nuts_turning']}, leapfrog_halfstep "
+          f"{counts['leapfrog_halfstep']} > {stats['init_grad_evals']} "
+          "search evaluations")
 
 
 def _simplex_ok(x):
@@ -3665,8 +4198,10 @@ def run_skim(dev):
 
 def run_eight_schools(dev):
     """The README's eight schools, non-centered by ``reparam`` with
-    ``LocScaleReparam(0.0)``: NUTS, 4 chains one after another, gated on
-    split R-hat < 1.05 for every site and the tree's launches; then
+    ``LocScaleReparam(0.0)``: NUTS, 4 chains in lockstep (the example's
+    default ``chain_method="vectorized"``; the generic potential, a loop
+    over the live chains, under the lockstep tree), gated on split R-hat <
+    1.05 for every site and the lockstep tree's launches; then
     ``Predictive`` of the posterior on the card, gated on the shape and
     finiteness of ``obs``."""
     from repro_torch.bench.models import eight_schools, eight_schools_data
@@ -3679,7 +4214,7 @@ def run_eight_schools(dev):
     model = reparam(eight_schools, config={"theta": LocScaleReparam(0.0)})
     ops.reset_launch_counts()
     mcmc = MCMC(NUTS(model), num_warmup=ES_WARMUP, num_samples=ES_DRAWS,
-                num_chains=ES_CHAINS, chain_method="sequential")
+                num_chains=ES_CHAINS)
     mcmc.run(0, data["sigma"], y=data["y"])
     counts = ops.launch_counts()
     stats = mcmc.stats
@@ -3695,9 +4230,16 @@ def run_eight_schools(dev):
     obs = post["obs"]
     out = {
         "chains": ES_CHAINS, "num_warmup": ES_WARMUP, "num_samples": ES_DRAWS,
+        "chain_method": mcmc.chain_method,
         "chain_seconds": stats["chain_seconds"], "num_leapfrog": lf,
         "ms_per_leapfrog": 1e3 * stats["chain_seconds"] / lf,
+        "lockstep_leapfrogs": stats["lockstep_leapfrogs"],
+        "ms_per_lockstep_leapfrog": 1e3 * stats["chain_seconds"]
+        / stats["lockstep_leapfrogs"],
+        "lockstep_efficiency": stats["lockstep_efficiency"],
         "host_syncs_per_leapfrog": stats["host_syncs"] / lf,
+        "host_syncs_per_lockstep_leapfrog": stats["host_syncs"]
+        / stats["lockstep_leapfrogs"],
         "launches": counts,
         "divergences": int(mcmc.get_extra_fields()["diverging"].sum()),
         "max_split_rhat_by_site": rhat,
@@ -3719,8 +4261,9 @@ def run_eight_schools(dev):
 
 def run_samplers(dev):
     """The kernels of slices 1-3 against their plain versions, then their
-    main paths (NUTS logreg, the two HMMs, SKIM, eight schools, ChEES,
-    MALA, RWM); returns their
+    main paths (NUTS logreg, one chain and 8 in lockstep, the two HMMs,
+    SKIM, eight schools, cross-chain and dense-mass NUTS, ChEES, MALA,
+    RWM); returns their
     rows of the kernel table and prints the seconds of each part."""
     part_s, t0 = {}, time.perf_counter()
     lf_checks, lf_timing, nuts_timing = leapfrog_checks(dev)
@@ -3746,6 +4289,12 @@ def run_samplers(dev):
     print("ensemble kernel checks:", json.dumps(ens_checks), flush=True)
     print("ensemble kernel timings:", json.dumps(
         {str(k): v for k, v in ens_timing.items()}), flush=True)
+    batch_checks, batch_timing = nuts_batch_checks(dev)
+    print("lockstep NUTS kernel checks:", json.dumps(batch_checks),
+          flush=True)
+    print("lockstep NUTS kernel timings:", json.dumps(
+        {k: {**t, "bound_ms": b, "bound_by": by}
+         for k, (t, (b, by), _) in batch_timing.items()}), flush=True)
 
 
     def lap(name):
@@ -3758,6 +4307,8 @@ def run_samplers(dev):
     data_s = time.perf_counter() - t0
     path, counts = run_main_path(dev, data, data_s)
     lap("NUTS logreg")
+    vec, vec_counts = run_nuts_vectorized(dev, data, path["adaptive"])
+    lap("vectorized NUTS logreg")
     enum_path, enum_counts = run_enum_hmm(dev)
     lap("enumerated HMM")
     hmm, hmm_counts = run_hmm(dev)
@@ -3766,6 +4317,10 @@ def run_samplers(dev):
     lap("SKIM")
     schools, schools_counts = run_eight_schools(dev)
     lap("eight schools")
+    xchain, xchain_counts = run_cross_chain(dev)
+    lap("cross-chain NUTS")
+    run_dense(dev)
+    lap("dense-mass NUTS")
     print("graphed trajectory checks:", json.dumps(
         trajectory_checks(dev, data)), flush=True)
     chees, chees_counts = run_chees(dev, data)
@@ -3863,6 +4418,38 @@ def run_samplers(dev):
                                "bound_ms": b, "bound_by": by}
                       for c, (t, (b, by), _) in glm_timing.items()},
         "shape": [N, D], "chains": list(GLM_CHAINS)})
+    # the chain-batched NUTS ops (lockstep NUTS: the vmap of rows 1 and 1b)
+    lockstep_phases = {"vectorized NUTS": (vec, vec_counts),
+                       "eight schools": (schools, schools_counts),
+                       "cross-chain NUTS": (xchain, xchain_counts)}
+    for name, note in (
+            ("nuts_leaf_batch", "one launch a lockstep leapfrog of C "
+             "chains' NUTS trees, each chain its own step size, m_inv row, "
+             "checkpoints and active flag (the JAX package's vmap of row "
+             "1's leaf); timed at C = 8 every chain active, an odd leaf "
+             "with one checkpoint row"),
+            ("nuts_turning_batch", "the C merged trees' U-turn dots, one "
+             "launch a lockstep doubling (the vmap of row 1b)"),
+            ("halfstep_chains", "row 1's half-step with a signed step size, "
+             "m_inv row and active flag per chain: opens each lockstep "
+             "subtree")):
+        times, (bound_ms, bound_by), err = batch_timing[name]
+        kernels.append({
+            "name": name, "route": FUSED[name].route,
+            "source": "src/repro_torch/csrc/leapfrog.cu",
+            "replaces": FUSED[name].replaces, "launches": vec_counts[name],
+            "max_abs_err": max(c["max_abs_err"] for c in batch_checks
+                               if c["name"] == name),
+            "max_abs_err_main_shape": err,
+            "ms": times["ms"], "plain_ms": times["plain_ms"],
+            "call_ms": times["call_ms"],
+            "plain_call_ms": times["plain_call_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "launches_per_lockstep_leapfrog": vec_counts[name]
+            / vec["lockstep_leapfrogs"],
+            "launches_by_phase": {p: c[name]
+                                  for p, (_, c) in lockstep_phases.items()},
+            "shape": [VEC_CHAINS, D], "note": note})
     main_t, large_t = enum_timings[ENUM_MAIN], enum_timings[ENUM_LARGE]
     off_path = ("no main path launches it: markov runs the T-1 steps "
                 "through enum_chain; checked and timed as the port of the "

@@ -227,9 +227,11 @@ class substitute(Messenger):
         return super().__enter__()
 
     def __exit__(self, exc_type, exc_value, tb):
+        # pop first: a failed check must not leave the handler on the stack
+        popped = super().__exit__(exc_type, exc_value, tb)
         if exc_type is None and self.strict and self.data is not None:
             _check_unmatched("substitute", self.data, self._seen)
-        return super().__exit__(exc_type, exc_value, tb)
+        return popped
 
     def process_message(self, msg: dict) -> None:
         if msg["type"] not in ("sample", "param", "plate", "deterministic"):
@@ -275,9 +277,11 @@ class condition(Messenger):
         return super().__enter__()
 
     def __exit__(self, exc_type, exc_value, tb):
+        # pop first: a failed check must not leave the handler on the stack
+        popped = super().__exit__(exc_type, exc_value, tb)
         if exc_type is None and self.strict:
             _check_unmatched("condition", self.data, self._seen)
-        return super().__exit__(exc_type, exc_value, tb)
+        return popped
 
     def process_message(self, msg: dict) -> None:
         if msg["type"] == "deterministic" and msg["name"] in self.data \
@@ -381,9 +385,11 @@ class do(Messenger):
         return super().__enter__()
 
     def __exit__(self, exc_type, exc_value, tb):
+        # pop first: a failed check must not leave the handler on the stack
+        popped = super().__exit__(exc_type, exc_value, tb)
         if exc_type is None and self.strict:
             _check_unmatched("do", self.data, self._seen)
-        return super().__exit__(exc_type, exc_value, tb)
+        return popped
 
     def process_message(self, msg: dict) -> None:
         if msg["type"] == "deterministic" and msg["name"] in self.data \

@@ -13,10 +13,22 @@ whole ensemble at once: ``init_fn(chain_draws, draws)`` takes one draw
 source per chain (for each chain's initial-point search) and the shared
 source, ``sample_fn(state, draws)`` maps the ensemble state with the shared
 source, and ``collect_fn`` returns leaves that lead with the chain axis.
+HMC/NUTS with ``cross_chain_adapt=True`` is cross-chain too, but every chain
+keeps its own source: its ``sample_fn(state, chain_draws)`` takes them all.
+
+A per-chain kernel that can move C chains in lockstep (HMC, NUTS) also
+gives ``init_batch_fn(chain_draws)`` and ``sample_batch_fn(state,
+chain_draws)``: the batched state's leaves lead with the chain axis, each
+chain draws from its own source what it would draw alone, and
+``sample_batch_fn.lockstep.leapfrogs`` counts the lockstep leapfrogs.
+
+:class:`SamplerKernel` is the protocol the executor drives: ``setup`` and
+``init``.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Protocol, Tuple, \
+    runtime_checkable
 
 
 class KernelSetup(NamedTuple):
@@ -40,6 +52,10 @@ class KernelSetup(NamedTuple):
     grad_evals: object = None
     # batch-aware kernel: init/sample move the (C, ...) ensemble together
     cross_chain: bool = False
+    # C chains in lockstep (HMC/NUTS): chain_draws -> batched state, and
+    # (batched state, chain_draws) -> batched state
+    init_batch_fn: Optional[Callable] = None
+    sample_batch_fn: Optional[Callable] = None
 
 
 def init_state(setup: KernelSetup, *draws):
@@ -56,3 +72,21 @@ def sample(setup: KernelSetup, state, draws):
 def collect(setup: KernelSetup, state):
     """Per-draw outputs (position + diagnostics) recorded by the executor."""
     return setup.collect_fn(state)
+
+
+@runtime_checkable
+class SamplerKernel(Protocol):
+    """Anything the multi-chain executor can drive.
+
+    ``setup`` does the one-time work and returns the :class:`KernelSetup`
+    whose ``init_fn``/``sample_fn`` are the pair above; ``init`` bundles
+    both steps and returns an initial state.
+    """
+
+    def setup(self, generator, num_warmup, init_params=None, model_args=(),
+              model_kwargs=None) -> KernelSetup:
+        ...
+
+    def init(self, generator, num_warmup, init_params=None, model_args=(),
+             model_kwargs=None) -> Any:
+        ...

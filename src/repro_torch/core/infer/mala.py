@@ -43,6 +43,7 @@ from .hmc_util import (
     chain_value_and_grad,
     dual_averaging_init,
     dual_averaging_update,
+    split_draws,
     to_device,
     welford_batch,
     welford_combine,
@@ -245,6 +246,16 @@ class _MRWKernel:
             potential_fn=self.potential_fn if self.model is None else None,
             init_params=init_params, model_args=model_args,
             model_kwargs=model_kwargs, device=self.device, **self._kwargs)
+
+    def init(self, generator, num_warmup, init_params=None, model_args=(),
+             model_kwargs=None, num_chains=1):
+        """Build the setup and initialize a ``num_chains``-wide ensemble
+        from draw sources seeded by ``generator`` (after the setup's
+        trace)."""
+        setup = self.setup(generator, num_warmup, init_params=init_params,
+                           model_args=model_args, model_kwargs=model_kwargs)
+        *chain_draws, draws = split_draws(generator, num_chains + 1)
+        return setup.init_fn(chain_draws, draws)
 
 
 class MALA(_MRWKernel):

@@ -1,19 +1,29 @@
 """The MCMC executor.
 
-Per-chain kernels (HMC, NUTS) run their chains one after another: each gets
-its own draw source (a CPU ``torch.Generator`` seeded from
-``np.random.SeedSequence(seed)``), its own ``init_fn`` call and
-``num_warmup + num_samples`` calls of ``sample_fn``.  The JAX executor's
-``vmap`` over chains becomes a batched lockstep NUTS in a later slice, so
-``chain_method="vectorized"`` with more than one chain raises for them
-until then (with one chain the two methods are the same).
+Per-chain kernels (HMC, NUTS) run their chains in one of two ways, each
+chain with its own draw source (a CPU ``torch.Generator`` seeded from
+``np.random.SeedSequence(seed)``):
+
+- ``chain_method="vectorized"`` (the default) with more than one chain moves
+  them in lockstep, the JAX executor's ``vmap`` over chains: one
+  ``init_batch_fn`` over all chains' draw sources, then ``num_warmup +
+  num_samples`` batched transitions (``sample_batch_fn``), in which every
+  lockstep leaf of NUTS is one leaf kernel launch and one potential
+  evaluation for all the chains still growing their trees.  Each chain
+  draws exactly what it would draw alone, so on the CPU chain c is the same
+  chain as under ``"sequential"``, bit for bit.
+- ``chain_method="sequential"`` runs them one after another: ``init_fn``
+  and ``num_warmup + num_samples`` calls of ``sample_fn`` each.
 
 Cross-chain kernels (``KernelSetup.cross_chain``: ChEES, MALA, RWM) move
 the whole ensemble at once: ``init_fn`` is called once with every chain's
 draw source and the shared one, then ``sample_fn`` ``num_warmup +
-num_samples`` times with the shared source.  They adapt across the chains,
-so ``chain_method="sequential"`` raises for them.  Checkpoint/resume,
-meshes, telemetry and convergence monitoring wait for later slices.
+num_samples`` times with the shared source.  HMC/NUTS with
+``cross_chain_adapt=True`` is cross-chain and runs the lockstep path.
+Cross-chain kernels adapt across the chains, so
+``chain_method="sequential"`` raises for them.  ``chain_method="parallel"``
+(chains over several cards), checkpoint/resume, meshes, telemetry and
+convergence monitoring wait for later slices.
 """
 from __future__ import annotations
 
@@ -60,9 +70,12 @@ class MCMC:
     ``device`` defaults to the kernel's device (``"cuda"`` unless the kernel
     was built with ``device="cpu"``); model arguments are moved there.
     After ``run``, ``stats`` holds the run's counts: ``num_leapfrog`` (every
-    trajectory leapfrog, warmup included; for a cross-chain kernel the
-    ensemble leapfrogs, each moving all chains, and one per MALA/RWM
-    proposal), ``num_iterations`` (``sample_fn`` calls), ``host_syncs`` (the
+    trajectory leapfrog, warmup included, summed over the chains of a
+    per-chain kernel; for ChEES the ensemble leapfrogs, each moving all
+    chains, and one per MALA/RWM proposal), ``lockstep_leapfrogs`` and
+    ``lockstep_efficiency`` for a lockstep run of HMC/NUTS (the leaves of
+    the batch, each moving every chain still growing its tree, and
+    ``num_leapfrog / (C * lockstep_leapfrogs)``; None otherwise), ``num_iterations`` (``sample_fn`` calls), ``host_syncs`` (the
     sampler's device->host reads), ``num_grad_evals`` (per-chain potential
     value-and-gradient evaluations: the leapfrogs' plus the initial-point
     and step-size searches'), ``init_grad_evals`` (those of the searches
@@ -92,10 +105,6 @@ class MCMC:
             raise ValueError(f"unknown chain_method {chain_method}")
         if chain_method == "parallel":
             raise pending("chain_method='parallel'", "multi-GPU")
-        if chain_method == "vectorized" and self.num_chains > 1 \
-                and not getattr(kernel, "cross_chain", False):
-            raise pending("chain_method='vectorized' with num_chains > 1 "
-                          "(use 'sequential')", "batched lockstep NUTS")
         self.chain_method = chain_method
         kernel_device = getattr(kernel, "device", None)
         device = resolve_device(device if device is not None
@@ -127,12 +136,18 @@ class MCMC:
         reads0 = setup.host_reads.count
         evals0 = setup.grad_evals.count
         t_chains = time.perf_counter()
+        lockstep = setup.sample_batch_fn is not None and (
+            setup.cross_chain or (self.chain_method == "vectorized"
+                                  and self.num_chains > 1))
+        shared = int(setup.cross_chain and not lockstep)
         seeds = np.random.SeedSequence(int(seed)).generate_state(
-            self.num_chains + int(setup.cross_chain), dtype=np.uint64)
+            self.num_chains + shared, dtype=np.uint64)
         draws = [GeneratorDraws(torch.Generator().manual_seed(int(s)))
                  for s in seeds]
-        run_chain = self._run_ensemble if setup.cross_chain \
-            else self._run_chains
+        run_chain = self._run_lockstep if lockstep else \
+            self._run_ensemble if setup.cross_chain else self._run_chains
+        leaves0 = setup.sample_batch_fn.lockstep.leapfrogs if lockstep \
+            else 0
         states, collected, num_leapfrog, init_evals, iterations = \
             run_chain(setup, draws)
         if self.device.type == "cuda":
@@ -152,7 +167,14 @@ class MCMC:
                       "glm_prior": getattr(setup.potential_fn, "glm_prior",
                                            None),
                       "glm_prior_batch": getattr(setup.potential_fn,
-                                                 "glm_prior_batch", None)}
+                                                 "glm_prior_batch", None),
+                      "lockstep_leapfrogs": None,
+                      "lockstep_efficiency": None}
+        if lockstep:
+            leaves = setup.sample_batch_fn.lockstep.leapfrogs - leaves0
+            self.stats["lockstep_leapfrogs"] = leaves
+            self.stats["lockstep_efficiency"] = (
+                num_leapfrog / (self.num_chains * leaves) if leaves else None)
         self.stats.update(getattr(setup.sample_fn, "trajectory_stats",
                                   dict)())
         return self
@@ -176,6 +198,21 @@ class MCMC:
                      for k in collected[0]}
         iterations = len(draws) * (self.num_warmup + self.num_samples)
         return states, collected, num_leapfrog, init_evals, iterations
+
+    def _run_lockstep(self, setup, draws):
+        """Per-chain kernels in lockstep: the batched state of all chains,
+        each drawing from its own source."""
+        evals0 = setup.grad_evals.count
+        state = setup.init_batch_fn(draws)
+        init_evals = setup.grad_evals.count - evals0
+        rows, num_leapfrog = [], 0
+        for it in range(self.num_warmup + self.num_samples):
+            state = setup.sample_batch_fn(state, draws)
+            num_leapfrog += int(np.sum(state.num_steps))
+            if it >= self.num_warmup:
+                rows.append(setup.collect_fn(state))
+        return (state, _rows_to_dict(rows, dim=1), num_leapfrog, init_evals,
+                self.num_warmup + self.num_samples)
 
     def _run_ensemble(self, setup, draws):
         """Cross-chain kernels: the whole ensemble in lockstep.  A MALA/RWM
@@ -217,8 +254,10 @@ class MCMC:
 
     @property
     def last_state(self):
-        """The final state of each chain, in chain order (one ensemble
-        state for a cross-chain kernel)."""
+        """The final state: one batched state (leaves lead with the chain
+        axis) for a lockstep run, a list of the one ensemble state for
+        ChEES/MALA/RWM, and the list of each chain's state, in chain order, for a
+        sequential run."""
         return self._last_state
 
     def print_summary(self):

@@ -2,8 +2,9 @@
 
 :func:`state_from_reference` takes one of the reference's states after
 ``jax.device_get`` (any object with the same field names whose leaves are
-numpy arrays): NUTS/HMC's ``HMCState``, ChEES's ``ChEESState`` or MALA/RWM's
-``MRWState``, with their adaptation states.  It returns this package's
+numpy arrays): NUTS/HMC's ``HMCState`` (one chain's, or C chains' batched
+by ``vmap``), ChEES's ``ChEESState`` or MALA/RWM's ``MRWState``, with their
+adaptation states.  It returns this package's
 counterpart on ``device``.  Both packages flatten latents in sorted site
 order, so the same ``z`` is the same point and the two evaluate the same
 potential there.
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from .core.infer.ensemble import AdamState, ChEESAdaptState, ChEESState
-from .core.infer.hmc import AdaptState, HMCState
+from .core.infer.hmc import AdaptState, HMCState, stack_states
 from .core.infer.hmc_util import DAState, WelfordState
 from .core.infer.mala import MRWAdaptState, MRWState
 from .optim import AdamState as OptAdamState
@@ -60,11 +61,23 @@ def _ensemble_state(state, device):
                 diverging=_t(state.diverging, device).to(torch.bool))
 
 
+def _row(tree, c):
+    """Chain ``c`` of a reference state batched by ``vmap``."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_row(v, c) for v in tree))
+    return np.asarray(tree)[c]
+
+
 def state_from_reference(state, device="cpu"):
     """The port's ``HMCState``, ``ChEESState`` or ``MRWState`` holding the
-    reference state's values."""
+    reference state's values.  A NUTS/HMC state batched over chains by
+    ``vmap`` (its ``i`` has a chain axis) becomes the port's batched state
+    (``hmc.stack_states``)."""
     device = torch.device(device)
     adapt = state.adapt_state
+    if hasattr(adapt, "window_idx") and np.ndim(state.i) == 1:
+        return stack_states([state_from_reference(_row(state, c), device)
+                             for c in range(np.shape(state.i)[0])])
     if hasattr(adapt, "log_traj"):   # ChEES
         fields = _ensemble_state(state, device)
         adam = adapt.adam_state

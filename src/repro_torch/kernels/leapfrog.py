@@ -27,10 +27,18 @@ U-turn dots against the checkpoints (an odd leaf), packs ``[pe, ke,
 dots...]`` for the leaf's one host read, and opens leapfrog k + 1 with the
 step above.  ``nuts_turning`` forms the two U-turn dots of a merged tree.
 
+Lockstep NUTS over C chains (``hmc_util.build_tree_batch``, the JAX
+package's ``vmap`` of the leaf over chains) runs ``nuts_leaf_batch``: the
+leaf of every chain in one launch, each chain with its own signed step
+size, ``m_inv`` row, checkpoints and active flag (a chain whose tree or
+subtree has stopped is copied through).  ``nuts_turning_batch`` forms the
+(C, 2) dots of the merged trees, and ``halfstep_chains`` opens each chain's
+subtree (and each leapfrog of lockstep HMC) with its own step size.
+
 ``ops.leapfrog_halfstep``, ``ops.leapfrog_halfstep_batch``,
-``ops.nuts_leaf``, ``ops.nuts_turning``, ``ops.chees_open`` and
-``ops.chees_accept`` take the plain versions for tensors on the CPU and the
-CUDA kernels (``csrc/leapfrog.cu``, ``csrc/leapfrog_batch.cu``,
+``ops.nuts_leaf``, ``ops.nuts_turning``, their three chain-batched forms,
+``ops.chees_open`` and ``ops.chees_accept`` take the plain versions for
+tensors on the CPU and the CUDA kernels (``csrc/leapfrog.cu``, ``csrc/leapfrog_batch.cu``,
 ``csrc/chees.cu``) for tensors on a card; they never fall back from one to
 the other.
 """
@@ -296,6 +304,271 @@ def nuts_turning_cuda(inverse_mass_matrix, r_left, r_right, r_sum):
 
 
 nuts_turning_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# lockstep NUTS over C chains: nuts_leaf_batch, nuts_turning_batch,
+# halfstep_chains
+# ---------------------------------------------------------------------------
+
+def halfstep_chains_ref(z, r, grad, m_inv, eps, active, *,
+                        step=leapfrog_halfstep_ref):
+    """The plain version of the half-step over C chains: row c is
+    :func:`leapfrog_halfstep_ref` (or ``step``, a one-chain form with its
+    arguments) on chain c with its own signed ``eps[c]`` and ``m_inv[c]``,
+    an inactive row copied through -> ``(z', r')``."""
+    z_new, r_new = zip(*(
+        step(z[c], r[c], grad[c], m_inv[c], eps[c]) if on
+        else (z[c], r[c]) for c, on in enumerate(active.tolist())))
+    return torch.stack(z_new), torch.stack(r_new)
+
+
+def nuts_leaf_batch_ref(r_half, z, grad, pe, m_inv, eps, active, r_sum,
+                        r_ckpts, r_sum_ckpts, ckpt_i=None, idx_min=0,
+                        idx_max=-1, *, leaf=nuts_leaf_ref):
+    """The plain version of a lockstep leaf over C chains: row c is
+    :func:`nuts_leaf_ref` (or ``leaf``, a one-chain form with its arguments)
+    on chain c (its ``(C, D)`` rows, ``pe[c]``, its signed ``eps[c]``, its
+    ``m_inv`` row and its (depth, D) block of the ``(C, depth, D)``
+    checkpoints, written in place), in that function's order.  The
+    checkpoint row or range is shared.  An inactive chain is copied
+    through: ``r`` and ``r_half_next`` are its ``r_half``,
+    ``r_sum_through`` its ``r_sum`` (``r_half`` on a first leaf),
+    ``z_next`` its ``z``, its vals row is zero and its checkpoints are
+    untouched.  Returns ``(r, r_sum_through, vals (C, 2 + 2 rows), z_next,
+    r_half_next)``."""
+    rows = 0 if ckpt_i is not None else max(idx_max - idx_min + 1, 0)
+    outs = []
+    for c, on in enumerate(active.tolist()):
+        if on:
+            outs.append(leaf(
+                r_half[c], z[c], grad[c], pe[c], m_inv[c], eps[c],
+                None if r_sum is None else r_sum[c], r_ckpts[c],
+                r_sum_ckpts[c], ckpt_i, idx_min, idx_max))
+        else:
+            kept = r_half[c] if r_sum is None else r_sum[c]
+            outs.append((r_half[c], kept, z.new_zeros(2 + 2 * rows), z[c],
+                         r_half[c]))
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def nuts_turning_batch_ref(inverse_mass_matrix, r_left, r_right, r_sum, *,
+                           dots=nuts_turning_ref):
+    """The plain version of the (C, 2) U-turn dots of C trees: row c is
+    :func:`nuts_turning_ref` (or ``dots``) on chain c."""
+    return torch.stack([dots(inverse_mass_matrix[c], r_left[c], r_right[c],
+                             r_sum[c]) for c in range(r_left.shape[0])])
+
+
+def _check_chains(kernel, z, **others):
+    """Raise unless ``z`` is a contiguous (C, D) CUDA tensor of a supported
+    dtype and every other operand matches it: (C, D), a (C,) vector of its
+    dtype (``eps``, ``pe``), a (C,) bool ``active`` or (C, R, D) checkpoints
+    (``*ckpts``)."""
+    if z.device.type != "cuda":
+        raise ValueError(f"{kernel} needs CUDA tensors, got {z.device}")
+    if z.dtype not in _DTYPES:
+        raise TypeError(f"{kernel} supports float32/float64, got {z.dtype}")
+    if z.dim() != 2:
+        raise ValueError(f"{kernel} takes (C, D) chains, got shape "
+                         f"{tuple(z.shape)}")
+    for name, t in others.items():
+        dtype = torch.bool if name == "active" else z.dtype
+        if name.endswith("ckpts"):
+            ok = t.dim() == 3 and t.shape[0] == z.shape[0] \
+                and t.shape[2] == z.shape[1]
+        elif name in ("eps", "pe", "active"):
+            ok = t.shape == z.shape[:1]
+        else:
+            ok = t.shape == z.shape
+        if t.device != z.device or t.dtype != dtype or not ok:
+            raise ValueError(f"{kernel}: {name} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}, which does "
+                             f"not fit {z.dtype} {tuple(z.shape)} chains on "
+                             f"{z.device}")
+    if not all(t.is_contiguous() for t in (z, *others.values())):
+        raise ValueError(f"{kernel} needs contiguous tensors")
+
+
+# The chain-batched folds' tickets: C zeroed int32 per (device, stream), one
+# a chain, left at zero by every launch; a wider batch gets a new buffer.
+_CHAIN_TICKETS = {}
+
+
+def fold_tickets(device, stream, chains):
+    key = (device.index, stream)
+    buf = _CHAIN_TICKETS.get(key)
+    if buf is None or buf.numel() < chains:
+        buf = torch.zeros(chains, dtype=torch.int32, device=device)
+        _CHAIN_TICKETS[key] = buf
+    return buf
+
+
+def _batch_lib():
+    lib = _nuts_lib()
+    if lib.nuts_leaf_batch_f32.argtypes is None:
+        for dt in _SUFFIX.values():
+            fn = getattr(lib, f"nuts_leaf_batch_{dt}")
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 \
+                + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 8
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"nuts_turning_batch_{dt}")
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 \
+                + [ctypes.c_void_p] * 4
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"halfstep_chains_{dt}")
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.nuts_batch_max_chains.restype = ctypes.c_int
+    return lib
+
+
+def _check_width(name, lib, chains):
+    if chains > lib.nuts_batch_max_chains():
+        raise ValueError(f"{name}: {chains} chains, at most "
+                         f"{lib.nuts_batch_max_chains()}")
+
+
+def halfstep_chains_cuda(z, r, grad, m_inv, eps, active):
+    """Launch ``halfstep_chains`` (``csrc/leapfrog.cu``) once on the current
+    stream: :func:`halfstep_chains_ref`'s arguments and results,
+    bit-identical.  ``eps`` (C,) and ``active`` (C,) bool lie on the card.
+    Raises on a wrong device, dtype, shape or layout, and on a failed build
+    or launch."""
+    name = "halfstep_chains_cuda"
+    _check_chains(name, z, r=r, grad=grad, m_inv=m_inv, eps=eps,
+                  active=active)
+    lib = _batch_lib()
+    chains, d = z.shape
+    _check_width(name, lib, chains)
+    z_out, r_out = torch.empty_like(z), torch.empty_like(r)
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    with torch.cuda.device(z.device):
+        rc = getattr(lib, "halfstep_chains_" + _SUFFIX[z.dtype])(
+            eps.data_ptr(), active.data_ptr(), z.data_ptr(), r.data_ptr(),
+            grad.data_ptr(), m_inv.data_ptr(), z_out.data_ptr(),
+            r_out.data_ptr(), chains, d, stream)
+    if rc != 0:
+        raise RuntimeError(f"halfstep_chains kernel launch failed: "
+                           f"cudaError {rc}")
+    halfstep_chains_cuda.launches += 1
+    return z_out, r_out
+
+
+halfstep_chains_cuda.launches = 0
+
+
+def nuts_leaf_batch_cuda(r_half, z, grad, pe, m_inv, eps, active, r_sum,
+                         r_ckpts, r_sum_ckpts, ckpt_i=None, idx_min=0,
+                         idx_max=-1):
+    """Launch ``nuts_leaf_batch`` (``csrc/leapfrog.cu``) once on the current
+    stream for all C chains: :func:`nuts_leaf_batch_ref`'s arguments and
+    results.  ``eps``, ``pe`` (C,) and ``active`` (C,) bool are read from
+    device memory; the checkpoint row ``ckpt_i`` of each active chain is
+    written in place.  Row c is bit-identical to a :func:`nuts_leaf_cuda`
+    launch on chain c alone (vectors and sums); against the plain version
+    the vectors are bit-identical and ``ke`` and the dots are summed in
+    another order.  Raises on a wrong device, dtype, shape, layout or
+    checkpoint index, and on a failed build or launch."""
+    name = "nuts_leaf_batch_cuda"
+    if pe.dtype != z.dtype:  # a potential in another dtype than the chain
+        pe = pe.to(z.dtype)
+    operands = {"r_half": r_half, "grad": grad, "m_inv": m_inv, "pe": pe,
+                "eps": eps, "active": active, "r_ckpts": r_ckpts,
+                "r_sum_ckpts": r_sum_ckpts}
+    if r_sum is not None:
+        operands["r_sum"] = r_sum
+    _check_chains(name, z, **operands)
+    depth = r_ckpts.shape[1]
+    if r_sum_ckpts.shape[1] != depth:
+        raise ValueError(f"{name}: r_ckpts and r_sum_ckpts have "
+                         f"{depth} and {r_sum_ckpts.shape[1]} rows")
+    lib = _batch_lib()
+    chains, d = z.shape
+    _check_width(name, lib, chains)
+    if ckpt_i is not None:
+        if not 0 <= ckpt_i < depth:
+            raise ValueError(f"{name}: ckpt_i {ckpt_i} is not a row of "
+                             f"{depth} checkpoints")
+        rows, idx_min = 0, 0
+    else:
+        rows = max(idx_max - idx_min + 1, 0)
+        if rows and not 0 <= idx_min <= idx_max < depth:
+            raise ValueError(f"{name}: rows {idx_min}..{idx_max} are not "
+                             f"within {depth} checkpoints")
+        if rows > lib.nuts_leaf_max_rows():
+            raise ValueError(f"{name}: {rows} checkpoint rows, at most "
+                             f"{lib.nuts_leaf_max_rows()}")
+    r_out, z_next, r_half_next = (torch.empty_like(z) for _ in range(3))
+    r_sum_out = None if r_sum is None else torch.empty_like(z)
+    vals = torch.empty((chains, 2 + 2 * rows), dtype=z.dtype,
+                       device=z.device)
+    stream = torch.cuda.current_stream(z.device).cuda_stream
+    ctas = lib.nuts_reduce_ctas(d)
+    part = ticket = None
+    if ctas > 1:
+        part = torch.empty(chains * ctas * (1 + 2 * rows),
+                           dtype=torch.float64, device=z.device)
+        ticket = fold_tickets(z.device, stream, chains)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(z.device):
+        rc = getattr(lib, "nuts_leaf_batch_" + _SUFFIX[z.dtype])(
+            eps.data_ptr(), pe.data_ptr(), active.data_ptr(),
+            r_half.data_ptr(), z.data_ptr(), grad.data_ptr(),
+            m_inv.data_ptr(), ptr(r_sum), r_ckpts.data_ptr(),
+            r_sum_ckpts.data_ptr(), depth, -1 if ckpt_i is None else ckpt_i,
+            idx_min, rows, chains, d, r_out.data_ptr(), ptr(r_sum_out),
+            z_next.data_ptr(), r_half_next.data_ptr(), vals.data_ptr(),
+            ptr(part), ptr(ticket), stream)
+    if rc != 0:
+        raise RuntimeError(f"nuts_leaf_batch kernel launch failed: "
+                           f"cudaError {rc}")
+    nuts_leaf_batch_cuda.launches += 1
+    r_sum_through = r_out if r_sum_out is None else r_sum_out
+    return r_out, r_sum_through, vals, z_next, r_half_next
+
+
+nuts_leaf_batch_cuda.launches = 0
+
+
+def nuts_turning_batch_cuda(inverse_mass_matrix, r_left, r_right, r_sum):
+    """Launch ``nuts_turning_batch`` (``csrc/leapfrog.cu``) once on the
+    current stream: the (C, 2) dots of :func:`nuts_turning_batch_ref`, row c
+    bit-identical to a :func:`nuts_turning_cuda` launch on chain c (summed
+    in another order than the plain version).  Raises on a wrong device,
+    dtype, shape or layout, and on a failed build or launch."""
+    name = "nuts_turning_batch_cuda"
+    _check_chains(name, r_left, inverse_mass_matrix=inverse_mass_matrix,
+                  r_right=r_right, r_sum=r_sum)
+    lib = _batch_lib()
+    chains, d = r_left.shape
+    _check_width(name, lib, chains)
+    out = torch.empty((chains, 2), dtype=r_left.dtype, device=r_left.device)
+    stream = torch.cuda.current_stream(r_left.device).cuda_stream
+    ctas = lib.nuts_reduce_ctas(d)
+    part = ticket = None
+    if ctas > 1:
+        part = torch.empty(chains * ctas * 2, dtype=torch.float64,
+                           device=r_left.device)
+        ticket = fold_tickets(r_left.device, stream, chains)
+    with torch.cuda.device(r_left.device):
+        rc = getattr(lib, "nuts_turning_batch_" + _SUFFIX[r_left.dtype])(
+            inverse_mass_matrix.data_ptr(), r_left.data_ptr(),
+            r_right.data_ptr(), r_sum.data_ptr(), chains, d, out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if ticket is None else ticket.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"nuts_turning_batch kernel launch failed: "
+                           f"cudaError {rc}")
+    nuts_turning_batch_cuda.launches += 1
+    return out
+
+
+nuts_turning_batch_cuda.launches = 0
 
 
 _BATCH_DTYPES = {torch.float32: "leapfrog_halfstep_batch_f32",

@@ -32,6 +32,9 @@ does around or in a loop over a ported op: ``enum_chain``, the T-1
 ``enum_chain_bwd`` in ``BACKWARD``; ``nuts_leaf``, a NUTS leaf's closing
 kick, energy, momentum sum, checkpoint or U-turn dots and the next leaf's
 ``leapfrog_halfstep``, and ``nuts_turning``, a merged tree's U-turn dots;
+their chain-batched forms for lockstep NUTS, ``nuts_leaf_batch``,
+``nuts_turning_batch`` and ``halfstep_chains`` (a subtree's opening with a
+step size per chain);
 ``mala_accept``, the MALA/RWM accept step after ``mala_step``'s proposal;
 ``chees_open``, a ChEES trajectory's momentum draw and opening half-kick in
 row 3's kernel, and ``chees_accept``, the transition's close after it.
@@ -149,6 +152,21 @@ FUSED = {spec.name: spec for spec in (
     OpSpec("nuts_turning", leapfrog.nuts_turning_cuda,
            leapfrog.nuts_turning_ref, "cuda", _I + "hmc_util.py:494", False,
            1e-6),
+    # lockstep NUTS over C chains (the JAX package's vmap of the two ops
+    # above): row c bit-identical to a one-chain launch on the card; against
+    # the plain versions the vectors bit-identical, ke and the dots within
+    # 1e-6 relative
+    OpSpec("nuts_leaf_batch", leapfrog.nuts_leaf_batch_cuda,
+           leapfrog.nuts_leaf_batch_ref, "cuda", _K + "leapfrog.py:40", False,
+           1e-6),
+    OpSpec("nuts_turning_batch", leapfrog.nuts_turning_batch_cuda,
+           leapfrog.nuts_turning_batch_ref, "cuda", _I + "hmc_util.py:494",
+           False, 1e-6),
+    # row 1's half-step with a signed step size, m_inv row and active flag
+    # per chain: bit-identical
+    OpSpec("halfstep_chains", leapfrog.halfstep_chains_cuda,
+           leapfrog.halfstep_chains_ref, "cuda", _K + "leapfrog.py:40", True,
+           0.0),
     # selections, the running mean and the harmonic mean bit-identical for
     # the same accept_prob; accept_prob within 1e-6 relative
     OpSpec("mala_accept", rwm_mala.mala_accept_cuda, rwm_mala.mala_accept_ref,
@@ -296,6 +314,31 @@ def nuts_turning(m_inv, r_left, r_right, r_sum):
     """The two generalized U-turn dots of a tree -> (2,); it turns where
     either is <= 0."""
     return _route("nuts_turning", r_left)(m_inv, r_left, r_right, r_sum)
+
+
+def nuts_leaf_batch(r_half, z, grad, pe, m_inv, eps, active, r_sum, r_ckpts,
+                    r_sum_ckpts, ckpt_i=None, idx_min=0, idx_max=-1):
+    """:func:`nuts_leaf` for C chains in lockstep: (C, D) vectors and
+    ``m_inv``, (C,) ``pe``, signed ``eps`` and bool ``active`` (an inactive
+    chain is copied through), (C, depth, D) checkpoints, the checkpoint row
+    or range shared -> ``(r, r_sum_through, vals (C, 2 + 2 rows), z_next,
+    r_half_next)``."""
+    return _route("nuts_leaf_batch", z)(r_half, z, grad, pe, m_inv, eps,
+                                        active, r_sum, r_ckpts, r_sum_ckpts,
+                                        ckpt_i, idx_min, idx_max)
+
+
+def nuts_turning_batch(m_inv, r_left, r_right, r_sum):
+    """The U-turn dots of C trees, (C, D) operands -> (C, 2)."""
+    return _route("nuts_turning_batch", r_left)(m_inv, r_left, r_right,
+                                                r_sum)
+
+
+def halfstep_chains(z, r, grad, m_inv, eps, active):
+    """:func:`leapfrog_halfstep` for C chains: (C, D) operands, (C,) signed
+    ``eps`` and bool ``active`` (an inactive chain is copied through) ->
+    (z', r')."""
+    return _route("halfstep_chains", z)(z, r, grad, m_inv, eps, active)
 
 
 def glm_potential_grad(x, y, w, offset=None, scale=None,

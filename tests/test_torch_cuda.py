@@ -6,9 +6,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (ENS_SHAPES, NUTS_LEAVES, NUTS_SIZES, accept_operands,
+from chip_smoke import (ENS_SHAPES, NUTS_BATCH_CHAINS, NUTS_BATCH_SIZES,
+                        NUTS_LEAVES, NUTS_SIZES, accept_operands,
                         accept_prob_tolerance, chees_checks, leaf_scales,
-                        same_bits, trajectory_checks)
+                        nuts_batch_checks, same_bits, trajectory_checks)
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels.enum_contract import (EnumContract,
@@ -27,7 +28,10 @@ from repro_torch.kernels.leapfrog import (chees_accept_cuda, chees_open_cuda,
                                           leapfrog_halfstep_batch_ref,
                                           leapfrog_halfstep_cuda,
                                           leapfrog_halfstep_ref,
+                                          halfstep_chains_cuda,
+                                          nuts_leaf_batch_cuda,
                                           nuts_leaf_cuda, nuts_leaf_ref,
+                                          nuts_turning_batch_cuda,
                                           nuts_turning_cuda, nuts_turning_ref)
 from repro_torch.kernels import softmax_xent as xent
 from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_ref,
@@ -72,6 +76,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     for grad in (zz, None):
         with pytest.raises(ValueError, match="CUDA"):
             mala_step_cuda(zz, grad, zz, torch.ones(4), 0.1)
+    c2, on = torch.zeros(2), torch.ones(2, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        halfstep_chains_cuda(zz, zz, zz, zz, c2, on)
+    with pytest.raises(ValueError, match="CUDA"):
+        nuts_leaf_batch_cuda(zz, zz, zz, c2, zz, c2, on, None,
+                             torch.zeros(2, 3, 4), torch.zeros(2, 3, 4), 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        nuts_turning_batch_cuda(zz, zz, zz, zz)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -539,6 +551,71 @@ def test_nuts_leaf_wrappers_refuse_bad_operands_on_card():
                        None, ck, ck, 0)
     with pytest.raises(ValueError, match="r_right"):
         nuts_turning_cuda(z, z, z.double(), z)
+
+
+@pytest.mark.cuda
+def test_nuts_batch_kernels_match_plain_on_card():
+    """nuts_leaf_batch, nuts_turning_batch and halfstep_chains against
+    their plain versions (chip_smoke.nuts_batch_checks) at every C and D of
+    the script, float32 and float64, every leaf kind, active and inactive
+    chains, both directions: vectors bit-identical, sums within 1e-6 of
+    their terms, each active row's vectors bit-identical to a one-chain
+    nuts_leaf launch; one launch a call."""
+    dev = _need_card()
+    ops.reset_launch_counts()
+    results, _ = nuts_batch_checks(dev, timed=False)
+    cases = len(NUTS_BATCH_CHAINS) * len(NUTS_BATCH_SIZES) * 2
+    counts = ops.launch_counts()
+    assert counts["nuts_leaf_batch"] == cases * len(NUTS_LEAVES)
+    assert counts["nuts_turning_batch"] == counts["halfstep_chains"] == cases
+    assert all(r.get("vectors_bit_identical", True)
+               and r.get("one_chain_vectors_bit_identical", True)
+               and r.get("bit_identical", True) for r in results)
+
+
+@pytest.mark.cuda
+def test_nuts_batch_wrappers_refuse_bad_operands_on_card():
+    dev = _need_card()
+    z = torch.zeros(3, 8, device=dev)
+    ck = torch.zeros(3, 4, 8, device=dev)
+    c3 = torch.zeros(3, device=dev)
+    on = torch.ones(3, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="active"):
+        halfstep_chains_cuda(z, z, z, z, c3, on.float())
+    with pytest.raises(ValueError, match="eps"):
+        halfstep_chains_cuda(z, z, z, z, c3[:2], on)
+    with pytest.raises(ValueError, match="r_ckpts"):
+        nuts_leaf_batch_cuda(z, z, z, c3, z, c3, on, None, ck[:, :, :7], ck,
+                             0)
+    with pytest.raises(ValueError, match="ckpt_i"):
+        nuts_leaf_batch_cuda(z, z, z, c3, z, c3, on, None, ck, ck, 4)
+    with pytest.raises(ValueError, match="rows"):
+        nuts_leaf_batch_cuda(z, z, z, c3, z, c3, on, z, ck, ck, None, 2, 4)
+    with pytest.raises(ValueError, match="r_sum"):
+        nuts_turning_batch_cuda(z, z, z, z.double())
+
+
+@pytest.mark.cuda
+def test_lockstep_nuts_launches_one_batch_leaf_per_lockstep_leapfrog():
+    """MCMC(NUTS, num_chains=3) on the card runs the lockstep tree: one
+    nuts_leaf_batch launch a lockstep leapfrog, no one-chain nuts_leaf, and
+    the chains' draws finite."""
+    import repro_torch.core as pc
+    from repro_torch.core import dist
+    from repro_torch.core.infer import MCMC, NUTS
+    dev = _need_card()
+
+    def model():
+        pc.sample("x", dist.Normal(torch.ones(2, device=dev),
+                                   2.0 * torch.ones(2, device=dev)))
+
+    ops.reset_launch_counts()
+    mcmc = MCMC(NUTS(model), num_warmup=30, num_samples=30, num_chains=3)
+    mcmc.run(0)
+    counts = ops.launch_counts()
+    assert counts["nuts_leaf_batch"] == mcmc.stats["lockstep_leapfrogs"] > 0
+    assert counts["nuts_leaf"] == 0
+    assert torch.isfinite(mcmc.get_samples()["x"]).all()
 
 
 @pytest.mark.cuda

@@ -630,3 +630,38 @@ def test_eight_schools_noncentered_posterior_matches_reference():
     post = Predictive(NC_PORT, m.get_samples())(1, torch.from_numpy(sigma))
     assert post["obs"].shape == (800, 8)
     assert bool(torch.isfinite(post["obs"]).all())
+
+
+# ---------------------------------------------------------------------------
+# strict handlers leave the stack clean when their check raises
+# ---------------------------------------------------------------------------
+
+def _one_site(P, D, A):
+    P.sample("a", D.Normal(0.0, 1.0))
+
+
+@pytest.mark.parametrize("handler", ["substitute", "condition", "do"])
+def test_strict_handler_pops_before_it_raises(handler):
+    """A strict ``substitute``/``condition``/``do`` whose data key matches
+    no site raises RPL006, as the reference does, and is off the handler
+    stack afterwards: later model runs are not substituted."""
+    from repro.core import primitives as jprim
+    from repro.core.errors import ReproError as JReproError
+    from repro_torch.core import primitives as prim
+    ours, theirs = _pair(_one_site)
+    with pytest.raises(ReproError) as err:
+        getattr(h, handler)(h.seed(ours, 0), data={"nope": torch.tensor(1.0)},
+                            strict=True)()
+    assert prim._STACK == []
+    try:
+        with pytest.raises(JReproError) as jerr:
+            getattr(jh, handler)(jh.seed(theirs, 0),
+                                 data={"nope": jnp.asarray(1.0)},
+                                 strict=True)()
+    finally:
+        jprim._STACK.clear()  # the reference keeps the handler on its stack
+    assert err.value.code == jerr.value.code == "RPL006"
+    assert err.value.site == jerr.value.site == "nope"
+    # the next run draws freely: nothing substituted behind its back
+    tr = h.trace(h.seed(ours, 1)).get_trace()
+    assert not tr["a"]["is_observed"] and prim._STACK == []

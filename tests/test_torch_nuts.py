@@ -174,9 +174,18 @@ def test_hmc_runs_and_moves():
 
 
 def test_vectorized_chains_wait_for_batched_nuts():
+    """Lockstep NUTS has landed: ``chain_method="vectorized"`` (the
+    default) with several chains runs on ``device="cpu"``; chains over
+    several cards (``"parallel"``) still wait for the multi-GPU slice."""
     with pytest.raises(ReproError, match=PENDING):
         MCMC(NUTS(logreg_model, device="cpu"), num_warmup=1, num_samples=1,
+             num_chains=2, chain_method="parallel")
+    x, y = _data(60, 2, 7)
+    m = MCMC(NUTS(logreg_model, device="cpu"), num_warmup=5, num_samples=5,
              num_chains=2)
+    w = m.run(0, x, y=y).get_samples(group_by_chain=True)["w"]
+    assert m.chain_method == "vectorized" and w.shape == (2, 5, 2)
+    assert torch.isfinite(w).all() and m.stats["lockstep_leapfrogs"] > 0
 
 
 def test_entry_points_default_to_cuda():
