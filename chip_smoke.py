@@ -86,7 +86,28 @@ result line if any fails):
    ``torch.func.vmap`` (gated: ``glm_prior_batch == "vmap"``, one launch
    per ensemble evaluation and per search evaluation plus the setup's
    check, chain evaluations one per chain and evaluation plus that check).
-3. ``lm``: hold ``rmsnorm`` and ``flash_attention`` against their plain
+3. ``checkpoint``: kill and resume on the card through the user's entry
+   points (``MCMC.run(..., checkpoint_every, checkpoint_dir, resume)`` and
+   ``launch.train.main --ckpt-dir``), the checkpoints under a temporary
+   directory removed at the end; a kill is a private ``BaseException``
+   raised from a wrapper around ``checkpoint.save`` right after a save
+   (``recorded_saves``): one tree of CUDA float32/float64/bf16/int64/bool
+   tensors and host leaves through ``save`` and ``restore``, the same
+   bits, dtypes, devices and types back; ``MCMC(NUTS(logreg_model_glm),
+   24, 36, num_chains=4)`` on the 581,012 x 54 data, ``checkpoint_every``
+   20 (exactly 6 saves; the state write's ms and bytes, the run's seconds
+   with and without checkpoints), 17 against no chunking, and killed after
+   save 4 (its directory copied after saves 2 and 3: the warmup's end and
+   the orphaned ``samples_000024_000044``), resumed from each of the three,
+   every collected field, the final state and the generators' final states
+   bit-identical to the uninterrupted card run, ``nuts_leaf_batch`` and the
+   GLM kernel launched in each resumed part; ``ChEES`` 60 + 80 with 8
+   chains killed mid-warmup (after save 2 of chunks of 25) and resumed from
+   its CUDA graphs; ``MALA`` 24 + 36 with 16 chains killed after save 3;
+   the launcher on the reduced gemma-2b, 4 steps checkpointed every 2 and
+   relaunched to 6 (``resumed from step 4``), its parameters and optimizer
+   state bit-identical to an uninterrupted 6-step run.
+4. ``lm``: hold ``rmsnorm`` and ``flash_attention`` against their plain
    versions (float32 and bfloat16, causal and not, MHA/GQA/MQA, dq != dv,
    ragged) and time them beside ``F.rms_norm`` and
    ``F.scaled_dot_product_attention`` (the attention also at gemma-2b's
@@ -102,7 +123,7 @@ result line if any fails):
    split, device busy share, memory peak; then a full-width 2-layer
    float32 Qwen3 through the kernels against the plain versions: its
    prefill, and 8 decode steps teacher-forced into a fresh cache.
-4. ``train``: hold the ``rmsnorm`` backward, the flash-attention dq and
+5. ``train``: hold the ``rmsnorm`` backward, the flash-attention dq and
    dkv passes and ``softmax_xent`` against their plain versions (float32
    and bfloat16, causal and not, MHA/GQA/MQA, head dims 128 and 256, dq !=
    dv, a ragged S, T and V, the xent weight as (d, V) and as a tied (V, d)
@@ -119,7 +140,7 @@ result line if any fails):
    step; ``launch.train.main`` for 2 steps; then a full-width 2-layer
    float32 gemma's loss and every gradient through the kernels against the
    plain versions.
-5. ``ssm``: hold ``ssd_scan`` against its plain version (float32 within
+6. ``ssm``: hold ``ssd_scan`` against its plain version (float32 within
    1e-4; bfloat16 ``y`` within one rounding step and the float32 state
    within 1e-4 of its largest entry; with and without ``D``, with ``h0``,
    one and two B/C groups, chunks of 256, 64 and one shorter than 256; a
@@ -136,7 +157,7 @@ result line if any fails):
    2-layer float32 mamba2 through the kernels against the plain versions:
    its prefill, 8 decode steps teacher-forced into a fresh cache, and the
    caches.
-6. Print one ``{"kernels": [...]}`` line, then the result line
+7. Print one ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -4527,7 +4548,332 @@ def run_samplers(dev):
         "mala_step": {"MALA": (mala, mala_counts), "RWM": (rwm, rwm_counts)},
         "mala_accept": {"MALA": (mala, mala_counts),
                         "RWM": (rwm, rwm_counts)}})
-    return kernels
+    return kernels, data
+
+
+# -- the checkpoint phase ----------------------------------------------------
+# tests/test_preemption.py's sweep geometry: 24 + 36 iterations in chunks of
+# 20 make exactly six checkpoint.save calls (state @20, state @24, samples
+# 24-44, state @44, samples 44-60, state @60)
+CKPT_WARMUP, CKPT_DRAWS, CKPT_EVERY, CKPT_SAVES = 24, 36, 20, 6
+CKPT_NUTS_CHAINS, CKPT_NUTS_KILLS, CKPT_ODD_EVERY = 4, (2, 3, 4), 17
+# ChEES 60 + 80 in chunks of 25, killed mid-warmup (after state @50)
+CKPT_CHEES = {"warmup": 60, "draws": 80, "chains": 8, "every": 25,
+              "kill": 2}
+CKPT_MALA = {"warmup": 24, "draws": 36, "chains": 16, "every": 20,
+             "kill": 3}
+# the launcher: 4 steps checkpointed every 2, relaunched to 6
+CKPT_TRAIN_FIRST, CKPT_TRAIN_STEPS, CKPT_TRAIN_EVERY = 4, 6, 2
+
+
+class Preempted(BaseException):
+    """The checkpoint phase's kill, raised right after a save call; only
+    the phase catches it, so a real failure or a Ctrl-C still fails the
+    run."""
+
+
+def _dir_bytes(directory):
+    return sum(os.path.getsize(os.path.join(directory, f))
+               for f in os.listdir(directory))
+
+
+def recorded_saves(kill_at=None, copies=None):
+    """Wrap ``repro_torch.distributed.checkpoint.save`` (the executor calls
+    it through the module attribute): each call's directory, step, ms and
+    bytes go into the returned list; ``copies`` (save number -> path) copy
+    the whole checkpoint directory right after that save, which is what a
+    kill there leaves on disk; with ``kill_at`` the call of that number
+    raises :class:`Preempted` once written.  Returns ``(calls, undo)``."""
+    import shutil
+
+    from repro_torch.distributed import checkpoint as ckpt
+    real, calls = ckpt.save, []
+
+    def save(tree, directory, **kwargs):
+        t0 = time.perf_counter()
+        real(tree, directory, **kwargs)
+        calls.append({"dir": os.path.basename(directory),
+                      "step": kwargs.get("step"),
+                      "ms": 1e3 * (time.perf_counter() - t0),
+                      "bytes": _dir_bytes(directory)})
+        if copies and len(calls) in copies:
+            shutil.copytree(os.path.dirname(directory), copies[len(calls)])
+        if len(calls) == kill_at:
+            raise Preempted(f"preempted after save #{kill_at}")
+
+    def undo():
+        ckpt.save = real
+
+    ckpt.save = save
+    return calls, undo
+
+
+def run_recorded(make, args, kwargs, kill_at=None, copies=None,
+                 **run_kwargs):
+    """``make().run(*args, **run_kwargs, **kwargs)`` with the saves
+    recorded (``recorded_saves``); with ``kill_at`` the run must stop at
+    that save.  Returns ``(mcmc or None, calls, wall seconds)``."""
+    calls, undo = recorded_saves(kill_at, copies)
+    mcmc, t0 = make(), time.perf_counter()
+    try:
+        mcmc.run(*args, **run_kwargs, **kwargs)
+    except Preempted:
+        return None, calls, time.perf_counter() - t0
+    finally:
+        undo()
+    check(kill_at is None, f"the run ended after {len(calls)} saves, before "
+                           f"save #{kill_at}")
+    return mcmc, calls, time.perf_counter() - t0
+
+
+def same_leaf_bits(a, b):
+    """Same Python type, dtype, shape, device and bits (NaN included)."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.device == b.device
+                and a.shape == b.shape and torch.equal(
+                    a.detach().reshape(-1).view(torch.uint8),
+                    b.detach().reshape(-1).view(torch.uint8)))
+    if isinstance(a, (np.ndarray, np.generic)):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    return a == b
+
+
+def same_tree_bits(a, b):
+    from repro_torch.optim import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(map(same_leaf_bits, la, lb))
+
+
+def same_run(got, want):
+    """Every collected field (the draws, ``diverging``, ``accept_prob``,
+    ``num_steps``, ...) and the final state bit-identical."""
+    return (sorted(got._collected) == sorted(want._collected)
+            and same_tree_bits(got._collected, want._collected)
+            and same_tree_bits(got.last_state, want.last_state))
+
+
+def saved_generators(ckdir):
+    """The draw sources' generator states saved in ``ckdir/state``."""
+    state = os.path.join(ckdir, "state")
+    with open(os.path.join(state, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    return [np.load(os.path.join(state, m["file"])).tobytes()
+            for k, m in leaves.items() if k.startswith("draws/")]
+
+
+def checkpoint_format_check(dev, root):
+    """One tree of CUDA float32/float64/bf16/int64/bool tensors and the
+    samplers' host leaves (a (C,) float32 array, ``np.float32``, ``int``,
+    ``bool``) through ``save`` and ``restore``: the same bits, dtypes,
+    devices and Python types come back."""
+    from repro_torch.distributed import checkpoint as ckpt
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"f32": torch.randn(5, 3, device=dev, generator=g),
+            "f64": torch.randn(4, dtype=torch.float64, device=dev,
+                               generator=g),
+            "bf16": torch.randn(7, device=dev, generator=g).bfloat16(),
+            "i64": torch.randint(-2 ** 40, 2 ** 40, (6,), device=dev,
+                                 generator=g),
+            "bool": torch.rand(9, device=dev, generator=g) > 0.5,
+            "host": (np.arange(8, dtype=np.float32) / np.float32(7),
+                     np.float32(1 / 3), 5, True)}
+    directory = os.path.join(root, "format")
+    ckpt.save(tree, directory, step=3, extra={"k": 1})
+    got, step, extra = ckpt.restore(tree, directory)
+    check(step == 3 and extra == {"k": 1}, f"step {step}, extra {extra}")
+    check(same_tree_bits(got, tree), "a leaf came back with other bits, "
+          "dtype, device or type")
+    check(got["f32"].device.type == "cuda" and type(got["host"][1])
+          is np.float32, "restored leaves moved off the card or lost type")
+    return {"leaves": 9, "bytes": _dir_bytes(directory)}
+
+
+def checkpoint_nuts(data, root):
+    """Lockstep NUTS on the logreg: one run killed after save 4, its
+    checkpoint directory copied after saves 2 and 3 (what a kill there
+    leaves on disk: the warmup's end, then the orphaned first samples
+    chunk), each of the three resumed and bit-identical to the
+    uninterrupted card run (its generators' final states too), the resumed
+    part launching the lockstep leaf and GLM kernels;
+    ``checkpoint_every=17`` against no chunking; the state write's ms and
+    bytes, and the run's seconds with and without checkpoints."""
+    from repro_torch.bench.models import logreg_model_glm
+    from repro_torch.core.infer import MCMC, NUTS
+    from repro_torch.kernels import ops
+
+    def make():
+        return MCMC(NUTS(logreg_model_glm), CKPT_WARMUP, CKPT_DRAWS,
+                    num_chains=CKPT_NUTS_CHAINS)
+
+    args, kwargs = (0, data["x"]), {"y": data["y"]}
+    lines = {}
+    t0 = time.perf_counter()
+    plain, _, plain_wall = run_recorded(make, args, kwargs)
+    odd, _, _ = run_recorded(make, args, kwargs,
+                             checkpoint_every=CKPT_ODD_EVERY)
+    check(same_run(odd, plain), f"checkpoint_every={CKPT_ODD_EVERY} changed "
+                                "bits of the lockstep NUTS run")
+    lines["no chunking, checkpoint_every=17"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole_dir = os.path.join(root, "nuts")
+    whole, calls, whole_wall = run_recorded(
+        make, args, kwargs, checkpoint_every=CKPT_EVERY,
+        checkpoint_dir=whole_dir)
+    check(len(calls) == CKPT_SAVES, f"{len(calls)} checkpoint.save calls, "
+                                    f"expected {CKPT_SAVES}")
+    check(same_run(whole, plain), "checkpointing changed bits of the "
+                                  "lockstep NUTS run")
+    generators = saved_generators(whole_dir)
+    lines["uninterrupted, checkpointed"] = time.perf_counter() - t0
+    state_writes = [c for c in calls if c["dir"] == "state"]
+    out = {"plain_wall_seconds": plain_wall,
+           "plain_chain_seconds": plain.stats["chain_seconds"],
+           "checkpointed_wall_seconds": whole_wall,
+           "checkpointed_chain_seconds": whole.stats["chain_seconds"],
+           "num_leapfrog": plain.stats["num_leapfrog"],
+           "lockstep_leapfrogs": plain.stats["lockstep_leapfrogs"],
+           "state_write_ms": [c["ms"] for c in state_writes],
+           "state_write_bytes": state_writes[-1]["bytes"],
+           "samples_write_ms": [c["ms"] for c in calls
+                                if c["dir"] != "state"],
+           "divergences": whole._divergences, "resumes": {}}
+    t0 = time.perf_counter()
+    kill = max(CKPT_NUTS_KILLS)
+    dirs = {k: os.path.join(root, f"nuts_kill{k}") for k in CKPT_NUTS_KILLS}
+    run_recorded(make, args, kwargs, kill_at=kill,
+                 copies={k: d for k, d in dirs.items() if k != kill},
+                 checkpoint_every=CKPT_EVERY, checkpoint_dir=dirs[kill])
+    lines[f"killed after save #{kill}"] = time.perf_counter() - t0
+    for k, ckdir in dirs.items():
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        resumed, more, _ = run_recorded(
+            make, args, kwargs, checkpoint_every=CKPT_EVERY,
+            checkpoint_dir=ckdir, resume=True)
+        counts = ops.launch_counts()
+        check(same_run(resumed, plain), f"lockstep NUTS resumed after save "
+                                        f"#{k} differs from the "
+                                        "uninterrupted card run")
+        check(saved_generators(ckdir) == generators,
+              f"the generators' final states differ after save #{k}")
+        for name in ("nuts_leaf_batch", "glm_potential_grad"):
+            check(counts[name] > 0, f"{name} did not launch in the run "
+                                    f"resumed after save #{k}")
+        out["resumes"][k] = {
+            "resumed_at": resumed.stats["resumed_at"], "saves": len(more),
+            "nuts_leaf_batch": counts["nuts_leaf_batch"],
+            "glm_potential_grad": counts["glm_potential_grad"]}
+        lines[f"resumed after save #{k}"] = time.perf_counter() - t0
+    return out, lines
+
+
+def checkpoint_ensemble(data, root, name, spec, kernels):
+    """``name`` (ChEES or MALA) on the logreg, killed after save
+    ``spec["kill"]`` and resumed: bit-identical to the uninterrupted card
+    run, ``kernels`` launched in the resumed part."""
+    from repro_torch.bench.models import logreg_model_glm
+    from repro_torch.core import infer
+    from repro_torch.kernels import ops
+    kernel = getattr(infer, name)
+
+    def make():
+        return infer.MCMC(kernel(logreg_model_glm), spec["warmup"],
+                          spec["draws"], num_chains=spec["chains"])
+
+    args, kwargs = (0, data["x"]), {"y": data["y"]}
+    plain, _, _ = run_recorded(make, args, kwargs)
+    ckdir = os.path.join(root, name)
+    run_recorded(make, args, kwargs, kill_at=spec["kill"],
+                 checkpoint_every=spec["every"], checkpoint_dir=ckdir)
+    ops.reset_launch_counts()
+    resumed, _, _ = run_recorded(make, args, kwargs,
+                                 checkpoint_every=spec["every"],
+                                 checkpoint_dir=ckdir, resume=True)
+    counts = ops.launch_counts()
+    check(same_run(resumed, plain), f"{name} resumed after save "
+                                    f"#{spec['kill']} differs from the "
+                                    "uninterrupted card run")
+    for k in kernels:
+        check(counts[k] > 0, f"{k} did not launch in the resumed {name} run")
+    out = {"resumed_at": resumed.stats["resumed_at"],
+           "launches": {k: counts[k] for k in kernels}}
+    if name == "ChEES":
+        out["trajectory_graph"] = resumed.stats["trajectory_graph"]
+        check(out["trajectory_graph"] is True, "the resumed ChEES run does "
+              "not replay its trajectory from CUDA graphs")
+    return out
+
+
+def checkpoint_launcher(root):
+    """``launch.train.main`` on the reduced gemma-2b on the card: 4 steps
+    checkpointed every 2, a relaunch to 6 that resumes from step 4, the
+    final parameters and optimizer state bit-identical to an uninterrupted
+    6-step run."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+    from repro_torch.optim import tree_leaves
+    ck = os.path.join(root, "train")
+    base = ["--arch", "gemma-2b", "--reduced", "--log-every", "100"]
+    every = ["--ckpt-dir", ck, "--checkpoint-every", str(CKPT_TRAIN_EVERY)]
+    train.main(base + ["--steps", str(CKPT_TRAIN_FIRST)] + every)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        resumed, _ = train.main(base + ["--steps", str(CKPT_TRAIN_STEPS)]
+                                + every)
+    print(printed.getvalue(), end="", flush=True)
+    check(f"[train] resumed from step {CKPT_TRAIN_FIRST}"
+          in printed.getvalue(), "the relaunch did not resume from step "
+                                 f"{CKPT_TRAIN_FIRST}")
+    whole, _ = train.main(base + ["--steps", str(CKPT_TRAIN_STEPS)])
+    check(resumed["step"] == whole["step"] == CKPT_TRAIN_STEPS,
+          f"steps {resumed['step']}, {whole['step']}")
+    check(same_tree_bits(resumed, whole), "the resumed launcher's "
+          "parameters or optimizer state differ from the uninterrupted run")
+    return {"leaves": len(tree_leaves(whole)),
+            "state_bytes": _dir_bytes(ck),
+            "device": str(whole["params"]["embed"].device)}
+
+
+def run_checkpoint(dev, data):
+    """The checkpoint phase: kill and resume on the card through the user's
+    entry points, each check's seconds printed; the checkpoints live under
+    a temporary directory removed at the end."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp()
+    seconds, out = {}, {}
+    try:
+        for name, fn in (
+                ("format", lambda: checkpoint_format_check(dev, root)),
+                ("lockstep NUTS", lambda: checkpoint_nuts(data, root)),
+                ("ChEES", lambda: checkpoint_ensemble(
+                    data, root, "ChEES", CKPT_CHEES,
+                    ("chees_open", "chees_accept", "glm_potential_grad"))),
+                ("MALA", lambda: checkpoint_ensemble(
+                    data, root, "MALA", CKPT_MALA,
+                    ("mala_step", "mala_accept", "glm_potential_grad"))),
+                ("launcher", lambda: checkpoint_launcher(root))):
+            t0 = time.perf_counter()
+            result = fn()
+            seconds[name] = time.perf_counter() - t0
+            if name == "lockstep NUTS":
+                result, lines = result
+                for line, secs in lines.items():
+                    print(f"checkpoint: lockstep NUTS, {line}: {secs:.2f} s",
+                          flush=True)
+            out[name] = result
+            print(f"checkpoint: {name}: {seconds[name]:.2f} s",
+                  json.dumps(result), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("checkpoint part seconds:", json.dumps(seconds), flush=True)
+    return out
+
 
 
 def main():
@@ -4554,8 +4900,13 @@ def main():
           json.dumps(backward_kernel_split(dev)), flush=True)
     phase_s = {}
     t0 = time.perf_counter()
-    kernels = run_samplers(dev)
+    kernels, data = run_samplers(dev)
     phase_s["samplers"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_checkpoint(dev, data)
+    del data
+    torch.cuda.empty_cache()
+    phase_s["checkpoint"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     lm_checks, lm_timing = lm_kernel_checks(dev)
     print("LM kernel checks:", json.dumps(lm_checks), flush=True)

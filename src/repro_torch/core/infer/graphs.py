@@ -38,14 +38,17 @@ eagerly.  The choice is made at setup and recorded (``MCMC.stats``:
 Each body's first call runs eagerly on the capture stream (its launches
 run and count as any other; it is also the warmup a capture needs:
 libraries loaded, per-stream buffers such as the GLM kernel's tickets
-made), and is then captured.  What the captured region does on the host
-runs only at capture: the wrappers' checks, the launch counters
-(``ops.counters()``) and the potential's ``count`` (``hmc.counting``).
+made), and is then captured, with Python's garbage collector paused (a
+dead run's graphs freed during a capture would end it).  What the
+captured region does on the host runs only at capture: the wrappers'
+checks, the launch counters (``ops.counters()``) and the potential's
+``count`` (``hmc.counting``).
 Each counter's increase during capture is taken back and added again at
 every replay, so every counter equals the launches the card ran.
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -101,8 +104,17 @@ class _GraphedBody:
         counters = owner.counters()
         before = [getattr(obj, attr) for obj, attr in counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            self.pe = self.body()
+        # no garbage collection while capturing: a dead reference cycle that
+        # holds another trajectory's graphs (a finished or killed run's),
+        # freed mid-capture, would end the capture with an error
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                self.pe = self.body()
+        finally:
+            if collecting:
+                gc.enable()
         after = [getattr(obj, attr) for obj, attr in counters]
         for (obj, attr), value in zip(counters, before):
             setattr(obj, attr, value)  # the capture ran nothing

@@ -1,0 +1,23 @@
+"""Distributed runtime of the port: checkpointing (``checkpoint``).
+
+Submodules load lazily (PEP 562), as in the JAX package's
+``repro.distributed``.  ``sharding`` and the device mesh wait for the
+multi-GPU item of the port (ROADMAP.md).
+"""
+from importlib import import_module
+
+_SUBMODULES = ("checkpoint",)
+
+__all__ = list(_SUBMODULES)
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        module = import_module(f".{name}", __name__)
+        globals()[name] = module
+        return module
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_SUBMODULES))

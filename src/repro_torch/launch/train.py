@@ -6,9 +6,15 @@ Runs real MAP training steps on one device (the card unless ``--device``
 names another; ``RPL502`` without one): parameters drawn from seed 0 on the
 device, ``LM(cfg, remat="full")``, the batches of ``SyntheticLMData`` by
 step.  As in the JAX launcher, a straggler watchdog flags steps slower than
-3x the running median, and SIGTERM/SIGINT stop the run at the next step
-boundary.  Checkpointing (``--ckpt-dir``) and the device mesh (``--mesh``)
-raise ``RPL501``: they wait for their items of the port (ROADMAP.md).
+3x the running median.  Fault tolerance is the JAX launcher's:
+``--ckpt-dir`` saves the train state (``{"params", "opt", "step"}``, through
+:mod:`repro_torch.distributed.checkpoint`) every ``--checkpoint-every``
+steps and at ``--steps``, a relaunch resumes from the checkpoint there
+(the data cursor is the step, so it replays the exact batches), and
+SIGTERM/SIGINT stop the run at the next step boundary, writing a
+preemption checkpoint (``extra["preempted"]``) when there is a
+``--ckpt-dir``.  The device mesh (``--mesh``) raises ``RPL501``: it waits
+for the multi-GPU item of the port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,13 +22,28 @@ import argparse
 import signal
 import time
 
+import torch
+
 from ..configs import ARCHS, get_config
 from ..core.errors import pending
 from ..core.infer.hmc import resolve_device
 from ..data import SyntheticLMData
+from ..distributed import checkpoint as ckpt
 from ..models import LM, reduced
+from ..optim import tree_map
 from . import steps as steps_mod
 from .serve import _sync
+
+
+def _restore_into(state, directory):
+    """The checkpoint in ``directory`` written into ``state``'s tensors
+    (read through the host, so the device holds one copy of the state),
+    its host numbers (the step, the optimizer's counts) taken as saved.
+    Returns ``(state, step)``."""
+    saved, step, _ = ckpt.restore(state, directory, device="cpu")
+    return tree_map(lambda dst, src: dst.copy_(src)
+                    if isinstance(dst, torch.Tensor) else src,
+                    state, saved), step
 
 
 def main(argv=None):
@@ -36,12 +57,11 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise pending("checkpointing (--ckpt-dir)", "checkpoint")
     if args.mesh:
         raise pending("the device mesh (--mesh)", "multi-GPU")
 
@@ -55,10 +75,15 @@ def main(argv=None):
                                 total_steps=args.steps)
     lm = LM(cfg, remat="full")
     state = steps_mod.make_train_state(lm, hp, rng=0, device=device)
+    start = 0
+    if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
+        state, start = _restore_into(state, args.ckpt_dir)
+        print(f"[train] resumed from step {start}", flush=True)
     step_fn = steps_mod.make_train_step(
         lm, hp, total_tokens=args.global_batch * args.seq_len)
 
-    # preemption: SIGTERM/SIGINT stop at the next step boundary
+    # preemption: SIGTERM/SIGINT checkpoint at the next step boundary and
+    # return (a relaunch replays the exact batches from there)
     preempted = {"flag": False}
 
     def _on_term(signum, frame):
@@ -69,7 +94,7 @@ def main(argv=None):
     recent, history = [], []
     t0 = time.time()
     try:
-        for i in range(args.steps):
+        for i in range(start, args.steps):
             ts = time.time()
             batch = data.batch_at(i, device=device)
             state, metrics = step_fn(state, batch)
@@ -84,18 +109,31 @@ def main(argv=None):
                           flush=True)
             recent = (recent + [dt_step])[-50:]
             if preempted["flag"]:
-                print(f"[train] stopped by a signal after step {i+1}",
-                      flush=True)
-                break
-            if (i + 1) % args.log_every == 0 or i == 0:
+                if args.ckpt_dir:
+                    ckpt.save(state, args.ckpt_dir, step=i + 1,
+                              extra={"arch": args.arch, "preempted": True})
+                    print(f"[train] preemption checkpoint at step {i+1}; "
+                          "exiting", flush=True)
+                else:
+                    print(f"[train] stopped by a signal after step {i+1}",
+                          flush=True)
+                return state, history
+            if (i + 1) % args.log_every == 0 or i == start:
                 ce = float(metrics["ce"])
                 loss = float(metrics["loss"])
                 history.append({"step": i + 1, "ce": ce, "loss": loss})
-                dt = (time.time() - t0) / (i + 1)
+                dt = (time.time() - t0) / (i + 1 - start)
                 toks = args.global_batch * args.seq_len / dt
                 print(f"[train] step {i+1}/{args.steps} ce={ce:.4f} "
                       f"map_loss={loss:.1f} {dt*1e3:.0f} ms/step "
                       f"{toks:.0f} tok/s", flush=True)
+            if args.ckpt_dir and (i + 1) % args.checkpoint_every == 0:
+                ckpt.save(state, args.ckpt_dir, step=i + 1,
+                          extra={"arch": args.arch})
+                print(f"[train] checkpointed step {i+1}", flush=True)
+        if args.ckpt_dir:
+            ckpt.save(state, args.ckpt_dir, step=args.steps,
+                      extra={"arch": args.arch})
     finally:
         for s, handler in previous.items():
             signal.signal(s, handler)

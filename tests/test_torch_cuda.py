@@ -619,6 +619,40 @@ def test_lockstep_nuts_launches_one_batch_leaf_per_lockstep_leapfrog():
 
 
 @pytest.mark.cuda
+def test_lockstep_nuts_resumes_bit_identical_on_card(tmp_path):
+    """A lockstep logreg NUTS run on the card killed after the first
+    sampling chunk's state write (save #4 of 6) and resumed: the draws, the
+    extra fields and the final state bit-identical to the uninterrupted
+    run, the resumed part through the lockstep leaf and GLM kernels."""
+    from chip_smoke import Preempted, recorded_saves, same_run
+    from repro_torch.bench.models import covtype_data, logreg_model_glm
+    from repro_torch.core.infer import MCMC, NUTS
+    _need_card()
+    data = covtype_data(seed=0, n=4000, d=6)
+
+    def run(**kwargs):
+        mcmc = MCMC(NUTS(logreg_model_glm), 24, 36, num_chains=4)
+        return mcmc.run(0, data["x"], y=data["y"], **kwargs)
+
+    whole = run()
+    ckdir = str(tmp_path / "ck")
+    calls, undo = recorded_saves(kill_at=4)
+    try:
+        with pytest.raises(Preempted):
+            run(checkpoint_every=20, checkpoint_dir=ckdir)
+    finally:
+        undo()
+    assert [c["dir"] for c in calls] == ["state", "state",
+                                         "samples_000024_000044", "state"]
+    ops.reset_launch_counts()
+    resumed = run(checkpoint_every=20, checkpoint_dir=ckdir, resume=True)
+    counts = ops.launch_counts()
+    assert resumed.stats["resumed_at"] == 44
+    assert same_run(resumed, whole)
+    assert counts["nuts_leaf_batch"] > 0 and counts["glm_potential_grad"] > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_mala_accept_kernel_matches_plain_on_card(dtype):
     """mala_accept against its plain version at ENS_SHAPES, MALA

@@ -348,7 +348,8 @@ def test_port_imports_no_jax():
             "repro_torch.kernels.rmsnorm, repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.softmax_xent, repro_torch.optim, "
             "repro_torch.core.bayes, repro_torch.data, "
-            "repro_torch.launch.steps, repro_torch.launch.train; "
+            "repro_torch.launch.steps, repro_torch.launch.train, "
+            "repro_torch.distributed, repro_torch.distributed.checkpoint; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             " assert not bad, bad")

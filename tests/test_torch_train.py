@@ -10,6 +10,7 @@ packages summing in other orders.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +43,7 @@ from repro_torch.core.errors import PENDING, ReproError
 from repro_torch.core.handlers import seed, trace
 from repro_torch.core.primitives import param, sample
 from repro_torch.data import SyntheticLMData
+from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.interop import (lm_params_from_reference,
                                  train_state_from_reference)
 from repro_torch.kernels import ops
@@ -455,7 +457,7 @@ def test_synthetic_data_is_deterministic_by_step():
     assert halves[0].shape == (2, 32) and not torch.equal(*halves)
 
 
-def test_train_launcher_runs_on_cpu(capsys):
+def test_train_launcher_runs_on_cpu(capsys, tmp_path):
     state, history = train.main(["--arch", "gemma-2b", "--reduced",
                                  "--device", "cpu", "--steps", "3",
                                  "--seq-len", "32", "--global-batch", "4",
@@ -464,7 +466,14 @@ def test_train_launcher_runs_on_cpu(capsys):
     assert [h["step"] for h in history] == [1, 2, 3]
     assert all(np.isfinite(h["loss"]) for h in history)
     assert "[train] step 3/3" in capsys.readouterr().out
-    for flag in (["--ckpt-dir", "x"], ["--mesh", "2x2"]):
-        with pytest.raises(ReproError, match=PENDING):
-            train.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu",
-                        *flag])
+    # --ckpt-dir writes a checkpoint of the train state at --steps
+    ck = str(tmp_path / "ck")
+    train.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu",
+                "--steps", "1", "--seq-len", "32", "--global-batch", "4",
+                "--ckpt-dir", ck])
+    assert ckpt.latest_step(ck) == 1
+    assert os.path.exists(os.path.join(ck, "params__embed.npy"))
+    # the device mesh waits for the multi-GPU item
+    with pytest.raises(ReproError, match=PENDING):
+        train.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu",
+                    "--mesh", "2x2"])
