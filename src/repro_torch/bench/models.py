@@ -49,6 +49,23 @@ def logreg_model_glm(x, y=None):
                      infer={"potential": "glm"})
 
 
+def svi_logreg_model(n, subsample_size=None):
+    """``benchmarks/svi_minibatch.py``'s logistic regression for SVI: slope
+    ``m`` (d,) and intercept ``b``, the likelihood in a plate of the ``n``
+    rows that draws a minibatch of ``subsample_size`` rows per step (the
+    full data when ``None``).  Returns ``model(x, y=None)``."""
+    def model(x, y=None):
+        d = x.shape[-1]
+        m = pc.sample("m", dist.Normal(x.new_zeros(()), x.new_ones(()))
+                      .expand((d,)).to_event(1))
+        b = pc.sample("b", dist.Normal(x.new_zeros(()), x.new_ones(())))
+        with pc.plate("N", n, subsample_size=subsample_size):
+            xb = pc.subsample(x, event_dim=1)
+            yb = pc.subsample(y, event_dim=0) if y is not None else None
+            pc.sample("y", dist.Bernoulli(logits=xb @ m + b), obs=yb)
+    return model
+
+
 # ---------------------------------------------------------------------------
 # HMMs
 # ---------------------------------------------------------------------------

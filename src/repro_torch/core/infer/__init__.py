@@ -1,3 +1,4 @@
+from .autoguide import AutoNormal
 from .diagnostics import (
     effective_sample_size,
     gelman_rubin,
@@ -15,6 +16,7 @@ from .kernel_api import (KernelSetup, SamplerKernel, collect, init_state,
                          sample)
 from .mala import MALA, RWM, MRWState, mrw_setup
 from .mcmc import MCMC
+from .svi import SVI, SVIState, Trace_ELBO
 from .util import (
     Predictive,
     constrain_fn,
@@ -40,5 +42,5 @@ __all__ = [
     "contract_enum_factors", "enum", "infer_discrete", "markov", "ChEES",
     "ChEESState", "chees_setup", "chees_init", "MALA", "RWM", "MRWState",
     "mrw_setup", "Predictive", "constrain_fn", "initialize_model",
-    "log_likelihood",
+    "log_likelihood", "SVI", "SVIState", "Trace_ELBO", "AutoNormal",
 ]

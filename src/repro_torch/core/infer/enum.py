@@ -18,6 +18,11 @@ and broadcasting (the JAX package's ``repro.core.infer.enum``, ported):
   contractions in one call of :func:`repro_torch.kernels.ops.enum_chain`
   (the hand-written chain kernels on a card, one launch forward and one
   backward; the plain chain on the CPU).
+- :func:`infer_discrete` recovers the posterior of the marginalized sites
+  given continuous draws: forward-filter/backward-sample for ``markov``
+  chains (one ``enum_chain`` launch for the filter, one
+  ``enum_chain_sample`` launch for the draws on a card), exact sequential
+  conditioning on the joint enumeration tensor for parallel sites.
 
 Differences from the JAX package, by design:
 
@@ -30,14 +35,18 @@ Differences from the JAX package, by design:
   (the JAX package skips them as tracers); nor is step 0 inside a potential
   that marks its sites checked (``util._SupportChecked``): the plain
   simulation at setup checked every step once.
-
-``infer_discrete``, ``markov``'s ``"sample"`` mode (forward-filter /
-backward-sample), parallel-site sampling and ``RequirePinnedDiscrete`` wait
-for a later slice (ROADMAP.md, Queue 1 item 8).
+- The sample mode's ``rng_key`` is a draw source (``fresh()``, ``gumbel(shape,
+  dtype)``, ``.generator``; :class:`~repro_torch.core.infer.hmc_util.
+  GeneratorDraws`), its noise drawn on the CPU and moved to the factors'
+  device; a categorical draw is ``argmax(gumbel + logits)``, which is what
+  ``jax.random.categorical`` computes, so a test that injects the JAX
+  package's noise gets its draws index for index.  The draws are int64
+  (the JAX package's are int32).
 """
 from __future__ import annotations
 
 import math
+import warnings
 from collections import OrderedDict
 from typing import Optional
 
@@ -46,10 +55,13 @@ import torch
 from ...kernels import ops
 from .. import dist as _dist
 from .. import primitives
-from ..errors import ReproNotImplementedError, ReproValueError, pending
-from ..handlers import Messenger, block, infer_config, scope, trace
+from ..errors import ReproNotImplementedError, ReproValueError
+from ..handlers import (Messenger, _as_generator, block, infer_config,
+                        scope, seed, trace)
+from ..primitives import deterministic as _deterministic
 from ..primitives import plate as _plate
 from ..primitives import sample as _sample
+from .hmc_util import GeneratorDraws, to_device
 from .util import _SupportChecked
 
 _NOT_ENUMERABLE_ERR = (
@@ -159,12 +171,16 @@ class enum(Messenger):
     ["_enum_total"]`` — the breadcrumbs :func:`contract_enum_factors`
     eliminates by.
 
-    Only ``mode="marginal"`` is ported; ``mode="sample"`` (what
-    ``infer_discrete`` uses) raises ``RPL501``.
+    ``mode="sample"`` (used by :func:`infer_discrete`) also carries a draw
+    source ``draws`` (the JAX package's ``rng_key``: an object with
+    ``fresh()`` and ``gumbel(shape, dtype)``, such as
+    :class:`~repro_torch.core.infer.hmc_util.GeneratorDraws`);
+    :func:`markov` then backward-samples its chain into ``.samples``
+    instead of emitting a marginal factor.
     """
 
     def __init__(self, fn=None, first_available_dim=None, *,
-                 mode: str = "marginal", strict: bool = False,
+                 mode: str = "marginal", draws=None, strict: bool = False,
                  extra_dims: Optional[dict] = None):
         super().__init__(fn)
         if first_available_dim is None or first_available_dim >= 0:
@@ -172,25 +188,28 @@ class enum(Messenger):
                 "enum requires a negative first_available_dim — use "
                 "-(max_plate_nesting + 1), counting every plate/batch dim "
                 f"of the model; got {first_available_dim}")
-        if mode == "sample":
-            raise pending("enum(mode='sample') (infer_discrete)",
-                          "discrete posterior sampling")
-        if mode != "marginal":
+        if mode not in ("marginal", "sample"):
             raise ValueError(f"unknown enum mode {mode!r}")
+        if mode == "sample" and draws is None:
+            raise ValueError("enum(mode='sample') requires a draw source "
+                             "(draws=GeneratorDraws(generator))")
         self.first_available_dim = int(first_available_dim)
         self.mode = mode
+        self.draws = draws
         self.strict = strict          # markov-internal: no stray latents
         self._markov_local = False    # set on markov's per-step instances
         # enumeration dims owned by an enclosing allocator (markov hands its
         # local per-step handler the chain's `prev` dim this way) — batch
         # extents at these dims are legitimate, not collisions
         self._extra_dims = dict(extra_dims or {})
+        self.samples: dict = {}
         self._next = self.first_available_dim
         self._alloc: OrderedDict = OrderedDict()
 
     def __enter__(self):
         self._next = self.first_available_dim
         self._alloc = OrderedDict()
+        self.samples = {}
         return super().__enter__()
 
     def allocate(self, size: int, name: str) -> int:
@@ -198,6 +217,11 @@ class enum(Messenger):
         self._next -= 1
         self._alloc[name] = (dim, int(size))
         return dim
+
+    def fresh_key(self):
+        """A fresh draw source split from the handler's (``fresh_key`` of
+        the JAX package)."""
+        return self.draws.fresh()
 
     def process_message(self, msg: dict) -> None:
         if msg["type"] != "sample":
@@ -541,7 +565,15 @@ def markov(fn, init, xs, *, name: str = "markov"):
       axis with one call of :func:`repro_torch.kernels.ops.enum_chain` (the
       T-1 contractions), and contributes the chain's marginal likelihood as
       a single ``{name}_marginal`` factor site.  Returns ``None``: the carry
-      must not be consumed downstream under marginalization.
+      must not be consumed downstream under marginalization;
+    - ``enum(mode="sample")`` (:func:`infer_discrete`): the same factors,
+      then forward-filter/backward-sample: every alpha from one call of
+      :func:`repro_torch.kernels.ops.enum_chain_alphas`, one draw of
+      Gumbel noise ``(T, K)`` from a fresh source of the handler (row t is
+      state t's), and the states from last to first in one call of
+      :func:`repro_torch.kernels.ops.enum_chain_sample`.  The states are
+      recorded as the deterministic site ``name`` and in the handler's
+      ``samples``, and returned; no marginal factor is emitted.
     """
     leaves = _tree_leaves(xs)
     if not leaves:
@@ -624,18 +656,174 @@ def markov(fn, init, xs, *, name: str = "markov"):
     else:
         mats = alpha0.new_zeros((0, K, K))
 
-    alpha_T = ops.enum_chain(alpha0, mats)
-    total = torch.logsumexp(alpha_T, dim=-1)
-    _sample(f"{name}_marginal",
-            _dist.Delta(total.new_zeros(()), log_density=total),
-            obs=total.new_zeros(()))
-    return None
+    if handler.mode == "marginal":
+        alpha_T = ops.enum_chain(alpha0, mats)
+        total = torch.logsumexp(alpha_T, dim=-1)
+        _sample(f"{name}_marginal",
+                _dist.Delta(total.new_zeros(()), log_density=total),
+                obs=total.new_zeros(()))
+        return None
+
+    # --- mode == "sample": forward filter, backward sample -----------------
+    alphas = ops.enum_chain_alphas(alpha0, mats)                 # (T, K)
+    noise = handler.fresh_key().gumbel(tuple(alphas.shape), alphas.dtype)
+    idx = ops.enum_chain_sample(alphas, mats.detach().to(alphas.dtype),
+                                to_device(noise, alphas.device))
+    states = support_flat[idx]
+    _deterministic(name, states)
+    handler.samples[name] = states
+    return states
 
 
-def infer_discrete(model, generator=None, *, max_plate_nesting=None):
-    """Sampling the marginalized discrete latents from their posterior
-    (forward-filter/backward-sample) waits for a later slice."""
-    raise pending("infer_discrete", "discrete posterior sampling")
+# ---------------------------------------------------------------------------
+# infer_discrete: posterior of the marginalized sites
+# ---------------------------------------------------------------------------
+
+def _condition_factor(f, d: int, idx):
+    """Index factor ``f`` at enumeration dim ``d`` by ``idx`` (the sampled
+    per-plate-element state indices, right-aligned to the plate region)."""
+    axis = f.dim() + d
+    want = f.dim() - 1
+    ie = idx.reshape((1,) * max(0, want - idx.dim())
+                     + tuple(idx.shape)[max(0, idx.dim() - want):])
+    ie = ie.unsqueeze(axis)
+    ie = ie.expand(tuple(f.shape[:axis]) + (1,) + tuple(f.shape[axis + 1:]))
+    return torch.gather(f, axis, ie)
+
+
+def _sample_parallel_sites(tr, handler: enum, draws):
+    """Exact sequential sampling of the parallel-enumerated sites: for each
+    site (in allocation order), eliminate every other pending enumeration
+    dim from a working copy of the factor pool, reduce foreign plates, and
+    draw from the resulting per-plate-element conditional (one Gumbel draw
+    of its logits' shape from ``draws``); then condition the pool on the
+    draw (chain rule: the exact joint posterior)."""
+    sites = [(nm, dim, size) for nm, (dim, size) in handler._alloc.items()
+             if nm in tr and tr[nm]["infer"].get("_enumerate_dim") == dim]
+    if not sites:
+        return {}
+
+    alloc, factors, _ = _collect_enum_factors(tr)
+    pending_dims = {dim for _, dim, _ in sites}
+    out = {}
+    for nm, dim, size in sites:
+        work, _ = _eliminate(factors, alloc, pending_dims - {dim})
+        boundary = max(alloc)
+        f = None
+        for g, gds in work:
+            if dim not in gds:
+                continue  # constant in this site: normalization only
+            g = _reduce_foreign_plates(g, {dim}, dim, alloc, boundary)
+            f = g if f is None else f + g
+        logits = torch.movedim(f, f.dim() + dim, -1).detach()
+        noise = draws.gumbel(tuple(logits.shape), logits.dtype)
+        idx = torch.argmax(to_device(noise, logits.device) + logits, dim=-1)
+        factors = [(_condition_factor(g, dim, idx) if dim in gds else g,
+                    gds - {dim}) for g, gds in factors]
+        pending_dims.discard(dim)
+        # the recorded draw has the site's plate-region shape: batch extents
+        # in the enumeration region come from upstream enumerated values
+        # (parameters indexed by another enumerated site) and are not part
+        # of a single draw
+        width = -max(alloc) - 1
+        site_batch = tuple(tr[nm]["fn"].batch_shape)
+        target = site_batch[len(site_batch) - width:] if width else ()
+        while target and target[0] == 1:
+            target = target[1:]
+        support_flat = tr[nm]["fn"].enumerate_support(
+            expand=False).reshape(-1).to(idx.device)
+        out[nm] = support_flat[idx].reshape(target)
+    return out
+
+
+def _as_draws(generator):
+    """A draw source of ``infer_discrete``'s draws: a draw source as it is,
+    or a new :class:`GeneratorDraws` from a copy of a ``torch.Generator``'s
+    state (or a new one seeded with an int), so that every call of ``run``
+    draws the same."""
+    if hasattr(generator, "fresh"):
+        return lambda: generator
+    state = _as_generator(generator).get_state()
+    return lambda: GeneratorDraws(torch.Generator().set_state(state))
+
+
+def infer_discrete(model, generator, *, max_plate_nesting=None,
+                   device=None):
+    """Sample the marginalized discrete latents from their exact posterior.
+
+    Given a model whose continuous latents are pinned (compose with
+    ``substitute(model, data=continuous_draw)``), returns a callable
+    ``run(*model_args, **model_kwargs) -> {site: integer draws}``:
+    parallel-enumerated sites are sampled by exact conditioning on the joint
+    enumeration tensor, :func:`markov` chains by forward-filter /
+    backward-sample.  Stray unpinned latent sites are seeded from
+    ``generator`` (prior draws), as ``Predictive`` does.  The model runs on
+    ``device`` (default ``"cuda"``; ``resolve_device`` raises without a
+    card), its arguments moved there as ``MCMC.run`` moves them.
+
+    ``generator`` is a CPU ``torch.Generator`` (its state is copied here,
+    so every call of ``run`` draws the same, as the JAX package's ``run``
+    is a function of its key), an int seed, or a draw source (``fresh()``,
+    ``gumbel(shape, dtype)``, ``.generator``; a test injects the JAX
+    package's noise through one).  The draws, in order:
+
+    1. ``source.fresh()`` -> ``k_seed``, then ``source.fresh()`` ->
+       ``k_disc`` (the JAX package's ``split(rng_key)``);
+    2. ``k_seed.generator``'s state seeds the stray latents of the probe
+       trace and, from the same state again, of the sampling trace;
+    3. each :func:`markov` chain, in program order: ``k_disc.fresh()`` ->
+       ``src``, then ``src.gumbel((T, K))``, row t the noise of state t
+       (the JAX package: ``split(fresh_key())`` -> ``key_last`` for state
+       T-1, ``split(key_rest, T-1)[t]`` for state t);
+    4. the parallel sites: ``k_disc.fresh()`` -> ``src``, then for each
+       site in allocation order ``src.gumbel(logits.shape)`` (the JAX
+       package: one ``split`` of that key per site).
+
+    The JAX package vectorizes over posterior draws with ``jax.vmap`` over
+    ``(draw, key)`` pairs; here that is a Python loop of calls, one
+    generator each, as :class:`~repro_torch.core.infer.util.Predictive`
+    loops over its draws.
+    """
+    if generator is None:
+        raise ValueError("infer_discrete requires a torch.Generator, an int "
+                         "seed or a draw source")
+    from .hmc import resolve_device
+    from .mcmc import _to_device
+    device = resolve_device(device if device is not None else "cuda")
+    new_source = _as_draws(generator)
+
+    def run(*args, **kwargs):
+        args, kwargs = _to_device(args, device), _to_device(kwargs, device)
+        source = new_source()
+        k_seed, k_disc = source.fresh(), source.fresh()
+        seed_state = k_seed.generator.get_state()
+        # auto-mark enumerable discrete latents, as
+        # initialize_model_structure does: untouched model code just works
+        marked = config_enumerate(model)
+
+        def seeded():
+            return seed(marked, torch.Generator().set_state(seed_state))
+
+        probe = _EnumProbe(seeded())
+        trace(probe).get_trace(*args, **kwargs)
+        if not probe.found:
+            warnings.warn(
+                "infer_discrete: the model has no enumerated sites (mark "
+                "discrete latents with infer={'enumerate': 'parallel'} or "
+                "wrap the model in config_enumerate)", stacklevel=2)
+            return {}
+        fad = _first_available_dim(probe, max_plate_nesting)
+        handler = enum(seeded(), first_available_dim=fad, mode="sample",
+                       draws=k_disc)
+        with torch.no_grad(), handler:
+            tr = trace(handler.fn).get_trace(*args, **kwargs)
+        samples = dict(handler.samples)
+        with torch.no_grad():
+            samples.update(_sample_parallel_sites(tr, handler,
+                                                  handler.fresh_key()))
+        return samples
+
+    return run
 
 
 __all__ = [

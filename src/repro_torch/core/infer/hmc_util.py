@@ -100,6 +100,17 @@ class GeneratorDraws:
         """(C,) uniforms of the chains' Metropolis tests."""
         return torch.rand(c, generator=self.generator, dtype=dtype)
 
+    # the discrete posterior's draws (``infer_discrete``)
+    def gumbel(self, shape, dtype):
+        """Standard Gumbel noise ``-log(-log(u))``, ``u`` uniform on
+        ``[tiny, 1)``: a categorical draw is ``argmax(gumbel + logits)``."""
+        u = torch.rand(shape, generator=self.generator, dtype=dtype)
+        return -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
+
+    def fresh(self) -> "GeneratorDraws":
+        """A new source seeded from this one (the JAX package's key split)."""
+        return split_draws(self.generator, 1)[0]
+
 
 def split_draws(generator: torch.Generator, count: int):
     """``count`` independent draw sources seeded from ``generator``: the

@@ -321,11 +321,13 @@ class plate:
         self.dim = dim
         self._indices = None
         self._cache_token = None
+        self._site_name = name    # post-stack name (scope may prefix it)
         self._frame = None
 
     def _get_indices(self):
         if self._indices is not None and self._cache_token != _EPISODE:
             self._indices = None  # a new model execution: redraw
+            self._site_name = self.name
         if self._indices is None:
             self._cache_token = _EPISODE
             if self.subsample_size < self.size and _STACK:
@@ -343,7 +345,12 @@ class plate:
                     "cond_indep_stack": [],
                     "infer": {},
                 }
-                indices = apply_stack(msg)["value"]
+                out = apply_stack(msg)
+                indices = out["value"]
+                # handlers may rewrite the site name (scope); frames carry
+                # the name the trace records, so that consumers matching
+                # frames to recorded plate sites (AutoNormal) find them
+                self._site_name = out["name"]
                 if _shape(indices) != (self.subsample_size,):
                     raise ValueError(
                         f"plate '{self.name}': injected subsample indices "
@@ -381,7 +388,8 @@ class plate:
                 f"plate '{self.name}': dim {dim} already occupied by an "
                 "enclosing plate", code="RPL002", site=self.name)
         indices = self._get_indices()  # the message runs before we join
-        self._frame = CondIndepStackFrame(self.name, dim, self.subsample_size)
+        self._frame = CondIndepStackFrame(self._site_name, dim,
+                                          self.subsample_size)
         _STACK.append(self)
         return indices
 

@@ -1,6 +1,7 @@
 // Logsumexp contraction of discrete-latent chain elimination: the one-step
 // forward and backward, and the chain forward and backward that run all
-// T-1 steps of a chain in one launch each.
+// T-1 steps of a chain in one launch each; and the chain's backward sample
+// (forward-filter/backward-sample's second half, chain_sample_kernel below).
 //
 // Forward replaces the Pallas TPU kernel
 // src/repro/kernels/enum_contract.py:_kernel (reached through enum_contract,
@@ -84,6 +85,7 @@
 // padded, and rows need no order.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "tc_mma.cuh"
@@ -628,6 +630,85 @@ __global__ void chain_bwd_cta_kernel(const T* __restrict__ mats,
   for (int j = tid; j < k; j += nthr) d_alpha0[b * k + j] = g[j];
 }
 
+// ---- the chain's backward sample -------------------------------------------
+//
+// enum_chain_sample replaces no TPU kernel.  It is the backward half of
+// markov's forward-filter/backward-sample (src/repro/core/infer/enum.py:
+// 619-628, a lax.scan of T-1 dependent random.categorical draws, plain jnp,
+// in reverse), added for the same reason as the chain kernels above: on the
+// host the scan is ~3-4 eager launches a step, ~2,400 at T = 600.  With the
+// forward filter's alphas (T, B, K), the steps' matrices mats (T-1, B, K,
+// K) and Gumbel noise g (T, B, K), for each batch row b:
+//     z[T-1] = argmax_j(g[T-1, j] + alphas[T-1, j])
+//     z[t]   = argmax_i(g[t, i] + (alphas[t, i] + mats[t, i, z[t+1]]))
+// for t = T-2 down to 0 (random.categorical is argmax(gumbel + logits), and
+// these are the JAX package's additions in its order).  A tie goes to the
+// lowest index and NaN counts as larger than any number, as in torch.argmax
+// and jnp.argmax, so the draws are bit for bit those of the plain version
+// (kernels/enum_contract.py:enum_chain_sample_ref): the adds are single
+// IEEE operations (__fadd_rn/__dadd_rn, never contracted) and the argmax is
+// exact.
+//
+// One warp per batch row runs the T dependent steps.  Lane l owns states
+// l, l + 32, ... (any K: lanes stride over K past 32), issues its three
+// loads of a step together once z[t+1] is known (alpha and noise
+// coalesced, the column entry strided by K), keeps its best (value, index)
+// and a butterfly of __shfl_xor_sync picks the warp's best in five rounds,
+// leaving z[t] in every lane for the next step's column.  What bounds it is
+// that chain of T dependent steps, each a load round trip (mats was read by
+// the forward chain kernel just before and is in L2) and the shuffles, not
+// bytes: a step moves 3K elements.  Staging the row's operands in shared
+// memory ahead of the chain is left for later.
+template <typename T>
+__device__ __forceinline__ bool arg_better(T v, int j, T best, int best_j) {
+  const bool v_nan = v != v, b_nan = best != best;
+  if (v_nan || b_nan) return v_nan && (!b_nan || j < best_j);
+  return v > best || (v == best && j < best_j);
+}
+
+template <typename T>
+__global__ void chain_sample_kernel(const T* __restrict__ alphas,
+                                    const T* __restrict__ mats,
+                                    const T* __restrict__ gumbel,
+                                    long long* __restrict__ idx,
+                                    long long rows, int steps, int k) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp leaves together
+  int z = 0;
+  for (int t = steps; t >= 0; --t) {
+    const long long at = ((long long)t * rows + row) * k;
+    const T* a = alphas + at;
+    const T* g = gumbel + at;
+    // column z of mats[t] (mats[t][i][z] at i * k + z); none at t = T-1
+    const T* m = t < steps ? mats + at * k + z : nullptr;
+    T best = T(-INFINITY);
+    int best_j = INT_MAX;  // a lane without a state never wins a tie
+    for (int i = lane; i < k; i += 32) {
+      T logit = a[i];
+      if (m != nullptr) logit = add_rn(logit, m[(long long)i * k]);
+      const T v = add_rn(g[i], logit);
+      if (arg_better(v, i, best, best_j)) {
+        best = v;
+        best_j = i;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const T ov = __shfl_xor_sync(0xffffffffu, best, off);
+      const int oj = __shfl_xor_sync(0xffffffffu, best_j, off);
+      if (arg_better(ov, oj, best, best_j)) {
+        best = ov;
+        best_j = oj;
+      }
+    }
+    z = best_j;
+    if (lane == 0) idx[(long long)t * rows + row] = best_j;
+  }
+}
+
+
 // ---- launchers -----------------------------------------------------------
 
 template <typename T>
@@ -760,6 +841,22 @@ cudaError_t launch_chain_bwd(const void* mats, const void* alphas,
   return cudaGetLastError();
 }
 
+// One warp a row, up to kMaxWarps rows a CTA
+template <typename T>
+cudaError_t launch_chain_sample(const void* alphas, const void* mats,
+                                const void* gumbel, void* idx,
+                                long long rows, int steps, int k,
+                                void* stream) {
+  if (rows <= 0 || steps < 0 || k <= 0) return cudaSuccess;
+  const int warps = rows < kMaxWarps ? (int)rows : kMaxWarps;
+  chain_sample_kernel<T>
+      <<<(unsigned)((rows + warps - 1) / warps), 32 * warps, 0,
+         (cudaStream_t)stream>>>((const T*)alphas, (const T*)mats,
+                                 (const T*)gumbel, (long long*)idx, rows,
+                                 steps, k);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int enum_contract_fwd_f32(const void* alpha, const void* mat,
@@ -823,4 +920,22 @@ extern "C" int enum_chain_bwd_f64(const void* mats, const void* alphas,
                                   void* stream) {
   return (int)launch_chain_bwd<double>(mats, alphas, g, d_alpha0, d_mats,
                                        rows, steps, k, stream);
+}
+
+// alphas (steps + 1, rows, k), mats (steps, rows, k, k), gumbel (steps + 1,
+// rows, k) -> idx (steps + 1, rows) int64
+extern "C" int enum_chain_sample_f32(const void* alphas, const void* mats,
+                                     const void* gumbel, void* idx,
+                                     long long rows, int steps, int k,
+                                     void* stream) {
+  return (int)launch_chain_sample<float>(alphas, mats, gumbel, idx, rows,
+                                         steps, k, stream);
+}
+
+extern "C" int enum_chain_sample_f64(const void* alphas, const void* mats,
+                                     const void* gumbel, void* idx,
+                                     long long rows, int steps, int k,
+                                     void* stream) {
+  return (int)launch_chain_sample<double>(alphas, mats, gumbel, idx, rows,
+                                          steps, k, stream);
 }

@@ -20,7 +20,9 @@ included, and each leaf keeps its dtype (mamba2's float32 ``A_log``, ``D``,
 tails) the same way.  :func:`train_state_from_reference` carries a JAX train state
 (``{"params", "opt": ((), AdamState(count, mu, nu)), "step"}``, the state
 ``repro.launch.steps.make_train_state`` builds for AdamW) across the same
-way.
+way.  :func:`svi_state_from_reference` carries a JAX ``SVIState`` whose
+optimizer is Adam (its params and ``AdamState(count, mu, nu)``) across the
+same way.
 """
 from __future__ import annotations
 
@@ -144,3 +146,19 @@ def train_state_from_reference(state, device="cpu"):
                 int(adam.count), lm_params_from_reference(adam.mu, device),
                 lm_params_from_reference(adam.nu, device))),
             "step": int(state["step"])}
+
+
+def svi_state_from_reference(state, device="cpu"):
+    """The port's ``SVIState`` holding a JAX ``SVIState``'s values (after
+    ``jax.device_get``): the params and the Adam count and moments, each
+    leaf with its dtype, on ``device``.  The JAX key cannot be carried (a
+    threefry key is no Philox state): the state's ``rng`` is that of a new
+    CPU generator seeded with 0."""
+    from .core.infer.svi import SVIState
+    adam = state.opt_state
+    return SVIState(
+        lm_params_from_reference(state.params, device),
+        OptAdamState(int(adam.count),
+                     lm_params_from_reference(adam.mu, device),
+                     lm_params_from_reference(adam.nu, device)),
+        torch.Generator().manual_seed(0).get_state())

@@ -36,6 +36,17 @@ of ``enum_contract``.
 - :class:`EnumChain` is the ``torch.autograd.Function`` that NUTS
   differentiates: one node per chain, routed by device as
   :class:`EnumContract` is, saving the stacked alphas for its backward.
+
+``enum_chain_sample(alphas, mats, gumbel)`` is the backward half of
+``markov``'s forward-filter/backward-sample: from the chain's alphas it
+draws the states from last to first, each by the Gumbel-max trick on the
+alphas plus the column of the next state.
+
+- :func:`enum_chain_sample_ref` is the plain version, the JAX package's
+  reverse ``lax.scan`` of ``random.categorical`` with its noise given.
+- :func:`enum_chain_sample_cuda` launches ``chain_sample_kernel`` of
+  ``csrc/enum_contract.cu``, one launch for the T steps, bit-identical to
+  the plain version on the card.
 """
 from __future__ import annotations
 
@@ -54,6 +65,8 @@ _CHAIN_FWD = {torch.float32: "enum_chain_fwd_f32",
               torch.float64: "enum_chain_fwd_f64"}
 _CHAIN_BWD = {torch.float32: "enum_chain_bwd_f32",
               torch.float64: "enum_chain_bwd_f64"}
+_CHAIN_SAMPLE = {torch.float32: "enum_chain_sample_f32",
+                 torch.float64: "enum_chain_sample_f64"}
 # the chain kernels' widest state (kMaxCols x 1024 columns of a CTA)
 _CHAIN_MAX_K = 4096
 
@@ -388,3 +401,66 @@ class EnumChain(torch.autograd.Function):
         d_mats = _sum_to(d_mats.movedim(0, -1), m_shape[1:] + m_shape[:1])
         return (_sum_to(d_alpha0, a_shape).to(a_dtype),
                 d_mats.movedim(-1, 0).to(m_dtype))
+
+
+# --- the chain's backward sample ---------------------------------------------
+
+def _sample_inputs(alphas, mats, gumbel):
+    """Check ``alphas (T, ..., K)``, ``mats (T-1, ..., K, K)`` and ``gumbel
+    (T, ..., K)``: one float dtype and one batch shape."""
+    if alphas.dim() < 2:
+        raise ValueError(f"enum_chain_sample takes alphas (T, ..., K), got "
+                         f"{tuple(alphas.shape)}")
+    steps, k = alphas.shape[0] - 1, alphas.shape[-1]
+    want = (steps,) + tuple(alphas.shape[1:]) + (k,)
+    if tuple(mats.shape) != want or gumbel.shape != alphas.shape:
+        raise ValueError(
+            f"enum_chain_sample takes alphas (T, ..., K), mats (T-1, ..., K, "
+            f"K) and gumbel (T, ..., K), got {tuple(alphas.shape)}, "
+            f"{tuple(mats.shape)} and {tuple(gumbel.shape)}")
+    if k == 0 or steps < 0:
+        raise ValueError("enum_chain_sample needs at least one state and step")
+    if not (alphas.dtype == mats.dtype == gumbel.dtype) \
+            or not alphas.is_floating_point():
+        raise TypeError(f"enum_chain_sample takes one float dtype, got "
+                        f"{alphas.dtype}, {mats.dtype}, {gumbel.dtype}")
+    return steps, k
+
+
+def enum_chain_sample_ref(alphas, mats, gumbel):
+    """The plain backward sample -> ``idx (T, ...)`` int64: ``idx[T-1] =
+    argmax(gumbel[T-1] + alphas[T-1])`` and, from ``t = T-2`` down to 0,
+    ``idx[t] = argmax(gumbel[t] + (alphas[t] + mats[t][..., :,
+    idx[t+1]]))``, the JAX package's order of additions; a tie goes to the
+    lowest index (``torch.argmax``)."""
+    steps, k = _sample_inputs(alphas, mats, gumbel)
+    z = torch.argmax(gumbel[-1] + alphas[-1], dim=-1)
+    out = [z]
+    for t in range(steps - 1, -1, -1):
+        index = z[..., None, None].expand(tuple(mats.shape[1:-1]) + (1,))
+        column = torch.gather(mats[t], -1, index).squeeze(-1)
+        z = torch.argmax(gumbel[t] + (alphas[t] + column), dim=-1)
+        out.append(z)
+    return torch.stack(out[::-1])
+
+
+def enum_chain_sample_cuda(alphas, mats, gumbel):
+    """Launch the backward sample on the current stream: ``alphas (T, ...,
+    K)``, ``mats (T-1, ..., K, K)`` and ``gumbel (T, ..., K)`` in float32 or
+    float64 -> ``idx (T, ...)`` int64, as :func:`enum_chain_sample_ref`; one
+    launch for the T steps.  Raises on a wrong device, shape or dtype, and
+    on a failed build or launch."""
+    steps, k = _sample_inputs(alphas, mats, gumbel)
+    device = _check_cuda("enum_chain_sample_cuda", (alphas, mats, gumbel),
+                         alphas.dtype)
+    alphas, mats, gumbel = (t.contiguous() for t in (alphas, mats, gumbel))
+    idx = torch.empty(alphas.shape[:-1], dtype=torch.int64, device=device)
+    rows = math.prod(alphas.shape[1:-1])
+    if rows:
+        _launch("enum_chain_sample", _CHAIN_SAMPLE, alphas.dtype, device,
+                alphas, mats, gumbel, idx, rows, steps, k)
+        enum_chain_sample_cuda.launches += 1
+    return idx
+
+
+enum_chain_sample_cuda.launches = 0

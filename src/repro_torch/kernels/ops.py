@@ -28,8 +28,10 @@ waits for the MLA slice (ROADMAP.md, Queue 1).
 
 ``FUSED`` holds the port's ops that run in one launch what the JAX package
 does around or in a loop over a ported op: ``enum_chain``, the T-1
-``enum_contract`` steps of ``markov``'s ``lax.scan``, with its backward
-``enum_chain_bwd`` in ``BACKWARD``; ``nuts_leaf``, a NUTS leaf's closing
+``enum_contract`` steps of ``markov``'s ``lax.scan`` (in marginal mode,
+and as the forward filter of its sample mode), with its backward
+``enum_chain_bwd`` in ``BACKWARD``; ``enum_chain_sample``, the sample
+mode's backward scan of Gumbel-max draws; ``nuts_leaf``, a NUTS leaf's closing
 kick, energy, momentum sum, checkpoint or U-turn dots and the next leaf's
 ``leapfrog_halfstep``, and ``nuts_turning``, a merged tree's U-turn dots;
 their chain-batched forms for lockstep NUTS, ``nuts_leaf_batch``,
@@ -43,6 +45,8 @@ They are routed like the rest and their launches are counted with them.
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
+
+import torch
 
 from . import enum_contract as _enum_contract
 from . import flash_attention as _flash
@@ -143,9 +147,17 @@ BACKWARD = {spec.name: spec for spec in (
 # code it runs (``nuts_leaf``: row 1's TPU kernel, which it runs fused)
 _I = "src/repro/core/infer/"
 FUSED = {spec.name: spec for spec in (
+    # also markov's forward filter in sample mode (enum.py:612, the same
+    # scan keeping every alpha): ``enum_chain_alphas``, the same kernel and
+    # launch counter
     OpSpec("enum_chain", _enum_contract.enum_chain_cuda,
            _enum_contract.enum_chain_ref, "cuda", _I + "enum.py:600", True,
            0.0),
+    # the sample mode's backward scan of random.categorical draws (plain
+    # jnp in the JAX package): the draws bit-identical
+    OpSpec("enum_chain_sample", _enum_contract.enum_chain_sample_cuda,
+           _enum_contract.enum_chain_sample_ref, "cuda", _I + "enum.py:619",
+           True, 0.0),
     # vectors bit-identical; ke and the dots within 1e-6 relative
     OpSpec("nuts_leaf", leapfrog.nuts_leaf_cuda, leapfrog.nuts_leaf_ref,
            "cuda", _K + "leapfrog.py:40", False, 1e-6),
@@ -385,6 +397,25 @@ def enum_chain(alpha0, mats):
     chain on a card, the plain chain on the CPU
     (:class:`~repro_torch.kernels.enum_contract.EnumChain`)."""
     return _enum_contract.EnumChain.apply(alpha0, mats)
+
+
+def enum_chain_alphas(alpha0, mats):
+    """Every alpha of the chain of :func:`enum_chain`, ``alphas (T, ...,
+    K)`` in ``promote(dtype, float32)``, without autograd: the forward
+    filter of ``markov``'s sample mode, one ``enum_chain`` launch on a card
+    (none for T = 1), the plain chain on the CPU."""
+    with torch.no_grad():
+        return _route("enum_chain", alpha0)(alpha0.detach(), mats.detach())
+
+
+def enum_chain_sample(alphas, mats, gumbel):
+    """The backward sample of a chain from its ``alphas (T, ..., K)``, the
+    steps' ``mats (T-1, ..., K, K)`` and Gumbel noise ``gumbel (T, ...,
+    K)`` -> state indices ``(T, ...)`` int64, ``idx[T-1] = argmax(gumbel[T-1]
+    + alphas[T-1])`` and ``idx[t] = argmax(gumbel[t] + (alphas[t] +
+    mats[t][..., :, idx[t+1]]))`` below it; one launch on a card, the plain
+    version on the CPU."""
+    return _route("enum_chain_sample", alphas)(alphas, mats, gumbel)
 
 
 def counters() -> list:

@@ -1424,3 +1424,78 @@ def test_mvn_cholesky_failure_gives_nan_on_card():
         torch.cuda.set_sync_debug_mode("default")
     lp = lp.cpu()
     assert bool(torch.isfinite(lp[0])) and bool(torch.isnan(lp[1]))
+
+
+def test_enum_chain_sample_cuda_refuses_cpu_tensors():
+    """The backward sample's wrapper takes no CPU tensor (``ops`` routes
+    those to the plain version) and checks its shapes first."""
+    from repro_torch.kernels.enum_contract import enum_chain_sample_cuda
+    a, m = torch.zeros(3, 4), torch.zeros(2, 4, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        enum_chain_sample_cuda(a, m, a)
+    with pytest.raises(ValueError, match="takes"):
+        enum_chain_sample_cuda(a, torch.zeros(3, 4, 4), a)
+    assert ops.FUSED["enum_chain_sample"].kernel is enum_chain_sample_cuda
+
+
+@pytest.mark.cuda
+def test_enum_chain_sample_bit_identical_on_card():
+    """chip_smoke's cases: T in (1, 2, 120, 600) x K in (2, 3, 8, 33, 64) x
+    1 and 16 rows x float32/float64, and planted ties; the draws index for
+    index the plain version's, one launch a call."""
+    from chip_smoke import chain_sample_checks
+    dev = _need_card()
+    assert ops.FUSED["enum_chain_sample"].bit_identical
+    results, _ = chain_sample_checks(dev)
+    assert results and all(r["bit_identical"] and r["launches"] == 1
+                           for r in results)
+
+
+@pytest.mark.cuda
+def test_infer_discrete_launches_one_filter_and_one_sample_on_card():
+    """An ``infer_discrete`` call of the enumerated HMM: one ``enum_chain``
+    and one ``enum_chain_sample`` launch, no one-step ``enum_contract``;
+    the states in the support."""
+    from chip_smoke import ENUM_K, ENUM_T, ENUM_V
+    from repro_torch.bench.models import enum_hmm_data, enum_hmm_model
+    from repro_torch.core.handlers import substitute
+    from repro_torch.core.infer import infer_discrete
+    dev = _need_card()
+    data = enum_hmm_data(ENUM_K, seed=0, T=ENUM_T, V=ENUM_V)
+    pinned = substitute(enum_hmm_model, data={
+        "theta": torch.from_numpy(data["true_theta"]).to(dev),
+        "phi": torch.from_numpy(data["true_phi"]).to(dev)})
+    ops.reset_launch_counts()
+    for seed_ in range(3):
+        z = infer_discrete(pinned, seed_)(data)["markov"]
+        assert z.device.type == "cuda" and z.shape == (ENUM_T,)
+        assert bool(((z >= 0) & (z < ENUM_K)).all())
+    counts = ops.launch_counts()
+    assert counts["enum_chain"] == counts["enum_chain_sample"] == 3
+    assert counts["enum_contract"] == 0
+
+
+@pytest.mark.cuda
+def test_svi_steps_on_card_match_the_cpu():
+    """Three SVI steps of the minibatch logistic regression on the card and
+    on the CPU from one seed (the draws and minibatches are made on the CPU
+    for both) agree within 1e-5 in float32."""
+    from repro_torch import optim
+    from repro_torch.bench.models import covtype_data, svi_logreg_model
+    from repro_torch.core.infer import SVI, AutoNormal, Trace_ELBO
+    dev = _need_card()
+    data = covtype_data(seed=1, n=4000, d=12)
+    out = []
+    for device in ("cpu", dev):
+        model = svi_logreg_model(4000, 400)
+        svi = SVI(model, AutoNormal(model), optim.adam(5e-2), Trace_ELBO(),
+                  device=device)
+        state, losses = svi.run(0, 3, data["x"], data["y"])
+        assert losses.device.type == torch.device(device).type
+        out.append(({k: v.cpu() for k, v in state.params.items()},
+                    losses.cpu()))
+    (p_cpu, l_cpu), (p_card, l_card) = out
+    torch.testing.assert_close(l_card, l_cpu, rtol=1e-5, atol=1e-5)
+    for name in p_cpu:
+        torch.testing.assert_close(p_card[name], p_cpu[name], rtol=1e-5,
+                                   atol=1e-5)

@@ -21,7 +21,7 @@ from repro.core.infer import initialize_model_structure as j_init_structure
 from repro_torch import core as pc
 from repro_torch.bench.models import logreg_model, logreg_model_glm
 from repro_torch.core import dist
-from repro_torch.core.errors import KERNEL_MISMATCH, PENDING, ReproError
+from repro_torch.core.errors import KERNEL_MISMATCH, ReproError
 from repro_torch.core.handlers import block, condition, seed, substitute, trace
 from repro_torch.core.infer import (MCMC, NUTS, initialize_model_structure,
                                     log_density)
@@ -322,10 +322,13 @@ def test_fused_glm_prior_path_is_reported():
 
 
 def test_discrete_latent_raises_pending():
-    """A latent discrete site is marginalized since the enumeration slice;
-    sampling it from its posterior (``infer_discrete``, ``enum`` in sample
-    mode) is what still waits, with a coded error."""
-    from repro_torch.core.infer import enum, infer_discrete
+    """A latent discrete site is marginalized (it is no continuous latent)
+    and, since the discrete-posterior slice, sampled from its posterior
+    by ``infer_discrete`` and ``enum`` in sample mode: neither raises the
+    pending-feature error any more."""
+    from repro_torch.core.infer import (config_enumerate, enum,
+                                        infer_discrete)
+    from repro_torch.core.infer.hmc_util import GeneratorDraws
 
     def m():
         pc.sample("c", dist.Bernoulli(probs=torch.tensor(0.5)))
@@ -333,10 +336,16 @@ def test_discrete_latent_raises_pending():
 
     transforms = initialize_model_structure(None, m)[2]
     assert list(transforms) == ["x"]
-    with pytest.raises(ReproError, match=PENDING):
-        infer_discrete(m, torch.Generator())
-    with pytest.raises(ReproError, match=PENDING):
-        enum(m, first_available_dim=-1, mode="sample")
+    pinned = substitute(m, data={"x": torch.tensor(0.3)})
+    draws = infer_discrete(pinned, torch.Generator().manual_seed(0),
+                           device="cpu")()
+    assert set(draws) == {"c"} and float(draws["c"]) in (0.0, 1.0)
+    handler = enum(config_enumerate(pinned), first_available_dim=-1,
+                   mode="sample", draws=GeneratorDraws(torch.Generator()))
+    with handler:
+        tr = trace(handler.fn).get_trace()
+    assert tr["c"]["infer"]["_enumerate_dim"] == -1
+    assert tuple(tr["c"]["value"].shape) == (2,)
 
 
 def test_port_imports_no_jax():
@@ -349,7 +358,8 @@ def test_port_imports_no_jax():
             "repro_torch.kernels.softmax_xent, repro_torch.optim, "
             "repro_torch.core.bayes, repro_torch.data, "
             "repro_torch.launch.steps, repro_torch.launch.train, "
-            "repro_torch.distributed, repro_torch.distributed.checkpoint; "
+            "repro_torch.distributed, repro_torch.distributed.checkpoint, "
+            "repro_torch.core.infer.svi, repro_torch.core.infer.autoguide; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             " assert not bad, bad")
