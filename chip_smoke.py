@@ -118,6 +118,20 @@ result line if any fails):
    the launcher on the reduced gemma-2b, 4 steps checkpointed every 2 and
    relaunched to 6 (``resumed from step 4``), its parameters and optimizer
    state bit-identical to an uninterrupted 6-step run.
+   Then ``obs``: the checkpoint phase's three configurations run once more
+   with ``telemetry=obs.Telemetry(...)``, each held against that phase's
+   uninterrupted run without it (every collected field and the final
+   state bit-identical, every launch count equal, host syncs at most one
+   more a chunk, and one more a chunk that diverged):
+   ``MCMC(NUTS(logreg_model_glm), 24, 36, num_chains=4)`` in chunks of 20
+   (ms a lockstep leapfrog with and without; ``events.jsonl`` and
+   ``run_manifest.json`` valid, the manifest's card the one ``nvidia-smi``
+   names and its power limit read), then gated (``until=Converged(
+   max_rhat=1.05, check_every=20, batch_size=5, max_samples=200)``), its
+   draws the ungated run's prefix bit for bit, its decision printed;
+   ``ChEES`` (8 chains, 60 + 80): the trajectory graphed with the same
+   replays, only the first chunk span ``program_cold`` (the graphs'
+   capture); ``MALA`` (16 chains, 24 + 36).
    Then ``svi``: ``SVI(model, AutoNormal(model), optim.adam(5e-2),
    Trace_ELBO()).run(0, steps, x, y)`` of benchmarks/svi_minibatch.py's
    logistic regression on the same 581,012 x 54 data on the card, full
@@ -176,7 +190,8 @@ result line if any fails):
    2-layer float32 mamba2 through the kernels against the plain versions:
    its prefill, 8 decode steps teacher-forced into a fresh cache, and the
    caches.
-7. Print one ``{"kernels": [...]}`` line, then the result line
+7. Print the phases' seconds, the wall seconds and the card, one
+   ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -5002,7 +5017,7 @@ def checkpoint_format_check(dev, root):
     return {"leaves": 9, "bytes": _dir_bytes(directory)}
 
 
-def checkpoint_nuts(data, root):
+def checkpoint_nuts(data, root, plain_runs):
     """Lockstep NUTS on the logreg: one run killed after the last save of
     ``CKPT_NUTS_KILLS``, its checkpoint directory copied after the others
     (what a kill there leaves on disk: after save 2 the warmup's end, after
@@ -5023,7 +5038,9 @@ def checkpoint_nuts(data, root):
     args, kwargs = (0, data["x"]), {"y": data["y"]}
     lines = {}
     t0 = time.perf_counter()
+    ops.reset_launch_counts()
     plain, _, plain_wall = run_recorded(make, args, kwargs)
+    plain_runs["lockstep NUTS"] = (plain, ops.launch_counts())
     odd, _, _ = run_recorded(make, args, kwargs,
                              checkpoint_every=CKPT_ODD_EVERY)
     check(same_run(odd, plain), f"checkpoint_every={CKPT_ODD_EVERY} changed "
@@ -5082,10 +5099,11 @@ def checkpoint_nuts(data, root):
     return out, lines
 
 
-def checkpoint_ensemble(data, root, name, spec, kernels):
+def checkpoint_ensemble(data, root, name, spec, kernels, plain_runs):
     """``name`` (ChEES or MALA) on the logreg, killed after save
     ``spec["kill"]`` and resumed: bit-identical to the uninterrupted card
-    run, ``kernels`` launched in the resumed part."""
+    run, ``kernels`` launched in the resumed part.  The uninterrupted run
+    and its launch counts go into ``plain_runs[name]``."""
     from repro_torch.bench.models import logreg_model_glm
     from repro_torch.core import infer
     from repro_torch.kernels import ops
@@ -5096,7 +5114,9 @@ def checkpoint_ensemble(data, root, name, spec, kernels):
                           spec["draws"], num_chains=spec["chains"])
 
     args, kwargs = (0, data["x"]), {"y": data["y"]}
+    ops.reset_launch_counts()
     plain, _, _ = run_recorded(make, args, kwargs)
+    plain_runs[name] = (plain, ops.launch_counts())
     ckdir = os.path.join(root, name)
     run_recorded(make, args, kwargs, kill_at=spec["kill"],
                  checkpoint_every=spec["every"], checkpoint_dir=ckdir)
@@ -5301,21 +5321,27 @@ def run_svi(dev, data):
 def run_checkpoint(dev, data):
     """The checkpoint phase: kill and resume on the card through the user's
     entry points, each check's seconds printed; the checkpoints live under
-    a temporary directory removed at the end."""
+    a temporary directory removed at the end.  Returns ``(results,
+    plain_runs)``: the uninterrupted lockstep NUTS, ChEES and MALA runs
+    with their launch counts, which the obs phase holds its runs with
+    telemetry against."""
     import shutil
     import tempfile
     root = tempfile.mkdtemp()
-    seconds, out = {}, {}
+    seconds, out, plain_runs = {}, {}, {}
     try:
         for name, fn in (
                 ("format", lambda: checkpoint_format_check(dev, root)),
-                ("lockstep NUTS", lambda: checkpoint_nuts(data, root)),
+                ("lockstep NUTS", lambda: checkpoint_nuts(data, root,
+                                                          plain_runs)),
                 ("ChEES", lambda: checkpoint_ensemble(
                     data, root, "ChEES", CKPT_CHEES,
-                    ("chees_open", "chees_accept", "glm_potential_grad"))),
+                    ("chees_open", "chees_accept", "glm_potential_grad"),
+                    plain_runs)),
                 ("MALA", lambda: checkpoint_ensemble(
                     data, root, "MALA", CKPT_MALA,
-                    ("mala_step", "mala_accept", "glm_potential_grad"))),
+                    ("mala_step", "mala_accept", "glm_potential_grad"),
+                    plain_runs)),
                 ("launcher", lambda: checkpoint_launcher(root))):
             t0 = time.perf_counter()
             result = fn()
@@ -5331,8 +5357,173 @@ def run_checkpoint(dev, data):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print("checkpoint part seconds:", json.dumps(seconds), flush=True)
+    return out, plain_runs
+
+
+
+# -- the obs phase -----------------------------------------------------------
+# the checkpoint phase's configurations (CKPT_*), each run once more with
+# telemetry and held against that phase's uninterrupted run without it
+OBS_GATE = {"max_rhat": 1.05, "check_every": 20, "batch_size": 5,
+            "max_samples": 200}
+
+
+def chunk_spans(tele):
+    return [s for s in tele.spans if s.name.endswith("_chunk")]
+
+
+def observed_run(make, data, tele, plain_run, what, **run_kwargs):
+    """``make(tele)`` run on the logreg from zeroed launch counters and
+    held against ``plain_run`` (the same configuration without telemetry,
+    and its launch counts): every collected field and the final state
+    bit-identical, every launch count equal.  Returns the run."""
+    from repro_torch.kernels import ops
+    off, c_off = plain_run
+    ops.reset_launch_counts()
+    on = make(tele).run(0, data["x"], y=data["y"], **run_kwargs)
+    c_on = ops.launch_counts()
+    check(same_run(on, off), f"telemetry changed bits of the {what} run")
+    check(c_on == c_off, f"telemetry changed the {what} run's launch "
+                         f"counts: {c_on} against {c_off}")
+    return on
+
+
+def obs_nuts(data, root, card, plain_run):
+    """Lockstep NUTS with telemetry, in chunks of 20, against the same run
+    without it; then gated: see the module docstring.  Returns what it
+    measured."""
+    from repro_torch import obs
+    from repro_torch.bench.models import logreg_model_glm
+    from repro_torch.core.infer import MCMC, NUTS
+    from repro_torch.obs.manifest import RunManifest
+    from repro_torch.obs.validate import validate_events, validate_manifest
+
+    def make(telemetry):
+        return MCMC(NUTS(logreg_model_glm), CKPT_WARMUP, CKPT_DRAWS,
+                    num_chains=CKPT_NUTS_CHAINS, telemetry=telemetry)
+
+    directory = os.path.join(root, "nuts")
+    tele = obs.Telemetry(dir=directory)
+    on = observed_run(make, data, tele, plain_run, "lockstep NUTS",
+                      checkpoint_every=CKPT_EVERY)
+    off, counts = plain_run
+    check(counts["nuts_leaf_batch"] > 0 and counts["glm_potential_grad"] > 0,
+          "the lockstep NUTS run launched no leaf or GLM kernel")
+    chunks = len(chunk_spans(tele))
+    divergent = len({(r["iteration"] - CKPT_WARMUP) // CKPT_EVERY
+                     for r in tele.forensics.records})
+    extra = on.stats["host_syncs"] - off.stats["host_syncs"]
+    check(extra <= chunks + divergent, f"telemetry added {extra} host syncs "
+          f"over {chunks} chunks ({divergent} divergent)")
+    for path, errors in (
+            ("events.jsonl", validate_events(
+                os.path.join(directory, "events.jsonl"))),
+            (obs.MANIFEST_NAME, validate_manifest(
+                os.path.join(directory, obs.MANIFEST_NAME)))):
+        check(not errors, f"{path} does not validate: {errors[:3]}")
+    env = RunManifest.peek(os.path.join(directory, obs.MANIFEST_NAME)).data[
+        "sessions"][-1]["environment"]
+    name = card.rpartition(",")[0].strip()
+    check(env["device_kind"] == name, f"the manifest names "
+          f"{env['device_kind']!r}, nvidia-smi {name!r}")
+    check(env["power_limit_w"] is not None, "the manifest has no power limit")
+
+    def ms(run):
+        return 1e3 * run.stats["chain_seconds"] \
+            / run.stats["lockstep_leapfrogs"]
+
+    out = {"chunks": chunks, "divergent_chunks": divergent,
+           "host_syncs_off": off.stats["host_syncs"],
+           "host_syncs_on": on.stats["host_syncs"], "extra_syncs": extra,
+           "ms_per_lockstep_leapfrog_off": ms(off),
+           "ms_per_lockstep_leapfrog_on": ms(on),
+           "lockstep_leapfrogs": on.stats["lockstep_leapfrogs"],
+           "launches": {k: counts[k] for k in ("nuts_leaf_batch",
+                                               "glm_potential_grad")},
+           "manifest_card": env["device_kind"],
+           "manifest_power_limit_w": env["power_limit_w"],
+           "program_cold": [s.attr("program_cold") for s in
+                            chunk_spans(tele)]}
+    gated = make(None).run(0, data["x"], y=data["y"],
+                           until=obs.Converged(**OBS_GATE))
+    drawn = gated._collected["z"].shape[1]
+    common = min(drawn, CKPT_DRAWS)
+    check(all(torch.equal(v[:, :common], off._collected[k][:, :common])
+              for k, v in gated._collected.items()),
+          "the gated run's draws are not the ungated run's prefix")
+    decision = gated.monitor.decision
+    out["gated"] = {"decision": decision["reason"],
+                    "stopped_at_draws": decision["stopped_at_draws"],
+                    "stopped_at_iteration": CKPT_WARMUP + drawn,
+                    "max_rhat": decision["max_rhat"],
+                    "compared_draws": common,
+                    "host_syncs": gated.stats["host_syncs"]}
     return out
 
+
+def obs_ensemble(data, name, spec, plain_run):
+    """``name`` (ChEES or MALA) on the logreg with telemetry against the
+    same run without it: bit-identical, equal launch counts; ChEES graphed
+    in both with equal replays, only its first chunk span
+    ``program_cold`` (its CUDA graphs are captured there)."""
+    from repro_torch import obs
+    from repro_torch.bench.models import logreg_model_glm
+    from repro_torch.core import infer
+    kernel = getattr(infer, name)
+
+    def make(telemetry):
+        return infer.MCMC(kernel(logreg_model_glm), spec["warmup"],
+                          spec["draws"], num_chains=spec["chains"],
+                          telemetry=telemetry)
+
+    tele = obs.Telemetry()
+    on = observed_run(make, data, tele, plain_run, name)
+    off = plain_run[0]
+    cold = [s.attr("program_cold") for s in chunk_spans(tele)]
+    out = {"program_cold": cold, "counters": dict(tele.counters),
+           "host_syncs_off": off.stats["host_syncs"],
+           "host_syncs_on": on.stats["host_syncs"]}
+    check(on.stats["host_syncs"] - off.stats["host_syncs"]
+          <= len(cold) + len({r["iteration"] >= spec["warmup"]
+                              for r in tele.forensics.records}),
+          f"telemetry added more than one host sync a chunk to {name}")
+    if name == "ChEES":
+        check(on.stats["trajectory_graph"] and off.stats["trajectory_graph"],
+              "ChEES's trajectory was not graphed")
+        check(on.stats["graph_replays"] == off.stats["graph_replays"],
+              "telemetry changed ChEES's graph replays")
+        check(cold == [True] + [False] * (len(cold) - 1),
+              f"program_cold should mark the first chunk span only: {cold}")
+        out["graph_replays"] = on.stats["graph_replays"]
+    return out
+
+
+def run_obs(dev, data, card, plain_runs):
+    """The obs phase (see the module docstring) against the checkpoint
+    phase's uninterrupted runs (``plain_runs``); each check's seconds
+    printed, the artifacts under a temporary directory removed at the
+    end."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp()
+    seconds, out = {}, {}
+    try:
+        for name, fn in (
+                ("lockstep NUTS", lambda: obs_nuts(
+                    data, root, card, plain_runs["lockstep NUTS"])),
+                ("ChEES", lambda: obs_ensemble(data, "ChEES", CKPT_CHEES,
+                                               plain_runs["ChEES"])),
+                ("MALA", lambda: obs_ensemble(data, "MALA", CKPT_MALA,
+                                              plain_runs["MALA"]))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            seconds[name] = time.perf_counter() - t0
+            print(f"obs: {name}: {seconds[name]:.2f} s",
+                  json.dumps(out[name]), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("obs part seconds:", json.dumps(seconds), flush=True)
+    return out
 
 
 def main():
@@ -5366,8 +5557,12 @@ def main():
     kernels, data = run_samplers(dev)
     phase_s["samplers"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    run_checkpoint(dev, data)
+    _, plain_runs = run_checkpoint(dev, data)
     phase_s["checkpoint"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_obs(dev, data, card, plain_runs)
+    del plain_runs
+    phase_s["obs"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     run_svi(dev, data)
     del data

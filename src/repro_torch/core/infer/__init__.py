@@ -13,7 +13,7 @@ from .hmc import (HMC, NUTS, AdaptState, HMCState, hmc_init, hmc_setup,
                   nuts_init, nuts_setup)
 from .hmc_util import GeneratorDraws, HostReads
 from .kernel_api import (KernelSetup, SamplerKernel, collect, init_state,
-                         sample)
+                         metrics, sample)
 from .mala import MALA, RWM, MRWState, mrw_setup
 from .mcmc import MCMC
 from .svi import SVI, SVIState, Trace_ELBO
@@ -34,7 +34,7 @@ from .util import (
 __all__ = [
     "HMC", "NUTS", "AdaptState", "HMCState", "MCMC", "KernelSetup",
     "SamplerKernel", "GeneratorDraws", "HostReads", "init_state", "sample",
-    "collect", "hmc_setup", "hmc_init", "nuts_setup", "nuts_init",
+    "collect", "metrics", "hmc_setup", "hmc_init", "nuts_setup", "nuts_init",
     "log_density", "potential_energy", "transform_fn",
     "get_model_transforms", "ravel", "initialize_model_structure",
     "find_valid_initial_params", "effective_sample_size", "gelman_rubin",

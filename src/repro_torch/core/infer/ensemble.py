@@ -302,6 +302,25 @@ def _collect_fn(state: ChEESState):
     }
 
 
+def _metrics_fn(state: ChEESState):
+    """The metrics stream under the cross-chain contract: what the ensemble
+    adapts stays one value a draw (the shared step size, trajectory length
+    and leapfrog count, host scalars, and the pooled inverse mass's sum),
+    per-chain diagnostics are (C,).  It reads the state only: the per-chain
+    tensors are ``chees_accept``'s fresh outputs, never the trajectory's
+    graph buffers."""
+    adapt = state.adapt_state
+    return {
+        "step_size": adapt.step_size,
+        "trajectory_length": np.exp(adapt.log_traj),
+        "num_steps": state.num_steps,
+        "mass_trace": adapt.inverse_mass_matrix.sum(),
+        "accept_prob": state.accept_prob,
+        "diverging": state.diverging,
+        "energy": state.energy,
+    }
+
+
 def chees_setup(generator, num_warmup, *, model=None, potential_fn=None,
                 init_params=None, model_args=(), model_kwargs=None,
                 step_size=1.0, adapt_step_size=True, adapt_mass_matrix=True,
@@ -341,7 +360,8 @@ def chees_setup(generator, num_warmup, *, model=None, potential_fn=None,
         potential_fn=potential_flat, unravel_fn=unravel,
         constrain_fn=constrain, num_warmup=int(num_warmup), algo="ChEES",
         adapt_schedule=tuple((int(s), int(e)) for (s, e) in schedule),
-        host_reads=reads, grad_evals=counted, cross_chain=True)
+        host_reads=reads, grad_evals=counted, cross_chain=True,
+        metrics_fn=_metrics_fn)
 
 
 def chees_init(generator, num_warmup, chain_draws, draws, **kwargs):

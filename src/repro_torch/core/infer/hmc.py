@@ -484,6 +484,26 @@ def _collect_fn(state: HMCState):
     }
 
 
+def _metrics_fn(state: HMCState):
+    """The metrics stream (``KernelSetup.metrics_fn``): scalars for one
+    chain's state and (C,) leaves for the lockstep batched state, in a few
+    tensor ops (no loop over the chains); the host scalars are the state's
+    own.  ``num_steps`` is the trajectory's leapfrog count (the tree-depth
+    signal for NUTS); ``mass_trace`` is the trace of a dense inverse mass or
+    the sum of a diagonal one.  It reads the state only."""
+    imm = state.adapt_state.inverse_mass_matrix
+    mass_trace = imm.diagonal(dim1=-2, dim2=-1).sum(-1) \
+        if imm.ndim > state.z.ndim else imm.sum(-1)
+    return {
+        "step_size": state.adapt_state.step_size,
+        "accept_prob": state.accept_prob,
+        "diverging": state.diverging,
+        "num_steps": state.num_steps,
+        "energy": state.energy,
+        "mass_trace": mass_trace,
+    }
+
+
 def flat_model_ingredients(generator, device, *, model=None,
                            potential_fn=None, init_params=None,
                            model_args=(), model_kwargs=None,
@@ -606,7 +626,8 @@ def hmc_setup(generator, num_warmup, *, model=None, potential_fn=None,
         constrain_fn=constrain, num_warmup=int(num_warmup), algo=algo,
         adapt_schedule=tuple((int(s), int(e)) for (s, e) in schedule),
         host_reads=reads, grad_evals=counted, cross_chain=cross_chain_adapt,
-        init_batch_fn=init_batch, sample_batch_fn=sample_batch)
+        init_batch_fn=init_batch, sample_batch_fn=sample_batch,
+        metrics_fn=_metrics_fn)
 
 
 def nuts_setup(generator, num_warmup, **kwargs) -> KernelSetup:

@@ -65,6 +65,17 @@ class HostReads:
         self.count += 1
         return tensor.tolist()
 
+    def fetch(self, tensor) -> np.ndarray:
+        """``tensor`` copied to a host numpy array: one read."""
+        self.count += 1
+        return tensor.detach().cpu().numpy()
+
+    def sync(self, device) -> None:
+        """Wait for the card's work (a no-op on the CPU): one sync."""
+        self.count += 1
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+
 
 class GeneratorDraws:
     """The sampler's random draws, all from one CPU ``torch.Generator`` (so

@@ -22,6 +22,9 @@ chain_draws)``: the batched state's leaves lead with the chain axis, each
 chain draws from its own source what it would draw alone, and
 ``sample_batch_fn.lockstep.leapfrogs`` counts the lockstep leapfrogs.
 
+``metrics_fn`` (optional) is the metrics stream ``repro_torch.obs`` drains
+once per chunk.
+
 :class:`SamplerKernel` is the protocol the executor drives: ``setup`` and
 ``init``.
 """
@@ -56,6 +59,15 @@ class KernelSetup(NamedTuple):
     # (batched state, chain_draws) -> batched state
     init_batch_fn: Optional[Callable] = None
     sample_batch_fn: Optional[Callable] = None
+    # the metrics stream: state -> dict of leaves, read from the state only
+    # (it must not draw, write a leaf in place, or return a view of a
+    # buffer the next transition writes).  Per-chain kernels return scalars
+    # for one chain's state and (C,) leaves for the lockstep batched state;
+    # cross-chain kernels scalars (pooled) or (C,) vectors.  The executor
+    # evaluates it after each transition when telemetry asks for metrics
+    # and drains a chunk's series in one read (repro_torch.obs); RPL401 and
+    # RPL402 guard the contract.  None opts out.
+    metrics_fn: Optional[Callable] = None
 
 
 def init_state(setup: KernelSetup, *draws):
@@ -72,6 +84,15 @@ def sample(setup: KernelSetup, state, draws):
 def collect(setup: KernelSetup, state):
     """Per-draw outputs (position + diagnostics) recorded by the executor."""
     return setup.collect_fn(state)
+
+
+def metrics(setup: KernelSetup, state):
+    """One metrics-stream sample (None when the kernel declares no
+    ``metrics_fn``): what the executor records after a transition when
+    telemetry asks for metrics."""
+    if setup.metrics_fn is None:
+        return None
+    return setup.metrics_fn(state)
 
 
 @runtime_checkable

@@ -184,6 +184,20 @@ def _collect_fn(state: MRWState):
     }
 
 
+def _metrics_fn(state: MRWState):
+    """The metrics stream under the cross-chain contract: the pooled step
+    size (a host scalar) and the preconditioner's sum stay one value a
+    draw, per-chain diagnostics are (C,).  It reads the state only."""
+    adapt = state.adapt_state
+    return {
+        "step_size": adapt.step_size,
+        "mass_trace": adapt.inverse_mass_matrix.sum(),
+        "accept_prob": state.accept_prob,
+        "diverging": state.diverging,
+        "potential_energy": state.potential_energy,
+    }
+
+
 def mrw_setup(generator, num_warmup, algo, *, model=None, potential_fn=None,
               init_params=None, model_args=(), model_kwargs=None,
               step_size=0.1, adapt_step_size=True, adapt_mass_matrix=True,
@@ -216,7 +230,8 @@ def mrw_setup(generator, num_warmup, algo, *, model=None, potential_fn=None,
         potential_fn=potential_flat, unravel_fn=unravel,
         constrain_fn=constrain, num_warmup=int(num_warmup), algo=algo,
         adapt_schedule=tuple((int(s), int(e)) for (s, e) in schedule),
-        host_reads=reads, grad_evals=counted, cross_chain=True)
+        host_reads=reads, grad_evals=counted, cross_chain=True,
+        metrics_fn=_metrics_fn)
 
 
 class _MRWKernel:

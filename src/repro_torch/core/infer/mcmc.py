@@ -40,11 +40,29 @@ kernel's own init on throwaway draw sources (its evaluations and reads are
 not counted in ``stats``).  One chain (under either chain method), a
 lockstep batch and an ensemble checkpoint; ``"sequential"`` with more
 than one chain raises.  ``chain_method="parallel"`` (chains over several
-cards), meshes, telemetry and convergence monitoring wait for later
-slices.
+cards) and meshes wait for the multi-GPU slice.
+
+Observability, as in the JAX package's executor (:mod:`repro_torch.obs`):
+``MCMC(..., progress=True)`` prints one line a chunk,
+``MCMC(..., telemetry=obs.Telemetry(...))`` evaluates the kernel's
+``metrics_fn`` after every transition, times the phases (spans ``setup``,
+``init`` or ``resume_restore``, ``warmup_chunk``/``sample_chunk``,
+``checkpoint_write``), writes events, a run manifest and the divergence
+forensics, and ``run(..., until=obs.Converged(...))`` stops between chunks
+once the streaming split R-hat/ESS thresholds hold (the chunk is then
+``checkpoint_every``, else ``until.check_every``; the draw budget
+``until.max_samples``).  None of it changes a bit of the draws: metrics
+and the gate only read what the chunk produced.  Each chunk drains
+everything they need from the device (the metric series, the divergence
+mask, the gate's draws) in **one** read through ``setup.host_reads``, which
+the chunk span's close rides, so ``stats["host_syncs"]`` shows the cost:
+at most one more a chunk (one more for a chunk that diverged, with
+forensics on).  With ``telemetry=None``, ``progress=False`` and
+``until=None`` the executor runs exactly the loop it runs without them.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -56,6 +74,8 @@ import numpy as np
 import torch
 
 from ...distributed import checkpoint as ckpt
+from ...kernels import _build
+from ...obs.metrics import host_tree, stack_rows
 from ..errors import pending
 from .diagnostics import print_summary
 from .hmc import resolve_device
@@ -119,13 +139,15 @@ def _chunk_skeleton(directory):
 class _Program(NamedTuple):
     """One state's run: its draw sources (saved beside it), ``init(draws
     =None)`` (the program's own sources by default), ``step``, the
-    leapfrogs a state counts and the chunk's rows as a dict of draws with
-    the chain axis first."""
+    leapfrogs a state counts, the chunk's rows as a dict of draws with
+    the chain axis first, and its metric rows as a dict of series (chains,
+    draws), pooled ones (draws,)."""
     draws: list
     init: Callable
     step: Callable
     leapfrogs: Callable
     rows: Callable
+    metrics: Callable = stack_rows
 
 
 def _chain_programs(setup, draws):
@@ -136,7 +158,8 @@ def _chain_programs(setup, draws):
             lambda state: setup.sample_fn(state, d),
             lambda state: state.num_steps,
             lambda rows: {k: v.unsqueeze(0)
-                          for k, v in _rows_to_dict(rows).items()})
+                          for k, v in _rows_to_dict(rows).items()},
+            lambda rows: {k: v[None] for k, v in stack_rows(rows).items()})
 
     return [program(d) for d in draws]
 
@@ -149,6 +172,22 @@ def _lockstep_program(setup, draws):
         lambda state: setup.sample_batch_fn(state, draws),
         lambda state: int(np.sum(state.num_steps)),
         lambda rows: _rows_to_dict(rows, dim=1))]
+
+
+def _one_time_work(setup):
+    """``(kernel libraries loaded, CUDA graphs captured)`` so far: the
+    one-time device work that makes a chunk span ``program_cold``."""
+    stats = getattr(setup.sample_fn, "trajectory_stats", None)
+    captures = sum(stats()["graph_eager_bodies"].values()) if stats else 0
+    return _build.loads(), captures
+
+
+def _moments(z):
+    """Per-dim mean and M2 over the chains and draws of a (C, k, D) chunk
+    of draws, in float64 where they lie."""
+    flat = z.reshape(-1, z.shape[-1]).to(torch.float64)
+    mean = flat.mean(0)
+    return mean, ((flat - mean) ** 2).sum(0)
 
 
 def _ensemble_program(setup, draws):
@@ -170,6 +209,8 @@ class MCMC:
 
     ``device`` defaults to the kernel's device (``"cuda"`` unless the kernel
     was built with ``device="cpu"``); model arguments are moved there.
+    ``progress`` and ``telemetry`` (an :class:`repro_torch.obs.Telemetry`)
+    observe the run (see the module docstring).
     After ``run``, ``stats`` holds the run's counts: ``num_leapfrog`` (every
     trajectory leapfrog, warmup included, summed over the chains of a
     per-chain kernel; for ChEES the ensemble leapfrogs, each moving all
@@ -177,7 +218,8 @@ class MCMC:
     ``lockstep_efficiency`` for a lockstep run of HMC/NUTS (the leaves of
     the batch, each moving every chain still growing its tree, and
     ``num_leapfrog / (C * lockstep_leapfrogs)``; None otherwise), ``num_iterations`` (``sample_fn`` calls), ``host_syncs`` (the
-    sampler's device->host reads), ``num_grad_evals`` (per-chain potential
+    sampler's device->host reads, and the executor's drains when the run
+    is observed), ``num_grad_evals`` (per-chain potential
     value-and-gradient evaluations: the leapfrogs' plus the initial-point
     and step-size searches'), ``init_grad_evals`` (those of the searches
     alone), ``setup_seconds`` (moving the arguments, tracing the model,
@@ -194,14 +236,16 @@ class MCMC:
     and the eager runs before its capture) and ``graph_capture_seconds``.
     ``resumed_at`` is the iteration a resumed run continued from (else
     None); a resumed run counts only its own transitions.  A checkpointed
-    run keeps the sampling draws' divergent transitions in
+    or observed run keeps the sampling draws' divergent transitions in
     ``_divergences`` (saved in the state's ``extra`` and continued across a
-    resume, as the JAX package's executor does).
+    resume, as the JAX package's executor does); a gated run's
+    :class:`~repro_torch.obs.ConvergenceMonitor` is ``monitor``.
     """
 
     def __init__(self, kernel, num_warmup: int, num_samples: int,
                  num_chains: int = 1, thinning: int = 1,
-                 chain_method: str = "vectorized", device=None):
+                 chain_method: str = "vectorized", progress: bool = False,
+                 device=None, telemetry=None):
         self.kernel = kernel
         self.num_warmup = int(num_warmup)
         self.num_samples = int(num_samples)
@@ -219,6 +263,12 @@ class MCMC:
             raise ValueError(f"MCMC device {device} differs from the "
                              f"kernel's {kernel_device}")
         self.device = device
+        self.progress = bool(progress)
+        self.telemetry = telemetry
+        self.monitor = None      # the gated run's ConvergenceMonitor
+        self._until = None
+        self._reporter = None    # the chunk reporter, made at first use
+        self._divergences = 0
         self.stats = {}
         self._setup = None
         self._samples = None
@@ -228,12 +278,14 @@ class MCMC:
     def run(self, seed: int, *model_args, init_params=None,
             checkpoint_every: Optional[int] = None,
             checkpoint_dir: Optional[str] = None, resume: bool = False,
-            **model_kwargs):
+            until=None, **model_kwargs):
         """Run ``num_warmup + num_samples`` transitions of every chain from
         ``seed``.  ``checkpoint_every`` cuts the iterations into chunks of
         that many (warmup and sampling apart), ``checkpoint_dir`` saves the
         state and each chunk of draws after every chunk, and ``resume=True``
-        continues from the checkpoint there (see the module docstring)."""
+        continues from the checkpoint there; ``until=obs.Converged(...)``
+        stops between chunks once its thresholds hold (see the module
+        docstring)."""
         if resume and checkpoint_dir is None:
             raise ValueError("resume=True requires checkpoint_dir")
         if checkpoint_every is not None and int(checkpoint_every) < 0:
@@ -244,19 +296,57 @@ class MCMC:
             raise ValueError(
                 "checkpointing requires a batched chain_method "
                 "('vectorized' or 'parallel')")
+        self._gate(until)
+        tele = self.telemetry
+        if tele is not None and self.chain_method == "sequential":
+            raise ValueError(
+                "telemetry requires a batched chain_method ('vectorized' "
+                "or 'parallel'): sequential runs re-enter the executor per "
+                "chain, so there is no single chunk stream to instrument")
+        if tele is not None:
+            # open the sink and the manifest before any span can fire; the
+            # setup-derived fields land via commit_run_config below
+            tele.begin_run(
+                {"algo": type(self.kernel).__name__,
+                 "kernel_setup_hash": "",
+                 "num_warmup": self.num_warmup,
+                 "num_samples": self.num_samples,
+                 "num_chains": self.num_chains,
+                 "chain_method": self.chain_method,
+                 "mesh_shape": None,
+                 "thinning": self.thinning,
+                 "until": (None if until is None else
+                           {"max_rhat": until.max_rhat,
+                            "min_ess": until.min_ess,
+                            "max_samples": until.max_samples,
+                            "check_every": until.check_every,
+                            "batch_size": until.batch_size})},
+                default_dir=checkpoint_dir, resume=resume)
         t0 = time.perf_counter()
-        model_args = _to_device(model_args, self.device)
-        model_kwargs = _to_device(model_kwargs, self.device)
-        setup = self.kernel.setup(torch.Generator().manual_seed(int(seed)),
-                                  self.num_warmup, init_params=init_params,
-                                  model_args=model_args,
-                                  model_kwargs=model_kwargs)
+        with self._span("setup"):
+            model_args = _to_device(model_args, self.device)
+            model_kwargs = _to_device(model_kwargs, self.device)
+            setup = self.kernel.setup(
+                torch.Generator().manual_seed(int(seed)), self.num_warmup,
+                init_params=init_params, model_args=model_args,
+                model_kwargs=model_kwargs)
         self._setup = setup
+        if tele is not None:
+            tele.commit_run_config(
+                algo=setup.algo,
+                kernel_setup_hash=f"{hash(setup) & ((1 << 64) - 1):016x}")
         if setup.cross_chain and self.chain_method == "sequential":
             raise ValueError(
                 f"kernel {setup.algo!r} adapts across the chain batch; "
                 "chain_method='sequential' would run each chain alone: use "
                 "'vectorized'")
+        if self.progress:
+            if tele is not None:
+                self._reporter = tele.reporter
+            elif self._reporter is None:
+                from ...obs.report import LiveReporter
+                self._reporter = LiveReporter()
+            self._reporter.start(self.num_warmup + self.num_samples)
         t_chains = time.perf_counter()
         lockstep = setup.sample_batch_fn is not None and (
             setup.cross_chain or (self.chain_method == "vectorized"
@@ -265,25 +355,42 @@ class MCMC:
             _ensemble_program if setup.cross_chain else _chain_programs
         self._divergences = 0
         self._num_leapfrog = self._iterations = 0
-        chunk = int(checkpoint_every or 0) or \
-            self.num_warmup + self.num_samples
+        if checkpoint_every:
+            chunk = int(checkpoint_every)
+        elif self.monitor is not None:
+            chunk = int(self.monitor.until.check_every)
+        else:
+            chunk = self.num_warmup + self._target_samples()
         reads0, evals0, leaves0 = self._counts(setup, lockstep)
         init_evals, parts, states, resumed_at = 0, [], [], None
         for prog in programs(setup, self._draw_sources(seed, setup,
                                                        lockstep)):
             restored = None
             if resume:
-                restored = self._restore_checkpoint(
-                    checkpoint_dir, prog,
-                    self._draw_sources(seed, setup, lockstep))
+                with self._span("resume_restore"):
+                    restored = self._restore_checkpoint(
+                        checkpoint_dir, prog,
+                        self._draw_sources(seed, setup, lockstep))
                 reads0, evals0, leaves0 = self._counts(setup, lockstep)
             if restored is not None:
-                state, done, chain_parts, self._divergences = restored
+                state, done, chain_parts, self._divergences, extra = restored
                 resumed_at = done
+                self._resume_monitor(extra, chain_parts)
+                if tele is not None:
+                    tele.set_resumed_at(done)
+                    tele.record_divergences(self._divergences)
+                    for part in chain_parts if tele.forensics else ():
+                        tele.forensics.fold_moments(
+                            part["z"].shape[0] * part["z"].shape[1],
+                            *_moments(part["z"]))
             else:
-                evals = setup.grad_evals.count
-                state, done, chain_parts = prog.init(), 0, []
-                init_evals += setup.grad_evals.count - evals
+                with self._span("init"):
+                    evals = setup.grad_evals.count
+                    state, done, chain_parts = prog.init(), 0, []
+                    init_evals += setup.grad_evals.count - evals
+            if tele is not None and tele.metrics \
+                    and setup.metrics_fn is not None:
+                self._check_metrics_contract(setup, state, lockstep)
             state = self._advance(setup, prog, state, done, chunk,
                                   checkpoint_dir, chain_parts)
             states.append(state)
@@ -295,6 +402,12 @@ class MCMC:
         self._collected = _join(parts, self.device, 0)
         z = self._collected.get("z")
         self._samples = setup.constrain_fn(z) if z is not None else {}
+        drawn = int(z.shape[1]) if z is not None else 0
+        if self.monitor is not None and self.monitor.decision is None:
+            # the gate never fired: the draw budget ran out unconverged
+            self.monitor.exhausted(drawn)
+        if tele is not None:
+            self._finish_telemetry(setup, drawn)
         num_leapfrog = self._num_leapfrog
         self.stats = {"num_leapfrog": int(num_leapfrog),
                       "num_iterations": self._iterations,
@@ -335,6 +448,127 @@ class MCMC:
         return [GeneratorDraws(torch.Generator().manual_seed(int(s)))
                 for s in seeds]
 
+    # -- observability --------------------------------------------------------
+
+    def _gate(self, until):
+        """Set up the convergence gate of ``run(..., until=...)``: a
+        :class:`~repro_torch.obs.Converged` (else TypeError), a batched
+        chain method (else ValueError) and a geometry that can fire (else
+        RPL403), all before the first transition."""
+        self._until = until
+        self.monitor = None
+        if until is None:
+            return
+        from ...lint_rules.obs_rules import verify_until
+        from ...obs.monitor import Converged, ConvergenceMonitor
+        if not isinstance(until, Converged):
+            raise TypeError(f"until must be an obs.Converged spec, got "
+                            f"{type(until).__name__}")
+        if self.chain_method == "sequential":
+            raise ValueError(
+                "convergence gating requires a batched chain_method "
+                "('vectorized' or 'parallel'): sequential runs finish "
+                "one chain before the next starts, so cross-chain "
+                "R-hat cannot be streamed mid-run")
+        verify_until(until, num_samples=self.num_samples,
+                     num_chains=self.num_chains).raise_if_errors()
+        self.monitor = ConvergenceMonitor(until)
+
+    def _target_samples(self) -> int:
+        """Post-warmup draw budget: ``until.max_samples`` when a gated run
+        sets one (it may exceed ``num_samples``), else ``num_samples``."""
+        if self._until is not None and self._until.max_samples is not None:
+            return int(self._until.max_samples)
+        return self.num_samples
+
+    def _span(self, name, **attrs):
+        """Telemetry phase span, or an inert context when telemetry is off
+        (yields a mutable attr dict either way)."""
+        if self.telemetry is None:
+            return contextlib.nullcontext(dict(attrs))
+        return self.telemetry.span(name, **attrs)
+
+    def _check_metrics_contract(self, setup, state, lockstep):
+        """RPL401 and RPL402 on the run's own initial state, before the
+        first transition: the runtime twin of
+        :func:`repro_torch.lint_rules.obs_rules.verify_metrics_fn`.  A
+        clean metrics_fn costs no read."""
+        from ...lint_rules.obs_rules import check_metrics_state
+        from ..lint import LintResult
+        LintResult(check_metrics_state(
+            setup, state, self.num_chains,
+            batched=lockstep and not setup.cross_chain)).raise_if_errors()
+
+    def _resume_monitor(self, extra, parts):
+        """Re-hydrate a gated run's accumulators from the checkpoint
+        ``extra``, or, for a checkpoint of an ungated run, fold its
+        restored draws (host tensors): both land on the same state, since
+        folds depend on the draw stream only."""
+        if self.monitor is None:
+            return
+        saved = extra.get("monitor")
+        if saved is not None:
+            self.monitor.load_state_dict(saved)
+        elif parts:
+            self.monitor.fold(np.concatenate([p["z"].numpy() for p in parts],
+                                             axis=1))
+
+    def _drain(self, setup, prog, metric_rows, out, count_div):
+        """Everything the chunk's observers need from the device, in one
+        read through ``setup.host_reads``: the metric series, the
+        divergence mask, the gate's draws, with forensics on the draws'
+        per-dim moments (the baseline), and, for a progress line without
+        metrics, the step size and accept prob.  With telemetry on, a
+        chunk that had nothing on the device to read still ends in one
+        counted synchronize, so its span closes on finished device work.
+        Returns ``(host metrics or None, host fields of out)``."""
+        tele = self.telemetry
+        forens = tele.forensics if tele is not None else None
+        tree, fields = {}, []
+        if metric_rows:
+            tree.update({("m", k): v
+                         for k, v in prog.metrics(metric_rows).items()})
+        if out is not None:
+            if forens is not None:
+                tree[("b", "mean")], tree[("b", "m2")] = _moments(out["z"])
+            if count_div and "diverging" in out:
+                fields.append("diverging")
+            if self.monitor is not None:
+                fields.append("z")
+            if self.progress and not metric_rows:
+                fields += [k for k in ("step_size", "accept_prob")
+                           if k in out]
+        tree.update({("o", k): out[k] for k in fields})
+        reads = setup.host_reads
+        before = reads.count
+        host = host_tree(tree, reads, self.device)
+        if tele is not None and reads.count == before:
+            reads.sync(self.device)
+        if ("b", "mean") in host:
+            forens.fold_moments(out["z"].shape[0] * out["z"].shape[1],
+                                host[("b", "mean")], host[("b", "m2")])
+        metrics = {k: v for (kind, k), v in host.items() if kind == "m"} \
+            if metric_rows else None
+        return metrics, {k: v for (kind, k), v in host.items()
+                         if kind == "o"}
+
+    def _finish_telemetry(self, setup, drawn):
+        """The run's final block: the divergence total, the forensics
+        baseline (from the chunks' moments), the gate's decision and the
+        metrics summary."""
+        tele = self.telemetry
+        tele.record_divergences(self._divergences)
+        forens = tele.forensics
+        if forens is not None and forens.total > 0:
+            forens.set_baseline_from_moments()
+        final = {"done": self.num_warmup + drawn,
+                 "divergences": int(self._divergences)}
+        if self.monitor is not None:
+            final["convergence"] = self.monitor.decision
+        if tele.metrics and setup.metrics_fn is not None:
+            final["metrics"] = tele.buffer.summary("sample")
+        tele.finish_run(final)
+
     # -- the chunked executor -------------------------------------------------
 
     def _advance(self, setup, prog, state, done, chunk, checkpoint_dir,
@@ -344,30 +578,103 @@ class MCMC:
         appending each sampling chunk's draws to ``parts`` and, with a
         ``checkpoint_dir``, saving after every chunk.  Chunk boundaries
         depend only on (num_warmup, num_samples, chunk, done), so a resumed
-        run issues the uninterrupted run's transitions."""
-        total = self.num_warmup + self.num_samples
+        run issues the uninterrupted run's transitions.
+
+        An observed run (telemetry, progress or a gate) drains each chunk
+        once (:meth:`_drain`) and acts on the host copies: the metric
+        series, the divergence counter and forensics, the gate's check and
+        the progress line; nothing of it reaches the state."""
+        tele = self.telemetry
+        observed = tele is not None or self.progress \
+            or self.monitor is not None
+        want_metrics = tele is not None and tele.metrics \
+            and setup.metrics_fn is not None
+        count_div = self.progress or tele is not None \
+            or checkpoint_dir is not None
+        forens = tele.forensics if tele is not None else None
+        total = self.num_warmup + self._target_samples()
         while done < total:
+            # a resumed gated run whose decision was already "converged"
+            # (killed after the decisive chunk's state write) draws no more
+            if self.monitor is not None and self.monitor.decision \
+                    and self.monitor.decision.get("reason") == "converged":
+                break
             if done < self.num_warmup:
-                n = min(chunk, self.num_warmup - done)
+                phase, n = "warmup", min(chunk, self.num_warmup - done)
             else:
-                n = min(chunk, total - done)
-            rows = []
-            for it in range(done, done + n):
-                state = prog.step(state)
-                self._num_leapfrog += prog.leapfrogs(state)
-                if it >= self.num_warmup:
-                    rows.append(setup.collect_fn(state))
-            self._iterations += n
-            out = prog.rows(rows) if rows else None
-            if out is not None:
-                parts.append(out)
+                phase, n = "sample", min(chunk, total - done)
+            rows, metric_rows = [], []
+            work0 = _one_time_work(setup) if tele is not None else None
+            with self._span(f"{phase}_chunk", phase=phase, start=done,
+                            end=done + n) as attrs:
+                for it in range(done, done + n):
+                    state = prog.step(state)
+                    self._num_leapfrog += prog.leapfrogs(state)
+                    if want_metrics:
+                        metric_rows.append(setup.metrics_fn(state))
+                    if it >= self.num_warmup:
+                        rows.append(setup.collect_fn(state))
+                self._iterations += n
+                out = prog.rows(rows) if rows else None
+                if out is not None:
+                    parts.append(out)
+                if observed:
+                    metrics, fields = self._drain(setup, prog, metric_rows,
+                                                  out, count_div)
+                if tele is not None:
+                    builds, captures = (b - a for a, b in zip(
+                        work0, _one_time_work(setup)))
+                    tele.counter("kernel_builds", builds)
+                    tele.counter("graph_captures", captures)
+                    attrs["program_cold"] = bool(builds or captures)
             start, done = done, done + n
+            stop = False
+            if observed:
+                stop = self._chunk_boundary(setup, phase, start, done, total,
+                                            out, metrics, fields, forens)
             if checkpoint_dir is not None:
-                if out is not None and "diverging" in out:
+                if not observed and out is not None and "diverging" in out:
                     self._divergences += int(out["diverging"].sum())
-                self._save_checkpoint(checkpoint_dir, state, prog.draws,
-                                      done, chunk=out, start=start)
+                with self._span("checkpoint_write", step=done):
+                    self._save_checkpoint(checkpoint_dir, state, prog.draws,
+                                          done, chunk=out, start=start)
+            if stop:
+                break
         return state
+
+    def _chunk_boundary(self, setup, phase, start, done, total, out,
+                        metrics, fields, forens):
+        """An observed chunk's host side: buffer its metrics and emit its
+        event, count its divergences (forensics gathers the divergent rows:
+        one more read), fold its draws into the gate and check it, print
+        the progress line.  Returns whether the gate stops the run."""
+        tele = self.telemetry
+        host_met = tele.drain_chunk(phase, start, done, metrics) \
+            if tele is not None else None
+        delta_div = 0
+        if "diverging" in fields:
+            mask = fields["diverging"]
+            delta_div = int(np.sum(mask))
+            if forens is not None and delta_div:
+                forens.fold(start, out, mask, phase=phase,
+                            reads=setup.host_reads)
+            self._divergences += delta_div
+            if tele is not None:
+                tele.record_divergences(self._divergences)
+        stop = False
+        if self.monitor is not None and out is not None:
+            self.monitor.fold(fields["z"])
+            stop = self.monitor.check(done - self.num_warmup)
+        if self.progress:
+            self._reporter.chunk(
+                done=done, total=total, phase=phase,
+                num_chains=self.num_chains, divergences=self._divergences,
+                delta_div=delta_div,
+                metrics=host_met if host_met is not None else fields,
+                convergence=(self.monitor.history[-1]
+                             if self.monitor is not None
+                             and self.monitor.history else None))
+        return stop
 
     # -- checkpoint/resume ----------------------------------------------------
     # Layout under checkpoint_dir (the JAX package's):
@@ -403,13 +710,17 @@ class MCMC:
                  "num_devices": (torch.cuda.device_count()
                                  if torch.cuda.is_available() else 1),
                  "divergences": int(self._divergences)}
+        if self.monitor is not None:
+            # a gated run's accumulators and decision: a resumed run
+            # re-hydrates them and stops at the same iteration
+            extra["monitor"] = self.monitor.state_dict()
         ckpt.save(_state_tree(state, draws),
                   os.path.join(directory, "state"), step=done, extra=extra)
 
     def _restore_checkpoint(self, directory, prog, skeleton_draws):
-        """``(state, done, parts, divergences)`` from ``directory``, the
-        program's draw sources set to their saved states; None when there
-        is no checkpoint yet."""
+        """``(state, done, parts, divergences, extra)`` from ``directory``,
+        the program's draw sources set to their saved states; None when
+        there is no checkpoint yet."""
         state_dir = os.path.join(directory, "state")
         done = ckpt.latest_step(state_dir)
         if done is None:
@@ -451,7 +762,7 @@ class MCMC:
                 f"checkpoint at {directory} is missing sample chunks "
                 f"covering iterations {expected_start}..{done}")
         divergences = int(extra.get("divergences", 0))
-        return tree["chain_state"], done, parts, divergences
+        return tree["chain_state"], done, parts, divergences, extra
 
     def get_samples(self, group_by_chain: bool = False):
         """Constrained-space draws by site: ``(chains, samples, ...)`` when

@@ -30,6 +30,12 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
+def loads() -> int:
+    """Libraries loaded (built first where needed) in this process: each
+    is one-time work at a kernel's first launch."""
+    return len(_LOADED)
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

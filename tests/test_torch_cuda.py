@@ -653,6 +653,67 @@ def test_lockstep_nuts_resumes_bit_identical_on_card(tmp_path):
 
 
 @pytest.mark.cuda
+def test_telemetry_on_card_adds_one_sync_a_chunk_and_moves_no_bit(tmp_path):
+    """A 4-chain lockstep logreg NUTS run on the card in chunks of 20 with
+    telemetry on against off: the draws, extra fields and final state
+    bit-identical, every launch counter equal, and the host syncs at most
+    one more a chunk (one more for a chunk that diverged)."""
+    from chip_smoke import same_run
+    from repro_torch import obs
+    from repro_torch.bench.models import covtype_data, logreg_model_glm
+    from repro_torch.core.infer import MCMC, NUTS
+    _need_card()
+    data = covtype_data(seed=0, n=4000, d=6)
+    runs = []
+    for tele in (None, obs.Telemetry(dir=str(tmp_path))):
+        ops.reset_launch_counts()
+        mcmc = MCMC(NUTS(logreg_model_glm), 24, 36, num_chains=4,
+                    telemetry=tele)
+        mcmc.run(0, data["x"], y=data["y"], checkpoint_every=20)
+        runs.append((mcmc, ops.launch_counts(), tele))
+    (off, c_off, _), (on, c_on, tele) = runs
+    assert same_run(on, off)
+    assert c_on == c_off and c_on["nuts_leaf_batch"] > 0
+    chunks = len([s for s in tele.spans if s.name.endswith("_chunk")])
+    divergent = len({(r["iteration"] - 24) // 20
+                     for r in tele.forensics.records})
+    assert chunks == 4
+    assert on.stats["host_syncs"] - off.stats["host_syncs"] \
+        <= chunks + divergent
+
+
+@pytest.mark.cuda
+def test_chees_telemetry_profiles_its_graph_capture_on_card(tmp_path):
+    """ChEES with telemetry and ``profile_dir``: its CUDA graphs are
+    captured inside the first chunk span, under ``torch.profiler``; the run
+    is bit-identical to one without, graphed in both with equal replays,
+    one trace a chunk span, only the first ``program_cold``."""
+    from chip_smoke import same_run
+    from repro_torch import obs
+    from repro_torch.bench.models import covtype_data, logreg_model_glm
+    from repro_torch.core.infer import MCMC, ChEES
+    _need_card()
+    data = covtype_data(seed=0, n=4000, d=6)
+    prof = tmp_path / "prof"
+    runs = []
+    for tele in (None, obs.Telemetry(profile_dir=str(prof))):
+        mcmc = MCMC(ChEES(logreg_model_glm), 40, 20, num_chains=8,
+                    telemetry=tele)
+        runs.append(mcmc.run(0, data["x"], y=data["y"],
+                             checkpoint_every=20))
+    off, on = runs
+    assert same_run(on, off)
+    assert on.stats["trajectory_graph"] and off.stats["trajectory_graph"]
+    assert on.stats["graph_replays"] == off.stats["graph_replays"]
+    tele = on.telemetry
+    cold = [s.attr("program_cold") for s in tele.spans
+            if s.name.endswith("_chunk")]
+    assert cold == [True, False, False]
+    assert tele.counters["graph_captures"] == 2
+    assert len(list(prof.iterdir())) == 3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_mala_accept_kernel_matches_plain_on_card(dtype):
     """mala_accept against its plain version at ENS_SHAPES, MALA

@@ -359,7 +359,10 @@ def test_port_imports_no_jax():
             "repro_torch.core.bayes, repro_torch.data, "
             "repro_torch.launch.steps, repro_torch.launch.train, "
             "repro_torch.distributed, repro_torch.distributed.checkpoint, "
-            "repro_torch.core.infer.svi, repro_torch.core.infer.autoguide; "
+            "repro_torch.core.infer.svi, repro_torch.core.infer.autoguide, "
+            "repro_torch.obs, repro_torch.obs.compare, "
+            "repro_torch.obs.validate, repro_torch.lint_rules, "
+            "repro_torch.lint_rules.obs_rules, repro_torch.core.lint; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             " assert not bad, bad")
