@@ -69,9 +69,7 @@ result line if any fails):
    200 through the generic autograd potential (the library's Cholesky
    factor and triangular solve), gated on finite draws, at most 1 %
    divergent and the 6 planted dimensions the 6 largest posterior-median
-   ``lambda``, then 2 transitions profiled in a fresh process from its
-   adapted state (device ms by kernel, the Cholesky and the solves named);
-   the README's eight schools, non-centered by ``reparam`` with
+   ``lambda``; the README's eight schools, non-centered by ``reparam`` with
    ``LocScaleReparam(0.0)``, NUTS 4 chains in lockstep 150 + 100, gated on
    split R-hat < 1.05, then ``Predictive`` of ``obs`` on the card, (400,
    8) and finite; ``NUTS(cross_chain_adapt=True)``, 4 chains 300 + 400 on
@@ -107,17 +105,34 @@ result line if any fails):
    bits, dtypes, devices and types back; ``MCMC(NUTS(logreg_model_glm),
    24, 36, num_chains=4)`` on the 581,012 x 54 data, ``checkpoint_every``
    20 (exactly 6 saves; the state write's ms and bytes, the run's seconds
-   with and without checkpoints), 17 against no chunking, and killed after
-   save 3 (its directory copied after save 2: the warmup's end; save 3
-   leaves the orphaned ``samples_000024_000044``), resumed from each,
-   every collected field, the final state and the generators' final states
-   bit-identical to the uninterrupted card run, ``nuts_leaf_batch`` and the
-   GLM kernel launched in each resumed part; ``ChEES`` 60 + 80 with 8
+   with and without checkpoints), and killed after save 3 (which leaves the
+   orphaned ``samples_000024_000044``) and resumed, every collected field,
+   the final state and the generators' final states bit-identical to the
+   uninterrupted card run, ``nuts_leaf_batch`` and the GLM kernel launched
+   in the resumed part; ``ChEES`` 60 + 80 with 8
    chains killed mid-warmup (after save 2 of chunks of 25) and resumed from
    its CUDA graphs; ``MALA`` 24 + 36 with 16 chains killed after save 3;
    the launcher on the reduced gemma-2b, 4 steps checkpointed every 2 and
    relaunched to 6 (``resumed from step 4``), its parameters and optimizer
    state bit-identical to an uninterrupted 6-step run.
+   Then ``mesh``, on a one-rank process group (NCCL; gloo with CUDA
+   tensors, printed, where NCCL cannot start): ``glm_potential_partials``
+   (row 2's kernel over a shard grid dimension) at 581,012 x 54 with S =
+   1, 2, 4 and at (28,028, 7) with S = 1, 2, 4, 7, both families there, C
+   = 1, 8, 16: one launch and C * S shard evaluations a call, each partial
+   within row 2's bound of the float64 plain loop and bit-identical to a
+   one-shard launch on its rows (the odd shards of the main shape start
+   unaligned: 4-byte copies), timed at S = 1, 2, 4 x C = 1, 8 beside S
+   one-shard launches, the unsharded launch and one aligned and one odd
+   shard; then ``MCMC(NUTS(logreg_model_glm, data_shards=4), 24, 36,
+   num_chains=4)`` under ``"vectorized"`` and under ``"parallel"`` on the
+   (1, 1) mesh checkpointed every 17 (chunks that do not divide the
+   phases), byte-identical, each with one ``glm_potential_partials``
+   launch a gradient and no one-shard GLM launch, 0 divergences and the
+   pooled mean within 0.05 of ``true_w``; the parallel checkpoint, copied
+   after its first samples write, resumed under ``"vectorized"``,
+   byte-identical; ms a lockstep leapfrog beside the checkpoint phase's
+   uninterrupted run, the same run without shards.
    Then ``obs``: the checkpoint phase's three configurations run once more
    with ``telemetry=obs.Telemetry(...)``, each held against that phase's
    uninterrupted run without it (every collected field and the final
@@ -262,15 +277,13 @@ ENS_SHAPES = (ENS_CHEES, ENS_MRW, (1, 1), (3, 130), (5, 4097), ENS_LARGE)
 # features (D = p + 4 latents), n = 200 rows, 3 planted interactions,
 # NUTS at max_tree_depth 8, at most 1 % of draws divergent; the draws cut
 # from the --quick 100 to 50 (the first 50 of the same chain; ~23 s at
-# ~7.4 ms a leapfrog, 63 a transition) to make room for the svi phase
+# ~7.4 ms a leapfrog, 63 a transition) to make room for the svi phase.  Its
+# profile in a fresh process (~33 s on a slow host) went to make room for
+# the mesh phase: 60 + 30 took as many leapfrogs (16,130 against 17,395;
+# shorter warmup, smaller steps) and saved nothing
 SKIM_P, SKIM_N, SKIM_INTER = 256, 200, 3
 SKIM_WARMUP, SKIM_DRAWS = 100, 50
 SKIM_DIVERGENT_MAX = 0.01
-# its profile's transitions (~63 leapfrogs each once adapted): the
-# profiler's post-processing of SKIM's ~268 device kernels a leapfrog is
-# slow on the card's host (20 transitions, 4,141 leapfrogs, took ~275 s in
-# their process), so 2, not 20 (4 until the svi phase needed the room)
-SKIM_PROFILE_TRANSITIONS = 2
 # eight schools, non-centered by LocScaleReparam: NUTS, 4 chains in
 # lockstep, the example's 150 warmup (examples/eight_schools.py:43) and 100
 # of its 200 draws (cut to make room for the svi phase: ~18 s; split R-hat
@@ -295,7 +308,8 @@ FUSED_REL_TOL = 1e-6  # a fused sum against the plain one, of its |terms|
 NUTS_BATCH_CHAINS = (1, 4, 8, 16)
 NUTS_BATCH_SIZES = (D, 10, SKIM_P + 4, 4097)
 # the vectorized logreg: 8 chains in lockstep, 100 + 100 (the single
-# chain's draws), split R-hat under the example's 1.05; the first
+# chain's draws; at 100 + 50 split R-hat was 1.067), split R-hat under the
+# example's 1.05; the first
 # VEC_DEPART_TRANSITIONS transitions of each chain against a lone run of
 # its seed (printed, not gated); a 4-transition profile in a fresh process
 VEC_CHAINS, VEC_WARMUP, VEC_DRAWS = 8, 100, 100
@@ -1922,8 +1936,7 @@ def ensemble_bound(name, variant, c, d):
     return bound(4 * (3 * cells + d), 2 * cells + 2 * d, torch.float32)
 
 
-def profile_transitions(mcmc, num, kernels=None, named=None,
-                        host_ops=True):
+def profile_transitions(mcmc, num, kernels=None, host_ops=True):
     """Device busy share and device time per leapfrog over ``num`` more
     sampling transitions of the adapted chain (or ensemble: there a
     "leapfrog" moves every chain, and a MALA/RWM proposal counts as one),
@@ -1931,10 +1944,8 @@ def profile_transitions(mcmc, num, kernels=None, named=None,
     time is not the run's.  ``kernels`` (op name -> a substring of its
     device kernel's name) adds, per op, the profiler's count of that
     kernel and the op's launch counter's increase over the same
-    transitions; ``named`` (label -> substrings of device kernel names,
-    matched without case) adds each label's device ms and launches per
-    leapfrog.  ``host_ops=False`` records the device activity alone (the
-    host ops' events of a long window take minutes to aggregate)."""
+    transitions.  ``host_ops=False`` records the device activity alone
+    (the host ops' events of a long window take minutes to aggregate)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1991,14 +2002,6 @@ def profile_transitions(mcmc, num, kernels=None, named=None,
         "top_device_kernels": [
             {"name": k[:80], "ms_per_leapfrog": t / 1e3 / leapfrogs,
              "launches_per_leapfrog": c / leapfrogs} for t, c, k in top]}
-    if named:
-        out["named_kernels"] = {}
-        for label, subs in named.items():
-            hit = [(t, c) for t, c, k in rows
-                   if any(sub in k.lower() for sub in subs)]
-            out["named_kernels"][label] = {
-                "ms_per_leapfrog": sum(t for t, _ in hit) / 1e3 / leapfrogs,
-                "launches_per_leapfrog": sum(c for _, c in hit) / leapfrogs}
     if kernels:
         out["kernel_counts"] = {
             name: {"profiler": sum(c for _, c, k in rows if sub in k),
@@ -4388,17 +4391,6 @@ def ssm_kernel_rows(checks, timing, ssm):
                 "TPU kernel"}]
 
 
-# device kernels of SKIM's gradient named in its profile: the library's
-# Cholesky factor and triangular solves (forward and backward), the
-# products, and the NUTS leaf kernels
-SKIM_NAMED = {"cholesky (cusolver potrf)": ("potrf", "getrf", "cholesky"),
-              "triangular solve (trsm/trsv)": ("trsm", "trsv"),
-              "matrix products (gemm)": ("gemm", "gemv"),
-              "nuts_leaf": ("nuts_leaf",),
-              "leapfrog_halfstep": ("leapfrog_halfstep",),
-              "nuts_turning": ("nuts_turning",)}
-
-
 def skim_planted_gate(lam_draws, true_pairs):
     """Are the ``2 * n_inter`` dimensions of largest posterior-median
     ``lambda`` exactly the planted ones?  Returns ``(ok, top)``."""
@@ -4409,38 +4401,13 @@ def skim_planted_gate(lam_draws, true_pairs):
     return bool(set(top.tolist()) == set(planted.tolist())), top.tolist()
 
 
-def skim_profile(state_path):
-    """``SKIM_PROFILE_TRANSITIONS`` profiled SKIM transitions
-    (``profile_transitions`` with ``SKIM_NAMED``, device activity alone)
-    from the adapted chain state
-    ``run_skim`` saved to ``state_path``, through a setup built as
-    ``MCMC.run`` builds it."""
-    from types import SimpleNamespace
-
-    from repro_torch.bench.models import skim_data, skim_model
-    from repro_torch.core.infer import NUTS
-    data = skim_data(SKIM_P, seed=0, n=SKIM_N, n_inter=SKIM_INTER)
-    dev = torch.device("cuda")
-    setup = NUTS(skim_model, max_tree_depth=8).setup(
-        torch.Generator().manual_seed(0), SKIM_WARMUP,
-        model_args=(torch.from_numpy(data["x"]).to(dev),),
-        model_kwargs={"y": torch.from_numpy(data["y"]).to(dev)})
-    state = torch.load(state_path, weights_only=False)
-    mcmc = SimpleNamespace(kernel_setup=setup, last_state=[state])
-    return profile_transitions(mcmc, SKIM_PROFILE_TRANSITIONS,
-                               named=SKIM_NAMED, host_ops=False)
-
-
 def run_skim(dev):
     """The third paper model: SKIM at p = 256, n = 200 under NUTS, through
     the generic autograd potential (five prior terms with their
     transforms, the kernel matrix, the library's Cholesky factor and
     triangular solve), one ``nuts_leaf`` launch a leapfrog.  Gates: finite
     draws, at most 1 % divergent, the planted dimensions the largest
-    posterior-median ``lambda``, the tree's launches; then a profile in a
-    fresh process."""
-    import tempfile
-
+    posterior-median ``lambda``, the tree's launches."""
     from repro_torch.bench.models import skim_data, skim_model
     from repro_torch.core.infer import MCMC, NUTS, effective_sample_size
     from repro_torch.kernels import ops
@@ -4487,14 +4454,6 @@ def run_skim(dev):
     check(planted_ok, f"the largest posterior-median lambda are {top}, not "
           f"the planted {out['true_pairs']}")
     tree_gates(counts, stats)
-    # in a fresh process (late in this long one the profiler loses
-    # records), from this run's adapted state
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "skim_state.pt")
-        torch.save(mcmc.last_state[0], path)
-        out["profile"] = in_fresh_process("skim_profile", path)
-    print("SKIM profile (fresh process):", json.dumps(out["profile"]),
-          flush=True)
     return out, counts
 
 
@@ -4878,11 +4837,12 @@ def run_samplers(dev):
 # tests/test_preemption.py's sweep geometry: 24 + 36 iterations in chunks of
 # 20 make exactly six checkpoint.save calls (state @20, state @24, samples
 # 24-44, state @44, samples 44-60, state @60)
-# lockstep NUTS is killed after save 3 and resumed from saves 2 and 3 (the
-# warmup's end, the orphaned first samples chunk); the third point, save 4,
-# was dropped to make room for the svi phase (~4 s)
+# lockstep NUTS is killed after save 3 and resumed from it (the orphaned
+# first samples chunk); the resume from save 4 was dropped to make room for
+# the svi phase (~4 s), the one from save 2 (the warmup's end; ChEES still
+# resumes mid-warmup) for the mesh phase (~10 s)
 CKPT_WARMUP, CKPT_DRAWS, CKPT_EVERY, CKPT_SAVES = 24, 36, 20, 6
-CKPT_NUTS_CHAINS, CKPT_NUTS_KILLS, CKPT_ODD_EVERY = 4, (2, 3), 17
+CKPT_NUTS_CHAINS, CKPT_NUTS_KILLS = 4, (3,)
 # ChEES 60 + 80 in chunks of 25, killed mid-warmup (after state @50)
 CKPT_CHEES = {"warmup": 60, "draws": 80, "chains": 8, "every": 25,
               "kill": 2}
@@ -5020,13 +4980,12 @@ def checkpoint_format_check(dev, root):
 def checkpoint_nuts(data, root, plain_runs):
     """Lockstep NUTS on the logreg: one run killed after the last save of
     ``CKPT_NUTS_KILLS``, its checkpoint directory copied after the others
-    (what a kill there leaves on disk: after save 2 the warmup's end, after
-    save 3 the orphaned first samples chunk), each resumed and
-    bit-identical to the
+    (what a kill there leaves on disk: after save 3 the orphaned first
+    samples chunk), each resumed and bit-identical to the
     uninterrupted card run (its generators' final states too), the resumed
-    part launching the lockstep leaf and GLM kernels;
-    ``checkpoint_every=17`` against no chunking; the state write's ms and
-    bytes, and the run's seconds with and without checkpoints."""
+    part launching the lockstep leaf and GLM kernels; the state write's ms
+    and bytes, and the run's seconds with and without checkpoints (chunks
+    of 17 against no chunking: the mesh phase's parallel run)."""
     from repro_torch.bench.models import logreg_model_glm
     from repro_torch.core.infer import MCMC, NUTS
     from repro_torch.kernels import ops
@@ -5041,11 +5000,7 @@ def checkpoint_nuts(data, root, plain_runs):
     ops.reset_launch_counts()
     plain, _, plain_wall = run_recorded(make, args, kwargs)
     plain_runs["lockstep NUTS"] = (plain, ops.launch_counts())
-    odd, _, _ = run_recorded(make, args, kwargs,
-                             checkpoint_every=CKPT_ODD_EVERY)
-    check(same_run(odd, plain), f"checkpoint_every={CKPT_ODD_EVERY} changed "
-                                "bits of the lockstep NUTS run")
-    lines["no chunking, checkpoint_every=17"] = time.perf_counter() - t0
+    lines["no chunking"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     whole_dir = os.path.join(root, "nuts")
     whole, calls, whole_wall = run_recorded(
@@ -5361,6 +5316,334 @@ def run_checkpoint(dev, data):
 
 
 
+# -- the mesh phase ----------------------------------------------------------
+# the segmented GLM kernel (glm_potential_partials: row 2's kernel over a
+# shard grid dimension) against its plain loop and against one-shard
+# launches, then the checkpoint phase's lockstep NUTS logreg with
+# data_shards=4 under chain_method="parallel" on a one-rank mesh
+MESH_SHARDS = (1, 2, 4)           # at the main shape (n = 4 * 145,253)
+MESH_SMALL = (28_028, 7, (1, 2, 4, 7))   # n divisible by 7
+MESH_CHAINS = (1, 8, 16)
+MESH_TIMED = ((1, 1), (2, 1), (4, 1), (1, 8), (2, 8), (4, 8))  # (S, C)
+MESH_DATA_SHARDS = 4
+# the sharded logreg runs take the checkpoint phase's geometry (4 chains,
+# 24 + 36), whose uninterrupted run is the same run without shards; the
+# parallel one is checkpointed every 17 (saves: state @17, @24,
+# samples_24_41, state @41, samples_41_58, state @58, samples_58_60, state
+# @60: chunks that do not divide the phases, against the unchunked run) and
+# resumed from a copy made after save 5, the orphaned second samples write
+MESH_EVERY, MESH_COPY_AT = 17, 5
+
+
+def start_one_rank_group():
+    """A one-rank process group in this process for the mesh phase: NCCL,
+    or gloo (with CUDA tensors) where NCCL cannot start; returns the
+    backend's name."""
+    import torch.distributed as tdist
+    if tdist.is_initialized():
+        return tdist.get_backend()
+    try:
+        tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0,
+                                 world_size=1)
+        tdist.barrier(device_ids=[torch.cuda.current_device()])
+    except Exception as e:  # noqa: BLE001 — reported, then gloo
+        print(f"mesh: NCCL did not start ({type(e).__name__}: {e}); "
+              "using gloo with CUDA tensors", flush=True)
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        tdist.init_process_group("gloo", store=tdist.HashStore(), rank=0,
+                                 world_size=1)
+    return tdist.get_backend()
+
+
+def partials_bound(n, d, chains, shards):
+    """X, y and the offset read once, w read, (C, S) partials written."""
+    nbytes = 4 * (n * d + 2 * n + chains * d + chains * shards * (d + 1))
+    return bound(nbytes, n * (4 * d + 12) * chains, torch.float32)
+
+
+def partials_checks(dev):
+    """The segmented kernel at the main shape (S = 1, 2, 4; bernoulli_logit
+    with an offset) and at (28,028, 7) (S = 1, 2, 4, 7; both families), C =
+    1, 8, 16: one launch and C * S shard evaluations a call, every partial
+    within row 2's bound of the float64 plain loop and bit-identical to a
+    separate one-shard launch on its rows (the same view: shard k of the
+    main shape starts 16-byte aligned only for even k, the odd ones take
+    the 4-byte copy path).  Times the main shape's calls at MESH_TIMED
+    beside S one-shard launches and the unsharded launch, and one shard's
+    launch at an even and an odd shard."""
+    from repro_torch.kernels.glm_potential import (
+        glm_potential_grad_cuda, glm_potential_partials_cuda,
+        glm_potential_partials_ref)
+    results, timing = [], {}
+    cmax = max(MESH_CHAINS)
+    cases = [(N, D, MESH_SHARDS, "bernoulli_logit", None)] + [
+        (MESH_SMALL[0], MESH_SMALL[1], MESH_SMALL[2], fam, scale)
+        for fam, scale in (("bernoulli_logit", None), ("normal", 0.7))]
+    for n, d, shard_counts, family, scale in cases:
+        gen = torch.Generator().manual_seed(n + d + 1)
+        x = torch.randn((n, d), generator=gen).to(dev)
+        w_all = (0.3 * torch.randn((cmax, d), generator=gen)).to(dev)
+        off = (0.2 * torch.randn(n, generator=gen)).to(dev)
+        if family == "bernoulli_logit":
+            y = (torch.rand(n, generator=gen) < 0.5).float().to(dev)
+        else:
+            y = x @ w_all[0] + 0.5 * torch.randn(n, generator=gen).to(dev)
+        xd = x.double()
+        logits = xd @ w_all.double().T + off.double()[:, None]  # (n, C)
+        if family == "bernoulli_logit":
+            resid = torch.sigmoid(logits) - y.double()[:, None]
+            terms = torch.nn.functional.softplus(logits) \
+                - y.double()[:, None] * logits
+        else:
+            resid = (logits - y.double()[:, None]) / scale ** 2
+            terms = 0.5 * ((logits - y.double()[:, None]) / scale) ** 2 \
+                + math.log(scale)
+        err = worst = 0.0
+        for shards in shard_counts:
+            m = n // shards
+            # row 2's bound, shard by shard: 5e-3 + 1e-5 * sum |terms|
+            tol_v = 5e-3 + GLM_REL_TOL * terms.abs().reshape(
+                shards, m, cmax).sum(1).T                       # (C, S)
+            tol_g = 5e-3 + GLM_REL_TOL * torch.einsum(
+                "scm,smd->csd", resid.abs().reshape(shards, m, cmax)
+                .permute(0, 2, 1), xd.abs().reshape(shards, m, d))
+            want_v, want_g = glm_potential_partials_ref(
+                x, y, w_all.double(), off, scale, family,
+                data_shards=shards, compute_dtype=torch.float64)
+            for chains in MESH_CHAINS:
+                w = w_all[:chains].contiguous()
+                glm_potential_partials_cuda.launches = 0
+                glm_potential_partials_cuda.shard_evals = 0
+                kv, kg = glm_potential_partials_cuda(
+                    x, y, w, off, scale, family, data_shards=shards)
+                check((glm_potential_partials_cuda.launches,
+                       glm_potential_partials_cuda.shard_evals)
+                      == (1, chains * shards),
+                      f"a {chains}-chain {shards}-shard call made "
+                      f"{glm_potential_partials_cuda.launches} launches and "
+                      f"{glm_potential_partials_cuda.shard_evals} shard "
+                      "evaluations")
+                ev = (kv.double() - want_v[:chains]).abs()
+                eg = (kg.double() - want_g[:chains]).abs()
+                check(bool((ev <= tol_v[:chains]).all())
+                      and bool((eg <= tol_g[:chains]).all()),
+                      f"partials disagree with the plain loop at n={n} "
+                      f"d={d} {family} S={shards} C={chains}: nll err "
+                      f"{float(ev.max())}, grad err {float(eg.max())}")
+                err = max(err, float(ev.max()), float(eg.max()))
+                worst = max(worst, float((ev / tol_v[:chains]).max()),
+                            float((eg / tol_g[:chains]).max()))
+                for k in range(shards):
+                    rows = slice(k * m, (k + 1) * m)
+                    sv, sg = glm_potential_grad_cuda(
+                        x[rows], y[rows], w, off[rows], scale, family)
+                    check(torch.equal(kv[:, k], sv)
+                          and torch.equal(kg[:, k], sg),
+                          f"shard {k} of {shards} (C={chains}, n={n}) is "
+                          "not bit-identical to a one-shard launch on its "
+                          "rows")
+                if (n, family) == (N, "bernoulli_logit") \
+                        and (shards, chains) in MESH_TIMED:
+                    views = [(x[k * m:(k + 1) * m], y[k * m:(k + 1) * m],
+                              off[k * m:(k + 1) * m]) for k in range(shards)]
+                    times = timings(
+                        lambda: glm_potential_partials_cuda(
+                            x, y, w, off, scale, family, data_shards=shards),
+                        lambda: glm_potential_partials_ref(
+                            x, y, w, off, scale, family, data_shards=shards),
+                        20)
+                    times["separate_launches_ms"] = device_ms(
+                        lambda: [glm_potential_grad_cuda(xv, yv, w, ov)
+                                 for xv, yv, ov in views], 20)
+                    times["unsharded_ms"] = device_ms(
+                        lambda: glm_potential_grad_cuda(x, y, w, off), 20)
+                    if shards > 1:
+                        times["one_shard_ms"] = {
+                            f"shard {k} ({'aligned' if k % 2 == 0 else 'odd: 4-byte copies'})":
+                            device_ms(lambda v=views[k]: glm_potential_grad_cuda(
+                                v[0], v[1], w, v[2]), 20) for k in (0, 1)}
+                    timing[(shards, chains)] = (
+                        times, partials_bound(n, d, chains, shards))
+        results.append({"n": n, "d": d, "family": family,
+                        "shards": list(shard_counts),
+                        "chains": list(MESH_CHAINS), "max_abs_err": err,
+                        "worst_err_over_tol": worst,
+                        "tol": "5e-3 + 1e-5 * sum|terms| a shard (row 2's)",
+                        "bit_identical_to_one_shard_launches": True})
+    glm_potential_partials_cuda.launches = 0
+    glm_potential_partials_cuda.chain_evals = 0
+    glm_potential_partials_cuda.shard_evals = 0
+    return results, timing
+
+
+def mesh_run_gates(run, counts, chain_evals, shard_evals, data, label):
+    """A data-sharded lockstep logreg run: the lockstep gates, one
+    ``glm_potential_partials`` launch a gradient (the lockstep gradients,
+    the chains' search evaluations and the setup's check) and none of the
+    one-shard GLM op, C * S shard evaluations, 0 divergences and the
+    pooled mean within 0.05 of ``true_w``."""
+    stats = run.stats
+    leaves, init = stats["lockstep_leapfrogs"], stats["init_grad_evals"]
+    lockstep_gates(counts, stats)
+    check(counts["glm_potential_partials"] == leaves + init + 1,
+          f"{label}: glm_potential_partials {counts['glm_potential_partials']}"
+          f" launches != {leaves} lockstep gradients + {init} search "
+          "evaluations + 1 (the setup's check)")
+    check(counts["glm_potential_grad"] == 0,
+          f"{label}: {counts['glm_potential_grad']} one-shard GLM launches")
+    check(chain_evals == stats["num_grad_evals"] + 1
+          and shard_evals == MESH_DATA_SHARDS * chain_evals,
+          f"{label}: {chain_evals} chain and {shard_evals} shard "
+          f"evaluations for {stats['num_grad_evals']} gradients + 1")
+    w = run.get_samples(group_by_chain=True)["w"].detach().cpu().numpy()
+    extra = run.get_extra_fields()
+    divergences = int(extra["diverging"].sum())
+    post_err = float(np.max(np.abs(w.mean((0, 1)) - data["true_w"])))
+    check(np.all(np.isfinite(w)), f"{label}: draws not finite")
+    check(divergences == 0, f"{label}: {divergences} divergent transitions")
+    check(post_err < 0.05, f"{label}: pooled posterior mean is {post_err} "
+                           "from true_w")
+    return {"chain_seconds": stats["chain_seconds"],
+            "lockstep_leapfrogs": leaves, "num_leapfrog":
+            stats["num_leapfrog"],
+            "ms_per_lockstep_leapfrog": 1e3 * stats["chain_seconds"] / leaves,
+            "num_grad_evals": stats["num_grad_evals"],
+            "init_grad_evals": init, "host_syncs": stats["host_syncs"],
+            "launches": {k: counts[k] for k in (
+                "glm_potential_partials", "glm_potential_grad",
+                "nuts_leaf_batch", "halfstep_chains")},
+            "chain_evals": chain_evals, "shard_evals": shard_evals,
+            "divergences": divergences,
+            "max_abs_posterior_mean_minus_true_w": post_err}
+
+
+def mesh_logreg(data, plain_nuts):
+    """The checkpoint phase's lockstep NUTS logreg (``CKPT_WARMUP`` +
+    ``CKPT_DRAWS``, ``CKPT_NUTS_CHAINS`` chains) with ``data_shards=4``:
+    under ``"vectorized"``, under ``"parallel"`` on the one-rank (1, 1)
+    mesh checkpointed every ``MESH_EVERY`` (byte-identical: also the check
+    that chunks of 17 move no bit, which the checkpoint phase made before
+    the mesh phase came), and that checkpoint, copied after save
+    ``MESH_COPY_AT`` (an orphaned samples write), resumed under
+    ``"vectorized"`` (byte-identical); each sharded run gated by
+    :func:`mesh_run_gates`; ms a lockstep leapfrog beside the checkpoint
+    phase's uninterrupted run, the same run without shards
+    (``plain_nuts``: the MCMC and its launch counts)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.bench.models import logreg_model_glm
+    from repro_torch.core.infer import MCMC, NUTS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.glm_potential import glm_potential_partials_cuda
+
+    def make(**kw):
+        return MCMC(NUTS(logreg_model_glm, data_shards=MESH_DATA_SHARDS),
+                    CKPT_WARMUP, CKPT_DRAWS, num_chains=CKPT_NUTS_CHAINS,
+                    **kw)
+
+    def counted(fn, label):
+        ops.reset_launch_counts()
+        run = fn()
+        out = mesh_run_gates(run, ops.launch_counts(),
+                             glm_potential_partials_cuda.chain_evals,
+                             glm_potential_partials_cuda.shard_evals, data,
+                             label)
+        return run, out
+
+    args, kwargs = (0, data["x"]), {"y": data["y"]}
+    out = {}
+    vec, out["vectorized"] = counted(
+        lambda: run_recorded(make, args, kwargs)[0], "vectorized")
+    root = tempfile.mkdtemp()
+    try:
+        copy = os.path.join(root, f"after_save_{MESH_COPY_AT}")
+        par, out["parallel (1, 1)"] = counted(lambda: run_recorded(
+            lambda: make(chain_method="parallel", mesh_shape=(1, 1)), args,
+            kwargs, copies={MESH_COPY_AT: copy}, checkpoint_every=MESH_EVERY,
+            checkpoint_dir=os.path.join(root, "parallel"))[0],
+            "parallel (1, 1)")
+        check(same_run(par, vec), "parallel (1, 1) is not byte-identical to "
+                                  "vectorized")
+        with open(os.path.join(root, "parallel", "state",
+                               "manifest.json")) as f:
+            extra = json.load(f)["extra"]
+        check((extra["mesh_shape"], extra["num_devices"]) == ([1, 1], 1),
+              f"the checkpoint records mesh {extra['mesh_shape']} on "
+              f"{extra['num_devices']} devices")
+        t0 = time.perf_counter()
+        resumed = run_recorded(make, args, kwargs,
+                               checkpoint_every=MESH_EVERY,
+                               checkpoint_dir=copy, resume=True)[0]
+        check(same_run(resumed, vec), "the parallel checkpoint resumed under "
+                                      "vectorized is not byte-identical")
+        out["resumed under vectorized"] = {
+            "resumed_at": resumed.stats["resumed_at"],
+            "seconds": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    plain = plain_nuts[0].stats
+    out["no shards (the checkpoint phase's run)"] = {
+        "chain_seconds": plain["chain_seconds"],
+        "lockstep_leapfrogs": plain["lockstep_leapfrogs"],
+        "ms_per_lockstep_leapfrog": 1e3 * plain["chain_seconds"]
+        / plain["lockstep_leapfrogs"]}
+    return out
+
+
+def run_mesh(dev, data, plain_nuts):
+    """The mesh phase: a one-rank group, the segmented kernel's checks and
+    times, the sharded logreg runs; returns row 2b of the kernel table."""
+    import torch.distributed as tdist
+
+    from repro_torch.kernels.ops import FUSED
+    seconds, t0 = {}, time.perf_counter()
+    backend = start_one_rank_group()
+    seconds["group"] = time.perf_counter() - t0
+    print(f"mesh: a one-rank {backend} group", flush=True)
+    t0 = time.perf_counter()
+    checks, timing = partials_checks(dev)
+    seconds["kernel checks"] = time.perf_counter() - t0
+    print("mesh: glm_potential_partials checks:", json.dumps(checks),
+          flush=True)
+    print("mesh: glm_potential_partials timings (S, C):", json.dumps(
+        {f"{s}, {c}": {**t, "bound_ms": b, "bound_by": by}
+         for (s, c), (t, (b, by)) in timing.items()}), flush=True)
+    t0 = time.perf_counter()
+    runs = mesh_logreg(data, plain_nuts)
+    seconds["logreg runs"] = time.perf_counter() - t0
+    print(f"mesh: logreg, {CKPT_NUTS_CHAINS} chains, {CKPT_WARMUP} + "
+          f"{CKPT_DRAWS}, data_shards={MESH_DATA_SHARDS}:", json.dumps(runs),
+          flush=True)
+    tdist.destroy_process_group()
+    print("mesh part seconds:", json.dumps(seconds), flush=True)
+    name = "glm_potential_partials"
+    spec = FUSED[name]
+    times, (bound_ms, bound_by) = timing[(MESH_DATA_SHARDS, 1)]
+    phases = ("vectorized", "parallel (1, 1)")
+    return {
+        "name": name, "kernel": "glm_chains_kernel (gridDim.z = S)",
+        "route": spec.route, "source": "src/repro_torch/csrc/glm_potential.cu",
+        "replaces": spec.replaces,
+        "launches": sum(runs[p]["launches"][name] for p in phases),
+        "launches_by_phase": {p: runs[p]["launches"][name] for p in phases},
+        "launches_per_gradient": {
+            p: runs[p]["launches"][name] / (runs[p]["lockstep_leapfrogs"]
+                                            + runs[p]["init_grad_evals"] + 1)
+            for p in phases},
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "ms": times["ms"], "plain_ms": times["plain_ms"],
+        "call_ms": times["call_ms"], "plain_call_ms": times["plain_call_ms"],
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "library": "none: no single PyTorch call computes it",
+        "shape": [N, D], "shards": MESH_DATA_SHARDS, "chains": 1,
+        "by_shards_chains": {f"{s}, {c}": {**t, "bound_ms": b,
+                                          "bound_by": by}
+                             for (s, c), (t, (b, by)) in timing.items()},
+        "seconds": seconds}
+
+
 # -- the obs phase -----------------------------------------------------------
 # the checkpoint phase's configurations (CKPT_*), each run once more with
 # telemetry and held against that phase's uninterrupted run without it
@@ -5559,6 +5842,9 @@ def main():
     t0 = time.perf_counter()
     _, plain_runs = run_checkpoint(dev, data)
     phase_s["checkpoint"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels.append(run_mesh(dev, data, plain_runs["lockstep NUTS"]))
+    phase_s["mesh"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     run_obs(dev, data, card, plain_runs)
     del plain_runs

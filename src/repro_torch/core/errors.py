@@ -6,7 +6,19 @@ classes multiply-inherit from the builtin exception the call sites would
 otherwise raise, so ``except ValueError`` keeps working; new code should
 catch :class:`ReproError` and dispatch on ``.code``.
 
-Two codes are particular to this package:
+The inference mesh's codes, as the JAX package raises them
+(``src/repro/launch/mesh.py``, ``core/infer/hmc.py``, ``core/infer/mcmc.py``,
+``core/infer/glm.py``; docs/distributed.md):
+
+- ``RPL301`` (:data:`MESH_SHAPE`): the requested mesh does not fit: chain
+  count not divisible by the chain axis, or more mesh slots than devices
+  (or a dim below 1).
+- ``RPL302`` (:data:`NO_SHARD_STRUCTURE`): ``data_shards`` requested on a
+  potential with no per-shard structure, or a marker of another count.
+- ``RPL303`` (:data:`SHARDS_NOT_DIVISIBLE`): the shard fold not divisible
+  by the mesh data axis.
+
+Three codes are particular to this package:
 
 - ``RPL501`` (:data:`PENDING`): the feature exists in the JAX package but
   has not been ported yet; the message names the work it waits for.
@@ -19,6 +31,9 @@ from __future__ import annotations
 
 from typing import Optional
 
+MESH_SHAPE = "RPL301"
+NO_SHARD_STRUCTURE = "RPL302"
+SHARDS_NOT_DIVISIBLE = "RPL303"
 PENDING = "RPL501"
 NO_DEVICE = "RPL502"
 KERNEL_MISMATCH = "RPL503"
@@ -80,8 +95,11 @@ def pending(feature: str, slice_name: str) -> ReproNotImplementedError:
 
 __all__ = [
     "KERNEL_MISMATCH",
+    "MESH_SHAPE",
     "NO_DEVICE",
+    "NO_SHARD_STRUCTURE",
     "PENDING",
+    "SHARDS_NOT_DIVISIBLE",
     "ReproError",
     "ReproValueError",
     "ReproRuntimeError",

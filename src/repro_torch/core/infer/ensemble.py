@@ -49,7 +49,8 @@ import torch
 
 from ...kernels import ops
 from .graphs import EnsembleTrajectory
-from .hmc import counting, flat_model_ingredients, resolve_device
+from .hmc import (counting, flat_model_ingredients, resolve_data_axis,
+                  resolve_device)
 from .hmc_util import (
     DAState,
     HostReads,
@@ -331,7 +332,10 @@ def chees_setup(generator, num_warmup, *, model=None, potential_fn=None,
                 device="cuda") -> KernelSetup:
     """Build the cross-chain :class:`KernelSetup` for ChEES-HMC on
     ``device`` (default ``"cuda"``; raises without CUDA unless
-    ``device="cpu"``).  ``data_shards`` waits for the multi-GPU slice."""
+    ``device="cpu"``).  ``data_shards=S`` gives the fused GLM likelihood an
+    S-shard fold (``KernelSetup.data_axis``, ``RPL302`` without a
+    shard-aware potential, as :func:`~repro_torch.core.infer.hmc.hmc_setup`
+    does)."""
     reads = HostReads()
     (potential_flat, unravel, constrain, prototype, z_fixed,
      init_strategy) = flat_model_ingredients(
@@ -339,6 +343,7 @@ def chees_setup(generator, num_warmup, *, model=None, potential_fn=None,
         init_params=init_params, model_args=model_args,
         model_kwargs=model_kwargs, data_shards=data_shards,
         init_strategy=init_strategy)
+    data_axis = resolve_data_axis(potential_flat, data_shards)
     schedule = build_adaptation_schedule(num_warmup)
     counted = counting(potential_flat)
     init_fn = _make_init_fn(
@@ -361,7 +366,7 @@ def chees_setup(generator, num_warmup, *, model=None, potential_fn=None,
         constrain_fn=constrain, num_warmup=int(num_warmup), algo="ChEES",
         adapt_schedule=tuple((int(s), int(e)) for (s, e) in schedule),
         host_reads=reads, grad_evals=counted, cross_chain=True,
-        metrics_fn=_metrics_fn)
+        metrics_fn=_metrics_fn, data_axis=data_axis)
 
 
 def chees_init(generator, num_warmup, chain_draws, draws, **kwargs):

@@ -29,8 +29,19 @@ model with every argument whose leading dimension is the observation count
 cut to zero rows; that this leaves the prior unchanged is verified at a
 probe point.  Where it does not, the full arguments are used with a
 warning.  The fused potential's ``glm_prior`` attribute says which
-(``"slim"`` or ``"full"``).  The data-sharded fold (``data_shards``) waits
-for the data-shards slice.
+(``"slim"`` or ``"full"``).
+
+``data_shards=S`` gives the likelihood a static S-shard fold
+(:class:`ShardedRows`, the JAX package's ``_make_sharded_nll``): the S
+per-shard partials (``ops.glm_potential_partials``: one launch on a card)
+folded by ``kernels.leapfrog.chain_sum``'s pairwise tree.  Under an
+inference mesh with a data axis of ``Sd`` ranks
+(``distributed.sharding.use_inference_mesh``, entered by the executor for
+``chain_method="parallel"``), each data rank keeps only its own ``n / Sd``
+rows, evaluates its ``S / Sd`` shards, gathers the stacked partials over
+the data axis in shard order and runs the same fold: the same sums in the
+same order under every layout.  The backward is ``ct * folded_grad``; the
+potential carries ``data_shards = S``.
 
 The ensembles evaluate C chains at once.  The fused potential's
 ``value_and_grad_batch(Z (C, D)) -> ((C,), (C, D))`` is the counterpart of
@@ -55,8 +66,11 @@ from contextlib import contextmanager
 
 import torch
 
+from ...distributed import sharding
 from ...kernels import ops
-from ..errors import KERNEL_MISMATCH, ReproRuntimeError
+from ...kernels.leapfrog import chain_sum
+from ..errors import (KERNEL_MISMATCH, SHARDS_NOT_DIVISIBLE,
+                      ReproRuntimeError, ReproValueError)
 from ..handlers import block, seed, substitute, trace
 
 
@@ -74,19 +88,73 @@ def _fallback(name, reason):
 
 
 class GlmNll(torch.autograd.Function):
-    """The fused likelihood term: forward runs the kernel once for value
-    and gradient, backward scales the saved gradient."""
+    """The fused likelihood term: forward runs ``value_and_grad(zflat)``
+    (the kernel once, or the sharded fold) for value and gradient, backward
+    scales the saved gradient."""
 
     @staticmethod
-    def forward(ctx, zflat, x, y, offset, scale, family):
-        val, grad = ops.glm_potential_grad(x, y, zflat, offset, scale, family)
+    def forward(ctx, zflat, value_and_grad):
+        val, grad = value_and_grad(zflat)
         ctx.save_for_backward(grad)
         return val
 
     @staticmethod
     def backward(ctx, ct):
         (grad,) = ctx.saved_tensors
-        return ct * grad, None, None, None, None, None
+        return ct * grad, None
+
+
+class ShardedRows:
+    """The likelihood's rows under a static ``shards``-shard fold.
+
+    ``value_and_grad(w)`` takes ``w (D,)`` -> ``(nll (), grad (D,))`` or
+    ``w (C, D)`` -> ``((C,), (C, D))``: the per-shard partials of
+    ``ops.glm_potential_partials`` (one launch for every shard and chain on
+    a card) folded over the shards by ``chain_sum``.  Under an active
+    inference mesh with a data axis (``sharding.active_data_mesh``) of
+    ``Sd`` ranks, the first call keeps only this rank's ``n / Sd`` rows
+    (a copy; the full rows are dropped, and a later call without the mesh
+    raises), each call evaluates this rank's ``shards / Sd`` shards and
+    gathers the partials over the data axis in shard order before the same
+    fold.  ``RPL303`` when ``Sd`` does not divide ``shards``."""
+
+    def __init__(self, x, y, offset, scale, family, shards):
+        self.rows = (x, y, offset)
+        self.scale, self.family, self.shards = scale, family, int(shards)
+        self.local = False  # the rows are this data rank's only
+
+    def _local(self, active):
+        mesh, axis = active
+        size = sharding.dim_size(mesh, axis)
+        if self.shards % size:
+            raise ReproValueError(
+                f"potential has data_shards={self.shards} but the active "
+                f"mesh data axis has {size} ranks; the shard structure must "
+                "split evenly across the mesh (pick data_shards as a "
+                "multiple of the data-axis size).", code=SHARDS_NOT_DIVISIBLE)
+        if not self.local:
+            self.rows = tuple(
+                sharding.local_rows(t, mesh, sharding.data_placements(mesh))
+                for t in self.rows)
+            self.local = True
+        return mesh.get_group(axis), self.shards // size
+
+    def value_and_grad(self, w):
+        active = sharding.active_data_mesh()
+        if active is None and self.local:
+            raise RuntimeError(
+                "the data-sharded potential holds only its data rank's rows; "
+                "evaluate it under the inference mesh it ran under")
+        group, shards = (None, self.shards) if active is None \
+            else self._local(active)
+        x, y, offset = self.rows
+        vals, grads = ops.glm_potential_partials(
+            x, y, w, offset, self.scale, self.family, data_shards=shards)
+        axis = w.dim() - 1  # the shard axis, after a chain axis
+        vals, grads = vals.movedim(axis, 0), grads.movedim(axis, 0)
+        if group is not None:
+            vals, grads = sharding.all_gather_pair(vals, grads, group)
+        return chain_sum(vals), chain_sum(grads)
 
 
 @contextmanager
@@ -135,9 +203,14 @@ def _close(a, b, rtol):
 
 def maybe_fuse_glm_potential(model, model_args, model_kwargs, transforms,
                              unravel_fn, flat_proto, model_trace,
-                             potential_flat):
+                             potential_flat, data_shards=None):
     """Return a fused flat potential function, or None to keep the plain
-    one.  Verification runs on concrete tensors at setup time."""
+    one.  Verification runs on concrete tensors at setup time.
+
+    ``data_shards=S`` gives the likelihood the S-shard fold of
+    :class:`ShardedRows` and marks the potential ``data_shards = S`` (the
+    setup's ``resolve_data_axis`` reads it); S that does not divide the
+    observations falls back, as the JAX package does."""
     marked = [name for name, site in model_trace.items()
               if site["type"] == "sample" and site["is_observed"]
               and site["infer"].get("potential") == "glm"]
@@ -217,10 +290,26 @@ def maybe_fuse_glm_potential(model, model_args, model_kwargs, transforms,
         return _fallback(name, f"predictor extraction failed "
                          f"({type(e).__name__}: {e})")
 
+    if data_shards is not None:
+        if int(data_shards) < 1:
+            return _fallback(name, f"data_shards={data_shards} is not a "
+                             "positive shard count")
+        if y.shape[0] % int(data_shards) != 0:
+            return _fallback(name, f"n={y.shape[0]} observations do not "
+                             f"split into data_shards={data_shards} equal "
+                             "shards")
+
     from .util import potential_energy
     x = x.to(torch.float32).contiguous()
     y32 = y.to(torch.float32).contiguous()
     offset = offset.contiguous()
+    if data_shards is None:
+        def likelihood(w):
+            return ops.glm_potential_grad(x, y32, w, offset, scale, family)
+    else:
+        likelihood = ShardedRows(x, y32, offset, scale, family,
+                                 data_shards).value_and_grad
+        del x, y32, offset  # the rows live in the ShardedRows only
     prior_model = block(model, hide=[name])
     n = y.shape[0]
     zp = probe(2)
@@ -246,7 +335,7 @@ def maybe_fuse_glm_potential(model, model_args, model_kwargs, transforms,
 
     def fused_potential(zflat):
         return (prior_energy(zflat, *prior_inputs)
-                + GlmNll.apply(zflat, x, y32, offset, scale, family))
+                + GlmNll.apply(zflat, likelihood))
 
     fused_potential.glm_prior = "slim" if slim_ok else "full"
     # end-to-end verification: fused == plain at a probe point.  Not caught:
@@ -256,7 +345,7 @@ def maybe_fuse_glm_potential(model, model_args, model_kwargs, transforms,
         raise ReproRuntimeError(
             f"site '{name}': the fused GLM potential disagrees with the plain "
             f"one at a probe point ({float(a)} vs {float(b)}) on "
-            f"{x.device}: ops.glm_potential_grad is at fault.",
+            f"{device}: ops.glm_potential_grad is at fault.",
             code=KERNEL_MISMATCH, site=name)
 
     def prior_loop(zs):
@@ -291,7 +380,7 @@ def maybe_fuse_glm_potential(model, model_args, model_kwargs, transforms,
             f"disagrees with the per-chain loop at a (3, D) probe (max "
             f"|diff| {float(torch.max(torch.abs(got_v - want_v)))} in value, "
             f"{float(torch.max(torch.abs(got_g - want_g)))} in gradient) on "
-            f"{x.device}.", code=KERNEL_MISMATCH, site=name)
+            f"{device}.", code=KERNEL_MISMATCH, site=name)
 
     def value_and_grad_batch(zs):
         """``(C, D) -> ((C,) potentials, (C, D) gradients)``."""
@@ -300,10 +389,11 @@ def maybe_fuse_glm_potential(model, model_args, model_kwargs, transforms,
             g_prior, v_prior = prior_vmap(zs)
         else:
             v_prior, g_prior = prior_loop(zs)
-        nll, g_nll = ops.glm_potential_grad(x, y32, zs, offset, scale,
-                                            family)
+        nll, g_nll = likelihood(zs)
         return v_prior + nll, g_prior + g_nll
 
     fused_potential.value_and_grad_batch = value_and_grad_batch
     fused_potential.glm_prior_batch = prior_batch
+    if data_shards is not None:
+        fused_potential.data_shards = int(data_shards)
     return fused_potential

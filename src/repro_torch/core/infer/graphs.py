@@ -33,7 +33,10 @@ Only a potential whose batched entry runs its prior under
 control flow on values, so the captured prior is the same function at
 every replay.  Any other potential, and the CPU, runs the same functions
 eagerly.  The choice is made at setup and recorded (``MCMC.stats``:
-``trajectory_graph``); a capture that fails raises.
+``trajectory_graph``); a capture that fails raises.  A trajectory whose
+ensemble rows are split over a mesh's chain ranks
+(``chain_method="parallel"``: the potential gathers over the process
+group) runs eagerly, and ``trajectory_graph`` then says False.
 
 Each body's first call runs eagerly on the capture stream (its launches
 run and count as any other; it is also the warmup a capture needs:
@@ -53,6 +56,7 @@ import time
 
 import torch
 
+from ...distributed import sharding
 from ...kernels import ops
 from .hmc_util import chain_value_and_grad
 
@@ -146,6 +150,7 @@ class EnsembleTrajectory:
         self.replays = {"opening": 0, "interior": 0}
         self.eager_bodies = {"opening": 0, "interior": 0}
         self.capture_seconds = 0.0
+        self.split_runs = 0  # trajectories run eagerly under a chain split
 
     def counters(self):
         """The counters a captured body bumps on the host."""
@@ -160,7 +165,7 @@ class EnsembleTrajectory:
         return self._stream
 
     def stats(self) -> dict:
-        return {"trajectory_graph": self.graphed,
+        return {"trajectory_graph": self.graphed and not self.split_runs,
                 "graph_replays": dict(self.replays),
                 "graph_eager_bodies": dict(self.eager_bodies),
                 "graph_capture_seconds": self.capture_seconds}
@@ -192,7 +197,9 @@ class EnsembleTrajectory:
         return bufs.n, bufs.u, bufs.eps
 
     def __call__(self, z, z_grad, n, m_inv, eps, num_steps):
-        if not self.graphed:
+        split = sharding.active_ensemble_split() is not None
+        self.split_runs += int(split)
+        if not self.graphed or split:
             z, r = ops.chees_open(z, n, z_grad, m_inv, eps)
             pe, g = self.pe_and_grad(z)
             for _ in range(num_steps - 1):

@@ -29,7 +29,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..errors import NO_DEVICE, ReproRuntimeError, pending
+from ...distributed import sharding
+from ...distributed.sharding import DATA_AXIS
+from ..errors import (NO_DEVICE, NO_SHARD_STRUCTURE, ReproRuntimeError,
+                      ReproValueError)
 from .hmc_util import (
     DAState,
     GeneratorDraws,
@@ -449,7 +452,10 @@ def _cross_chain_wrap(init_batch, sample_batch, schedule, num_warmup, *,
     accumulators are pooled, the shared covariance goes into every chain's
     inverse mass matrix and the accumulators restart.  ``init_fn`` takes
     the chains' draw sources (and ignores a shared one), ``sample_fn`` the
-    batched state and the chains' draw sources."""
+    batched state and the chains' draw sources.  Under a mesh that splits
+    the batch over chain ranks (``chain_method="parallel"``), the chains'
+    accumulators are gathered over the chains dim first, so every rank
+    pools all C chains in the same order."""
     _, window_end_is_middle = window_predicates(schedule)
 
     def init_fn(chain_draws, draws=None):
@@ -461,7 +467,10 @@ def _cross_chain_wrap(init_batch, sample_batch, schedule, num_warmup, *,
         if not (pool_mass and t < num_warmup and window_end_is_middle(t)):
             return state
         adapt = state.adapt_state
-        imm = welford_covariance(welford_pool(adapt.welford))
+        welford, group = adapt.welford, sharding.active_chain_rows()
+        if group is not None:
+            welford = sharding.gather_tree(welford, group)
+        imm = welford_covariance(welford_pool(welford))
         chains = state.z.shape[0]
         imm = imm.expand((chains,) + tuple(imm.shape)).contiguous()
         return state._replace(adapt_state=adapt._replace(
@@ -516,17 +525,18 @@ def flat_model_ingredients(generator, device, *, model=None,
     flat-vector closures, a flat prototype on ``device``, the flat
     ``init_params`` (None without them) and the initial-point strategy for
     :func:`find_valid_initial_params` (``"prior"`` becomes the model's
-    :func:`prior_init` proposal).  ``data_shards`` waits for the multi-GPU
-    slice."""
-    if data_shards is not None:
-        raise pending("data_shards", "multi-GPU")
+    :func:`prior_init` proposal).  ``data_shards=S`` asks for the fused GLM
+    potential's S-shard fold (:mod:`repro_torch.core.infer.glm`), honoured
+    in model mode for a likelihood that fuses; :func:`resolve_data_axis`
+    raises ``RPL302`` when it is not."""
     device = resolve_device(device)
     model_kwargs = model_kwargs or {}
     if model is not None:
         _check_on_device((model_args, model_kwargs), device)
         (potential_flat, unravel, transforms, constrain, _,
          prototype) = initialize_model_structure(generator, model,
-                                                 model_args, model_kwargs)
+                                                 model_args, model_kwargs,
+                                                 data_shards=data_shards)
         prototype = prototype.to(device)
         z_fixed = None
         if init_params is not None:
@@ -547,6 +557,33 @@ def flat_model_ingredients(generator, device, *, model=None,
             init_strategy)
 
 
+def resolve_data_axis(potential_flat, data_shards):
+    """``KernelSetup.data_axis`` for a potential built with
+    ``data_shards``: None without shards, else ``"data"``, when the
+    potential carries the shard-aware fold's marker (``data_shards``, set
+    by ``glm.maybe_fuse_glm_potential``).  A raw ``potential_fn``, or a
+    model whose likelihood fell back to the plain path, has no per-shard
+    structure, and a data mesh under it would evaluate every row on every
+    rank: ``ReproValueError`` ``RPL302`` instead, and for a marker of
+    another shard count."""
+    if data_shards is None:
+        return None
+    marker = getattr(potential_flat, "data_shards", None)
+    if marker is None:
+        raise ReproValueError(
+            f"data_shards={data_shards} was requested but no shard-aware "
+            "potential was built: the model's likelihood did not fuse "
+            "(watch for the fallback warning), or a raw potential_fn was "
+            "passed.  Data-sharded inference needs the fused GLM potential "
+            "(mark the observed site with infer={'potential': 'glm'}).",
+            code=NO_SHARD_STRUCTURE)
+    if int(marker) != int(data_shards):
+        raise ReproValueError(
+            f"potential carries data_shards={marker} but the kernel was "
+            f"asked for data_shards={data_shards}.", code=NO_SHARD_STRUCTURE)
+    return DATA_AXIS
+
+
 def counting(potential_fn):
     """``potential_fn`` counting its calls in ``.count``: the samplers only
     evaluate the potential with its gradient, so the count is the number
@@ -558,6 +595,8 @@ def counting(potential_fn):
         return potential_fn(z)
 
     potential.count = 0
+    if hasattr(potential_fn, "data_shards"):
+        potential.data_shards = potential_fn.data_shards
     batch = getattr(potential_fn, "value_and_grad_batch", None)
     if batch is not None:
         def value_and_grad_batch(z):
@@ -574,7 +613,7 @@ def hmc_setup(generator, num_warmup, *, model=None, potential_fn=None,
               adapt_step_size=True, adapt_mass_matrix=True, dense_mass=False,
               target_accept_prob=0.8, max_tree_depth=10,
               init_strategy="uniform", cross_chain_adapt=False,
-              device="cuda") -> KernelSetup:
+              data_shards=None, device="cuda") -> KernelSetup:
     """Build the :class:`KernelSetup` for HMC (``algo="HMC"``) or NUTS
     (``algo="NUTS"``).  ``generator`` seeds the structure-discovery trace
     only; per-chain randomness comes from the draw source given to
@@ -590,13 +629,18 @@ def hmc_setup(generator, num_warmup, *, model=None, potential_fn=None,
     ``sample_fn(state, chain_draws)`` move the batch in lockstep, and at
     every middle-window end the chains' Welford accumulators are pooled
     (``welford_pool``) into one inverse mass matrix that every chain takes;
-    dual averaging stays per chain."""
+    dual averaging stays per chain.  ``data_shards=S`` gives the fused
+    GLM likelihood an S-shard fold (``KernelSetup.data_axis`` ``"data"``:
+    under ``chain_method="parallel"`` a mesh's data ranks evaluate their
+    shards); ``RPL302`` without a shard-aware potential."""
     reads = HostReads()
     (potential_flat, unravel, constrain, prototype, z_fixed,
      init_strategy) = flat_model_ingredients(
         generator, device, model=model, potential_fn=potential_fn,
         init_params=init_params, model_args=model_args,
-        model_kwargs=model_kwargs, init_strategy=init_strategy)
+        model_kwargs=model_kwargs, data_shards=data_shards,
+        init_strategy=init_strategy)
+    data_axis = resolve_data_axis(potential_flat, data_shards)
     schedule = build_adaptation_schedule(num_warmup)
     counted = counting(potential_flat)
     init_fn = _make_init_fn(
@@ -627,7 +671,7 @@ def hmc_setup(generator, num_warmup, *, model=None, potential_fn=None,
         adapt_schedule=tuple((int(s), int(e)) for (s, e) in schedule),
         host_reads=reads, grad_evals=counted, cross_chain=cross_chain_adapt,
         init_batch_fn=init_batch, sample_batch_fn=sample_batch,
-        metrics_fn=_metrics_fn)
+        metrics_fn=_metrics_fn, data_axis=data_axis)
 
 
 def nuts_setup(generator, num_warmup, **kwargs) -> KernelSetup:
@@ -676,7 +720,7 @@ class HMC:
                  trajectory_length=2 * math.pi, adapt_step_size=True,
                  adapt_mass_matrix=True, dense_mass=False,
                  target_accept_prob=0.8, init_strategy="uniform",
-                 cross_chain_adapt=False, device="cuda"):
+                 cross_chain_adapt=False, data_shards=None, device="cuda"):
         self.model = model
         self.potential_fn = potential_fn
         self.device = resolve_device(device)
@@ -686,7 +730,8 @@ class HMC:
             adapt_step_size=adapt_step_size,
             adapt_mass_matrix=adapt_mass_matrix, dense_mass=dense_mass,
             target_accept_prob=target_accept_prob,
-            init_strategy=init_strategy, cross_chain_adapt=cross_chain_adapt)
+            init_strategy=init_strategy, cross_chain_adapt=cross_chain_adapt,
+            data_shards=data_shards)
         self._algo = "HMC"
 
     def setup(self, generator, num_warmup, init_params=None, model_args=(),
@@ -715,13 +760,14 @@ class NUTS(HMC):
                  adapt_step_size=True, adapt_mass_matrix=True,
                  dense_mass=False, target_accept_prob=0.8,
                  max_tree_depth=10, init_strategy="uniform",
-                 cross_chain_adapt=False, device="cuda"):
+                 cross_chain_adapt=False, data_shards=None, device="cuda"):
         super().__init__(model=model, potential_fn=potential_fn,
                          step_size=step_size, adapt_step_size=adapt_step_size,
                          adapt_mass_matrix=adapt_mass_matrix,
                          dense_mass=dense_mass,
                          target_accept_prob=target_accept_prob,
                          init_strategy=init_strategy,
-                         cross_chain_adapt=cross_chain_adapt, device=device)
+                         cross_chain_adapt=cross_chain_adapt,
+                         data_shards=data_shards, device=device)
         self._algo = "NUTS"
         self._kwargs["max_tree_depth"] = max_tree_depth

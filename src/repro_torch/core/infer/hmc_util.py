@@ -46,6 +46,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ...distributed import sharding
 from ...kernels import ops
 from ...kernels.leapfrog import (chain_sum, halfstep_chains_ref,
                                  nuts_leaf_batch_ref, nuts_turning_batch_ref,
@@ -976,15 +977,30 @@ def chain_value_and_grad(potential_fn: Callable):
     kernel launch and one pass over X for all C chains), is called once.
     Any other potential is a loop over the chains, one value-and-gradient
     evaluation each, stacked: a model's potential may branch on its data
-    or call into ctypes, which ``torch.func.vmap`` cannot enter."""
+    or call into ctypes, which ``torch.func.vmap`` cannot enter.
+
+    Under ``chain_method="parallel"`` an ensemble's rows are split over the
+    mesh's chains dim (``sharding.active_ensemble_split``): each chain rank
+    evaluates its block of rows and the blocks are gathered in rank order,
+    so every rank holds the whole ensemble's potentials and gradients, each
+    row the one its chain gives alone.  A batch the chain ranks do not
+    divide is evaluated whole."""
     batch = getattr(potential_fn, "value_and_grad_batch", None)
-    if batch is not None:
-        return batch
-    pe_and_grad = value_and_grad(potential_fn)
+    if batch is None:
+        pe_and_grad = value_and_grad(potential_fn)
+
+        def batch(z):
+            pes, grads = zip(*(pe_and_grad(row) for row in z))
+            return torch.stack(pes), torch.stack(grads)
 
     def batched(z):
-        pes, grads = zip(*(pe_and_grad(row) for row in z))
-        return torch.stack(pes), torch.stack(grads)
+        split = sharding.active_ensemble_split()
+        if split is None or z.shape[0] % split[2]:
+            return batch(z)
+        group, rank, ranks = split
+        rows = z.shape[0] // ranks
+        pe, grad = batch(z[rank * rows:(rank + 1) * rows])
+        return sharding.all_gather_pair(pe, grad, group)
 
     return batched
 

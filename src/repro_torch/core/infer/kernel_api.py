@@ -68,6 +68,11 @@ class KernelSetup(NamedTuple):
     # and drains a chunk's series in one read (repro_torch.obs); RPL401 and
     # RPL402 guard the contract.  None opts out.
     metrics_fn: Optional[Callable] = None
+    # "data" when the potential carries a static data_shards fold (the
+    # fused GLM potential's ``data_shards`` marker): under
+    # chain_method="parallel" the mesh's data ranks evaluate its shards.
+    # The setup stays mesh-agnostic; the executor activates the mesh.
+    data_axis: Optional[str] = None
 
 
 def init_state(setup: KernelSetup, *draws):

@@ -34,7 +34,8 @@ import torch
 
 from ...kernels import ops
 from .ensemble import initial_positions, refresh_mass
-from .hmc import counting, flat_model_ingredients, resolve_device
+from .hmc import (counting, flat_model_ingredients, resolve_data_axis,
+                  resolve_device)
 from .hmc_util import (
     DAState,
     HostReads,
@@ -205,7 +206,10 @@ def mrw_setup(generator, num_warmup, algo, *, model=None, potential_fn=None,
               data_shards=None, device="cuda") -> KernelSetup:
     """Build the cross-chain :class:`KernelSetup` for MALA or RWM on
     ``device`` (default ``"cuda"``; raises without CUDA unless
-    ``device="cpu"``).  ``data_shards`` waits for the multi-GPU slice."""
+    ``device="cpu"``).  ``data_shards=S`` gives the fused GLM likelihood an
+    S-shard fold (``KernelSetup.data_axis``, ``RPL302`` without a
+    shard-aware potential, as :func:`~repro_torch.core.infer.hmc.hmc_setup`
+    does)."""
     if algo not in ("MALA", "RWM"):
         raise ValueError(f"algo must be 'MALA' or 'RWM', got {algo!r}")
     if target_accept_prob is None:
@@ -217,6 +221,7 @@ def mrw_setup(generator, num_warmup, algo, *, model=None, potential_fn=None,
         init_params=init_params, model_args=model_args,
         model_kwargs=model_kwargs, data_shards=data_shards,
         init_strategy=init_strategy)
+    data_axis = resolve_data_axis(potential_flat, data_shards)
     schedule = build_adaptation_schedule(num_warmup)
     counted = counting(potential_flat)
     init_fn = _make_init_fn(counted, prototype, reads, z_fixed=z_fixed,
@@ -231,7 +236,7 @@ def mrw_setup(generator, num_warmup, algo, *, model=None, potential_fn=None,
         constrain_fn=constrain, num_warmup=int(num_warmup), algo=algo,
         adapt_schedule=tuple((int(s), int(e)) for (s, e) in schedule),
         host_reads=reads, grad_evals=counted, cross_chain=True,
-        metrics_fn=_metrics_fn)
+        metrics_fn=_metrics_fn, data_axis=data_axis)
 
 
 class _MRWKernel:

@@ -39,8 +39,36 @@ restores both and continues bit-identically: the restore's skeleton is the
 kernel's own init on throwaway draw sources (its evaluations and reads are
 not counted in ``stats``).  One chain (under either chain method), a
 lockstep batch and an ensemble checkpoint; ``"sequential"`` with more
-than one chain raises.  ``chain_method="parallel"`` (chains over several
-cards) and meshes wait for the multi-GPU slice.
+than one chain raises.
+
+``chain_method="parallel"`` runs the same programs over the ranks of a
+``torch.distributed`` mesh (``launch.mesh.make_inference_mesh``:
+``mesh_shape=None`` the 1-D ``("chains",)`` mesh, ``(Sc, Sd)`` the 2-D
+``("chains", "data")`` one; one rank is one device, and with no process
+group one rank in this process), and gives every rank the draws, state and
+checkpoint of the one-process ``"vectorized"`` run, byte for byte:
+
+- per-chain kernels (HMC, NUTS, also with ``cross_chain_adapt``): chain
+  rank ``r`` runs the lockstep program on chains ``r C/Sc`` to ``(r + 1)
+  C/Sc - 1``, with those chains' draw sources (seeded as in a vectorized
+  run); each chain draws and computes what it would alone.  The pooled
+  mass matrix gathers the chains' Welford rows over the chains dim and
+  pools them in ``chain_sum``'s order;
+- cross-chain kernels (ChEES, MALA, RWM): every rank holds the whole
+  ensemble and moves it, and the ensemble's batched potential is split
+  over the chains dim (each rank evaluates its rows, then they are
+  gathered in rank order), so every cross-chain fold sees all C rows;
+- a data-sharded potential (``data_shards``, ``KernelSetup.data_axis``):
+  on a 2-D mesh each data rank holds its rows and evaluates its shards,
+  gathered over the data dim before the fold (``core/infer/glm.py``).
+
+Each chunk's draws are gathered over the chains dim, so ``get_samples()``
+and ``last_state`` are the whole run's on every rank.  Rank 0 writes the
+checkpoint in the logical layout of a one-process run, then every rank
+of the mesh passes a barrier; the checkpoint resumes under any mesh, or
+``"vectorized"`` in one process (``RPL301`` when the chain dim does not
+divide the chains, ``RPL303`` when the data dim does not divide
+``data_shards``).  A rank outside the mesh takes no chains.
 
 Observability, as in the JAX package's executor (:mod:`repro_torch.obs`):
 ``MCMC(..., progress=True)`` prints one line a chunk,
@@ -59,6 +87,7 @@ the chunk span's close rides, so ``stats["host_syncs"]`` shows the cost:
 at most one more a chunk (one more for a chunk that diverged, with
 forensics on).  With ``telemetry=None``, ``progress=False`` and
 ``until=None`` the executor runs exactly the loop it runs without them.
+Telemetry under ``"parallel"`` takes a one-rank mesh.
 """
 from __future__ import annotations
 
@@ -73,10 +102,13 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from ...distributed import checkpoint as ckpt
+from ...distributed import sharding
 from ...kernels import _build
 from ...obs.metrics import host_tree, stack_rows
-from ..errors import pending
+from ..errors import SHARDS_NOT_DIVISIBLE, ReproValueError
 from .diagnostics import print_summary
 from .hmc import resolve_device
 from .hmc_util import GeneratorDraws
@@ -120,11 +152,18 @@ def _join(parts, device, dim):
             for k in parts[0]}
 
 
-def _state_tree(state, draws):
+def _state_tree(state, generator_states):
     """What ``state/`` holds: the chain state and every draw source's
     generator state, in one write."""
-    return {"chain_state": state,
-            "draws": [d.generator.get_state() for d in draws]}
+    return {"chain_state": state, "draws": list(generator_states)}
+
+
+class _ChainSplit(NamedTuple):
+    """A chain rank's block of a ``"parallel"`` lockstep run: chains
+    ``start`` to ``stop - 1`` of the run, gathered over ``group``."""
+    group: object
+    start: int
+    stop: int
 
 
 def _chunk_skeleton(directory):
@@ -245,7 +284,7 @@ class MCMC:
     def __init__(self, kernel, num_warmup: int, num_samples: int,
                  num_chains: int = 1, thinning: int = 1,
                  chain_method: str = "vectorized", progress: bool = False,
-                 device=None, telemetry=None):
+                 device=None, telemetry=None, mesh_shape=None):
         self.kernel = kernel
         self.num_warmup = int(num_warmup)
         self.num_samples = int(num_samples)
@@ -253,9 +292,19 @@ class MCMC:
         self.thinning = int(thinning)
         if chain_method not in ("vectorized", "sequential", "parallel"):
             raise ValueError(f"unknown chain_method {chain_method}")
-        if chain_method == "parallel":
-            raise pending("chain_method='parallel'", "multi-GPU")
         self.chain_method = chain_method
+        # the (chains, data) mesh of chain_method="parallel"; None keeps the
+        # 1-D chains mesh
+        if mesh_shape is not None:
+            if chain_method != "parallel":
+                raise ValueError("mesh_shape is only meaningful with "
+                                 "chain_method='parallel'")
+            mesh_shape = tuple(int(v) for v in mesh_shape)
+            if len(mesh_shape) != 2:
+                raise ValueError(f"mesh_shape must be a (chains, data) pair, "
+                                 f"got {mesh_shape}")
+        self.mesh_shape = mesh_shape
+        self._mesh = None
         kernel_device = getattr(kernel, "device", None)
         device = resolve_device(device if device is not None
                                 else kernel_device or "cuda")
@@ -303,6 +352,14 @@ class MCMC:
                 "telemetry requires a batched chain_method ('vectorized' "
                 "or 'parallel'): sequential runs re-enter the executor per "
                 "chain, so there is no single chunk stream to instrument")
+        mesh = self._inference_mesh() if self.chain_method == "parallel" \
+            else None
+        if mesh is not None and mesh.get_coordinate() is None:
+            return self._idle()
+        if tele is not None and mesh is not None and mesh.size() > 1:
+            raise ValueError(
+                "telemetry under chain_method='parallel' takes a one-rank "
+                f"mesh; this one has {mesh.size()} ranks")
         if tele is not None:
             # open the sink and the manifest before any span can fire; the
             # setup-derived fields land via commit_run_config below
@@ -313,7 +370,7 @@ class MCMC:
                  "num_samples": self.num_samples,
                  "num_chains": self.num_chains,
                  "chain_method": self.chain_method,
-                 "mesh_shape": None,
+                 "mesh_shape": self._mesh_fields()[0],
                  "thinning": self.thinning,
                  "until": (None if until is None else
                            {"max_rhat": until.max_rhat,
@@ -321,7 +378,9 @@ class MCMC:
                             "max_samples": until.max_samples,
                             "check_every": until.check_every,
                             "batch_size": until.batch_size})},
-                default_dir=checkpoint_dir, resume=resume)
+                default_dir=checkpoint_dir, resume=resume,
+                mesh_shape=self._mesh_fields()[0],
+                device_count=(mesh.size() if mesh is not None else None))
         t0 = time.perf_counter()
         with self._span("setup"):
             model_args = _to_device(model_args, self.device)
@@ -339,7 +398,9 @@ class MCMC:
             raise ValueError(
                 f"kernel {setup.algo!r} adapts across the chain batch; "
                 "chain_method='sequential' would run each chain alone: use "
-                "'vectorized'")
+                "'vectorized' or 'parallel'")
+        if mesh is not None:
+            self._check_data_axis(setup, mesh)
         if self.progress:
             if tele is not None:
                 self._reporter = tele.reporter
@@ -348,53 +409,24 @@ class MCMC:
                 self._reporter = LiveReporter()
             self._reporter.start(self.num_warmup + self.num_samples)
         t_chains = time.perf_counter()
+        batched = self.chain_method == "parallel" or (
+            self.chain_method == "vectorized" and self.num_chains > 1)
         lockstep = setup.sample_batch_fn is not None and (
-            setup.cross_chain or (self.chain_method == "vectorized"
-                                  and self.num_chains > 1))
+            setup.cross_chain or batched)
         programs = _lockstep_program if lockstep else \
             _ensemble_program if setup.cross_chain else _chain_programs
-        self._divergences = 0
-        self._num_leapfrog = self._iterations = 0
-        if checkpoint_every:
-            chunk = int(checkpoint_every)
-        elif self.monitor is not None:
-            chunk = int(self.monitor.until.check_every)
-        else:
-            chunk = self.num_warmup + self._target_samples()
-        reads0, evals0, leaves0 = self._counts(setup, lockstep)
-        init_evals, parts, states, resumed_at = 0, [], [], None
-        for prog in programs(setup, self._draw_sources(seed, setup,
-                                                       lockstep)):
-            restored = None
-            if resume:
-                with self._span("resume_restore"):
-                    restored = self._restore_checkpoint(
-                        checkpoint_dir, prog,
-                        self._draw_sources(seed, setup, lockstep))
-                reads0, evals0, leaves0 = self._counts(setup, lockstep)
-            if restored is not None:
-                state, done, chain_parts, self._divergences, extra = restored
-                resumed_at = done
-                self._resume_monitor(extra, chain_parts)
-                if tele is not None:
-                    tele.set_resumed_at(done)
-                    tele.record_divergences(self._divergences)
-                    for part in chain_parts if tele.forensics else ():
-                        tele.forensics.fold_moments(
-                            part["z"].shape[0] * part["z"].shape[1],
-                            *_moments(part["z"]))
-            else:
-                with self._span("init"):
-                    evals = setup.grad_evals.count
-                    state, done, chain_parts = prog.init(), 0, []
-                    init_evals += setup.grad_evals.count - evals
-            if tele is not None and tele.metrics \
-                    and setup.metrics_fn is not None:
-                self._check_metrics_contract(setup, state, lockstep)
-            state = self._advance(setup, prog, state, done, chunk,
-                                  checkpoint_dir, chain_parts)
-            states.append(state)
-            parts.append(_join(chain_parts, self.device, 1))
+        split = None
+        if mesh is not None and lockstep:
+            split = _ChainSplit(mesh.get_group(sharding.CHAIN_AXIS),
+                                *sharding.local_block(
+                                    self.num_chains, mesh,
+                                    sharding.chain_placements(mesh)))
+        with self._mesh_context(mesh, lockstep):
+            states, parts, init_evals, resumed_at, counts0 = self._chains(
+                seed, setup, programs, lockstep, split,
+                checkpoint_every=checkpoint_every,
+                checkpoint_dir=checkpoint_dir, resume=resume)
+        reads0, evals0, leaves0 = counts0
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t_end = time.perf_counter()
@@ -424,12 +456,116 @@ class MCMC:
                       "lockstep_efficiency": None,
                       "resumed_at": resumed_at}
         if lockstep:
+            chains = self.num_chains if split is None \
+                else split.stop - split.start
             leaves = setup.sample_batch_fn.lockstep.leapfrogs - leaves0
             self.stats["lockstep_leapfrogs"] = leaves
             self.stats["lockstep_efficiency"] = (
-                num_leapfrog / (self.num_chains * leaves) if leaves else None)
+                num_leapfrog / (chains * leaves) if leaves else None)
         self.stats.update(getattr(setup.sample_fn, "trajectory_stats",
                                   dict)())
+        return self
+
+    def _chains(self, seed, setup, programs, lockstep, split, *,
+                checkpoint_every, checkpoint_dir, resume):
+        """Every program's init (or restore) and chunks: ``(final states,
+        each program's draws, init evaluations, resumed_at, the counts the
+        run's stats start from)``."""
+        tele = self.telemetry
+        self._divergences = 0
+        self._num_leapfrog = self._iterations = 0
+        if checkpoint_every:
+            chunk = int(checkpoint_every)
+        elif self.monitor is not None:
+            chunk = int(self.monitor.until.check_every)
+        else:
+            chunk = self.num_warmup + self._target_samples()
+        counts0 = self._counts(setup, lockstep)
+        init_evals, parts, states, resumed_at = 0, [], [], None
+        draws = self._draw_sources(seed, setup, lockstep)
+        if split is not None:
+            draws = draws[split.start:split.stop]
+        for prog in programs(setup, draws):
+            restored = None
+            if resume:
+                with self._span("resume_restore"):
+                    restored = self._restore_checkpoint(
+                        checkpoint_dir, prog,
+                        self._draw_sources(seed, setup, lockstep), split)
+                counts0 = self._counts(setup, lockstep)
+            if restored is not None:
+                state, done, chain_parts, self._divergences, extra = restored
+                resumed_at = done
+                self._resume_monitor(extra, chain_parts)
+                if tele is not None:
+                    tele.set_resumed_at(done)
+                    tele.record_divergences(self._divergences)
+                    for part in chain_parts if tele.forensics else ():
+                        tele.forensics.fold_moments(
+                            part["z"].shape[0] * part["z"].shape[1],
+                            *_moments(part["z"]))
+            else:
+                with self._span("init"):
+                    evals = setup.grad_evals.count
+                    state, done, chain_parts = prog.init(), 0, []
+                    init_evals += setup.grad_evals.count - evals
+            if tele is not None and tele.metrics \
+                    and setup.metrics_fn is not None:
+                self._check_metrics_contract(setup, state, lockstep)
+            state = self._advance(setup, prog, state, done, chunk,
+                                  checkpoint_dir, chain_parts, split)
+            if split is not None:
+                state = sharding.gather_tree(state, split.group)
+            states.append(state)
+            parts.append(_join(chain_parts, self.device, 1))
+        return states, parts, init_evals, resumed_at, counts0
+
+    # -- the mesh (chain_method="parallel") -----------------------------------
+
+    def _inference_mesh(self):
+        """The run's mesh (built once; ``RPL301`` when it does not fit)."""
+        if self._mesh is None:
+            from ...launch.mesh import make_inference_mesh
+            self._mesh = make_inference_mesh(self.num_chains, self.mesh_shape,
+                                             devices=self.device.type)
+        return self._mesh
+
+    def _mesh_fields(self):
+        """``(mesh_shape, num_devices)`` of the run as its records give
+        them: the mesh's shape and rank count under ``"parallel"``, else
+        ``(None, 1)``."""
+        if self.chain_method != "parallel":
+            return None, 1
+        mesh = self._inference_mesh()
+        return list(mesh.shape), mesh.size()
+
+    def _mesh_context(self, mesh, lockstep):
+        """The mesh as the potentials see it during the run: data shards
+        over its data dim, and, for a cross-chain kernel, the ensemble's
+        rows over its chains dim."""
+        if mesh is None:
+            return contextlib.nullcontext()
+        return sharding.use_inference_mesh(mesh, sharding.DATA_AXIS,
+                                           ensemble=not lockstep)
+
+    def _check_data_axis(self, setup, mesh):
+        """``RPL303`` before the first transition when the mesh's data dim
+        does not divide the potential's ``data_shards``."""
+        shards = getattr(setup.potential_fn, "data_shards", None)
+        if setup.data_axis is None or shards is None \
+                or setup.data_axis not in (mesh.mesh_dim_names or ()):
+            return
+        size = sharding.dim_size(mesh, setup.data_axis)
+        if shards % size:
+            raise ReproValueError(
+                f"potential has data_shards={shards} but the mesh data axis "
+                f"has {size} devices; pick data_shards as a multiple of the "
+                "data-axis size.", code=SHARDS_NOT_DIVISIBLE)
+
+    def _idle(self):
+        """A rank outside the mesh: no chains, no draws."""
+        self._samples, self._collected, self._last_state = {}, {}, None
+        self.stats = {}
         return self
 
     @staticmethod
@@ -572,11 +708,12 @@ class MCMC:
     # -- the chunked executor -------------------------------------------------
 
     def _advance(self, setup, prog, state, done, chunk, checkpoint_dir,
-                 parts):
+                 parts, split=None):
         """Move ``state`` from iteration ``done`` to the end in chunks of at
         most ``chunk`` iterations (warmup and sampling never share one),
-        appending each sampling chunk's draws to ``parts`` and, with a
-        ``checkpoint_dir``, saving after every chunk.  Chunk boundaries
+        appending each sampling chunk's draws (gathered over ``split``'s
+        chain ranks) to ``parts`` and, with a ``checkpoint_dir``, saving
+        after every chunk.  Chunk boundaries
         depend only on (num_warmup, num_samples, chunk, done), so a resumed
         run issues the uninterrupted run's transitions.
 
@@ -616,6 +753,8 @@ class MCMC:
                         rows.append(setup.collect_fn(state))
                 self._iterations += n
                 out = prog.rows(rows) if rows else None
+                if out is not None and split is not None:
+                    out = sharding.gather_tree(out, split.group)
                 if out is not None:
                     parts.append(out)
                 if observed:
@@ -637,7 +776,8 @@ class MCMC:
                     self._divergences += int(out["diverging"].sum())
                 with self._span("checkpoint_write", step=done):
                     self._save_checkpoint(checkpoint_dir, state, prog.draws,
-                                          done, chunk=out, start=start)
+                                          done, chunk=out, start=start,
+                                          split=split)
             if stop:
                 break
         return state
@@ -688,9 +828,25 @@ class MCMC:
     # removed and written again, from the same draws, after the resume.
 
     def _save_checkpoint(self, directory, state, draws, done, chunk=None,
-                         start=None):
+                         start=None, split=None):
         """After a chunk: its draws (a sampling chunk's, iterations
-        ``start`` to ``done``), then the state at ``done``."""
+        ``start`` to ``done``), then the state at ``done``.  Under
+        ``"parallel"`` a chain rank's state and generators are gathered
+        first, rank 0 writes the one-process run's files, and the mesh's
+        ranks meet at a barrier after it."""
+        generators = [d.generator.get_state() for d in draws]
+        if split is not None:
+            state = sharding.gather_tree(state, split.group)
+            generators = list(sharding.all_gather_rows(
+                torch.stack(generators), split.group))
+        if self.chain_method != "parallel" or dist.get_rank() == 0:
+            self._write_checkpoint(directory, state, generators, done,
+                                   chunk, start)
+        if self.chain_method == "parallel":
+            sharding.barrier(self._inference_mesh())
+
+    def _write_checkpoint(self, directory, state, generators, done, chunk,
+                          start):
         os.makedirs(directory, exist_ok=True)
         if chunk is not None:
             # orphans at or after this start (from a kill, or a resume with
@@ -702,25 +858,28 @@ class MCMC:
                     shutil.rmtree(os.path.join(directory, name))
             ckpt.save(chunk, os.path.join(
                 directory, f"samples_{start:06d}_{done:06d}"), step=done)
+        mesh_shape, devices = self._mesh_fields()
         extra = {"num_warmup": self.num_warmup,
                  "num_samples": self.num_samples,
                  "num_chains": self.num_chains,
                  "chain_method": self.chain_method,
-                 "mesh_shape": None,
-                 "num_devices": (torch.cuda.device_count()
-                                 if torch.cuda.is_available() else 1),
+                 "mesh_shape": mesh_shape,
+                 "num_devices": devices,
                  "divergences": int(self._divergences)}
         if self.monitor is not None:
             # a gated run's accumulators and decision: a resumed run
             # re-hydrates them and stops at the same iteration
             extra["monitor"] = self.monitor.state_dict()
-        ckpt.save(_state_tree(state, draws),
+        ckpt.save(_state_tree(state, generators),
                   os.path.join(directory, "state"), step=done, extra=extra)
 
-    def _restore_checkpoint(self, directory, prog, skeleton_draws):
+    def _restore_checkpoint(self, directory, prog, skeleton_draws,
+                            split=None):
         """``(state, done, parts, divergences, extra)`` from ``directory``,
         the program's draw sources set to their saved states; None when
-        there is no checkpoint yet."""
+        there is no checkpoint yet.  The checkpoint holds the whole run
+        (every layout writes the logical one); a chain rank takes its
+        block of it."""
         state_dir = os.path.join(directory, "state")
         done = ckpt.latest_step(state_dir)
         if done is None:
@@ -734,11 +893,21 @@ class MCMC:
                     f"{field}={extra.get(field)}, this MCMC has "
                     f"{getattr(self, field)}")
         # the skeleton: the kernel's own init on throwaway draw sources
-        skeleton = prog.init(skeleton_draws)
-        tree, _, _ = ckpt.restore(_state_tree(skeleton, prog.draws),
-                                  state_dir)
-        for source, saved in zip(prog.draws, tree["draws"]):
-            source.generator.set_state(saved)
+        if split is None:
+            skeleton = prog.init(skeleton_draws)
+        else:
+            skeleton = sharding.gather_tree(
+                prog.init(skeleton_draws[split.start:split.stop]),
+                split.group)
+        tree, _, _ = ckpt.restore(_state_tree(
+            skeleton, [d.generator.get_state() for d in skeleton_draws]),
+            state_dir)
+        state, saved = tree["chain_state"], tree["draws"]
+        if split is not None:
+            state = sharding.take_rows(state, split.start, split.stop)
+            saved = saved[split.start:split.stop]
+        for source, generator_state in zip(prog.draws, saved):
+            source.generator.set_state(generator_state)
 
         ranges = []
         for name in os.listdir(directory):
@@ -762,7 +931,7 @@ class MCMC:
                 f"checkpoint at {directory} is missing sample chunks "
                 f"covering iterations {expected_start}..{done}")
         divergences = int(extra.get("divergences", 0))
-        return tree["chain_state"], done, parts, divergences, extra
+        return state, done, parts, divergences, extra
 
     def get_samples(self, group_by_chain: bool = False):
         """Constrained-space draws by site: ``(chains, samples, ...)`` when

@@ -164,13 +164,14 @@ def ravel(params: Dict[str, torch.Tensor]
 
 
 def initialize_model_structure(generator, model, model_args=(),
-                               model_kwargs=None):
+                               model_kwargs=None, data_shards=None):
     """One-time work: trace the model and build the flat-space closures.
 
     Returns ``(potential_fn_flat, unravel_fn, transforms, constrain,
     model_trace, flat_prototype)``.  A model that marks its likelihood
     ``infer={"potential": "glm"}`` gets the fused GLM potential when the
-    structural checks of :mod:`repro_torch.core.infer.glm` pass.
+    structural checks of :mod:`repro_torch.core.infer.glm` pass, with the
+    ``data_shards``-shard fold when it is given.
 
     Models with enumerable discrete latents need no special treatment: the
     model is wrapped in :func:`~repro_torch.core.infer.enum.config_enumerate`
@@ -204,7 +205,7 @@ def initialize_model_structure(generator, model, model_args=(),
     from .glm import maybe_fuse_glm_potential
     fused = maybe_fuse_glm_potential(checked, model_args, model_kwargs,
                                      transforms, unravel_fn, flat_proto, tr,
-                                     potential_flat)
+                                     potential_flat, data_shards=data_shards)
     if fused is not None:
         potential_flat = fused
     return potential_flat, unravel_fn, transforms, constrain, tr, flat_proto

@@ -52,6 +52,15 @@
 // - Chains: up to 16 per CTA (CB = 1, 2, 4, 8 or 16, the chains past C
 //   padded with w = 0 and dropped); more chains split over gridDim.y, each
 //   group of 16 reading X again.
+// - Data shards (glm_potential_partials_f32; replaces the loop of
+//   src/repro/kernels/glm_potential.py:106 glm_potential_partials over
+//   S equal row shards, one pallas_call each): gridDim.z = S, and the CTAs
+//   of shard z walk only its m = n / S rows, x[z m : (z + 1) m], with the
+//   grid, tile map, copy path (16-byte cp.async where the shard's rows are
+//   16-byte aligned, else 4-byte) and fold order of a separate launch on
+//   those rows.  Each (z, chain group) block folds into its own partials
+//   and ticket region, so every shard's partials of every chain come from
+//   one launch, each bit-identical to a single-shard launch on its rows.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,6 +72,8 @@ constexpr int kThreads = 256;
 constexpr int kStages = 3;
 constexpr int kChainsPerCta = 16;
 constexpr int kMaxChains = 256;  // the wrapper's limit: 16 chain groups
+constexpr int kChainGroups = kMaxChains / kChainsPerCta;
+constexpr int kMaxShards = 65535;  // gridDim.z
 constexpr int kMaxCtas = 264;    // 2 per SM of an H100
 constexpr int kGroup = 16;       // CTAs per first-level fold
 constexpr int kMaxGroups = (kMaxCtas + kGroup - 1) / kGroup;  // 17
@@ -196,20 +207,31 @@ __device__ __forceinline__ void fold_rows(const float* src, int rows,
   }
 }
 
-// gridDim = (G, ceil(C / CB)); CB chains per CTA, J gradient items a thread.
-// part: gridDim.y * G rows of CB * (d + 1) floats; part2: gridDim.y *
-// kMaxGroups rows of the same; tickets: gridDim.y * (kMaxGroups + 1) ints,
-// zero at launch and left zero.
+// gridDim = (G, ceil(C / CB), S); CB chains per CTA, J gradient items a
+// thread, n rows a shard (S shards of n rows each in x, y and offset).
+// part: S * gridDim.y * G rows of CB * (d + 1) floats; part2: S * gridDim.y
+// * kMaxGroups rows of the same; tickets: S * kChainGroups * (kMaxGroups +
+// 1) ints, zero at launch and left zero.  nll (C, S), grad (C, S, d).
 template <int CB, int J>
 __global__ void __launch_bounds__(kThreads, 2)
-glm_chains_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                  const float* __restrict__ offset,
+glm_chains_kernel(const float* __restrict__ x_all,
+                  const float* __restrict__ y_all,
+                  const float* __restrict__ offset_all,
                   const float* __restrict__ w, float scale, int family,
-                  long long n, int d, int chains, bool vec,
+                  long long n, int d, int chains,
                   float* __restrict__ part, float* __restrict__ part2,
                   int* __restrict__ tickets, float* __restrict__ nll,
                   float* __restrict__ grad) {
   extern __shared__ __align__(16) float smem[];
+  // this CTA's shard: its rows, and the copy path a launch on them takes
+  const int shards = gridDim.z, z = blockIdx.z;
+  const float* x = x_all + (long long)z * n * d;
+  const float* y = y_all + (long long)z * n;
+  const float* offset =
+      offset_all != nullptr ? offset_all + (long long)z * n : nullptr;
+  const bool vec = ((uintptr_t)x % 16 == 0) && ((uintptr_t)y % 16 == 0) &&
+                   ((uintptr_t)offset % 16 == 0);
+  const long long zy = (long long)z * gridDim.y + blockIdx.y;
   const Shape sh = shape_for(n, d);
   const int R = sh.rows, S = sh.slices, cols = d + 1;
   const int tid = threadIdx.x;
@@ -341,7 +363,7 @@ glm_chains_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
   __syncthreads();
   const int items = cg * cols, stride = CB * cols;
-  float* mine = part + ((long long)blockIdx.y * sh.ctas + blockIdx.x) * stride;
+  float* mine = part + (zy * sh.ctas + blockIdx.x) * stride;
   for (int i = tid; i < items; i += kThreads) {
     const int c = i / cols, col = i - c * cols;
     float v = red[c * cols + col];
@@ -351,7 +373,8 @@ glm_chains_kernel(const float* __restrict__ x, const float* __restrict__ y,
 
   // first-level fold: the last CTA of each group of kGroup
   __shared__ int last;
-  int* tk = tickets + blockIdx.y * (kMaxGroups + 1);
+  int* tk = tickets +
+            ((long long)z * kChainGroups + blockIdx.y) * (kMaxGroups + 1);
   const int g1 = blockIdx.x / kGroup;
   const int in_group =
       sh.ctas - g1 * kGroup < kGroup ? sh.ctas - g1 * kGroup : kGroup;
@@ -365,10 +388,8 @@ glm_chains_kernel(const float* __restrict__ x, const float* __restrict__ y,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  fold_rows<kGroup>(
-      part + ((long long)blockIdx.y * sh.ctas + g1 * kGroup) * stride,
-      in_group, items, stride,
-      part2 + ((long long)blockIdx.y * kMaxGroups + g1) * stride);
+  fold_rows<kGroup>(part + (zy * sh.ctas + g1 * kGroup) * stride, in_group,
+                    items, stride, part2 + (zy * kMaxGroups + g1) * stride);
 
   // second-level fold: the last group's folder writes nll and grad
   __threadfence();
@@ -381,7 +402,7 @@ glm_chains_kernel(const float* __restrict__ x, const float* __restrict__ y,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const float* top = part2 + (long long)blockIdx.y * kMaxGroups * stride;
+  const float* top = part2 + zy * kMaxGroups * stride;
   for (int i = tid; i < items; i += kThreads) {
     float v[kMaxGroups];
 #pragma unroll
@@ -392,10 +413,11 @@ glm_chains_kernel(const float* __restrict__ x, const float* __restrict__ y,
     for (int q = 1; q < kMaxGroups; ++q)
       if (q < sh.groups) s = __fadd_rn(s, v[q]);
     const int c = i / cols, col = i - c * cols;
+    const long long cz = (long long)(c0 + c) * shards + z;
     if (col == d)
-      nll[c0 + c] = s;
+      nll[cz] = s;
     else
-      grad[(long long)(c0 + c) * d + col] = s;
+      grad[cz * d + col] = s;
   }
 }
 
@@ -405,10 +427,10 @@ int chains_per_cta(int chains) {
 }
 
 template <int CB, int J>
-cudaError_t launch(const Shape& sh, int d, int chains, cudaStream_t st,
-                   const float* x, const float* y, const float* off,
-                   const float* w, float scale, int family, long long n,
-                   bool vec, float* part, float* part2, int* tickets,
+cudaError_t launch(const Shape& sh, int d, int chains, int shards,
+                   cudaStream_t st, const float* x, const float* y,
+                   const float* off, const float* w, float scale, int family,
+                   long long n, float* part, float* part2, int* tickets,
                    float* nll, float* grad) {
   static int allowed = 0;  // the dynamic shared-memory limit set so far
   const int bytes = 4 * smem_floats(sh, d, CB);
@@ -419,31 +441,31 @@ cudaError_t launch(const Shape& sh, int d, int chains, cudaStream_t st,
     if (err != cudaSuccess) return err;
     allowed = bytes;
   }
-  const dim3 grid(sh.ctas, (chains + CB - 1) / CB);
+  const dim3 grid(sh.ctas, (chains + CB - 1) / CB, shards);
   glm_chains_kernel<CB, J><<<grid, kThreads, bytes, st>>>(
-      x, y, off, w, scale, family, n, d, chains, vec, part, part2, tickets,
-      nll, grad);
+      x, y, off, w, scale, family, n, d, chains, part, part2, tickets, nll,
+      grad);
   return cudaGetLastError();
 }
 
 template <int CB>
-cudaError_t launch_cb(const Shape& sh, int d, int chains, cudaStream_t st,
-                      const float* x, const float* y, const float* off,
-                      const float* w, float scale, int family, long long n,
-                      bool vec, float* part, float* part2, int* tickets,
-                      float* nll, float* grad) {
+cudaError_t launch_cb(const Shape& sh, int d, int chains, int shards,
+                      cudaStream_t st, const float* x, const float* y,
+                      const float* off, const float* w, float scale,
+                      int family, long long n, float* part, float* part2,
+                      int* tickets, float* nll, float* grad) {
   if ((d + 1) * sh.slices <= kThreads)
-    return launch<CB, 1>(sh, d, chains, st, x, y, off, w, scale, family, n,
-                         vec, part, part2, tickets, nll, grad);
-  return launch<CB, 2>(sh, d, chains, st, x, y, off, w, scale, family, n,
-                       vec, part, part2, tickets, nll, grad);
+    return launch<CB, 1>(sh, d, chains, shards, st, x, y, off, w, scale,
+                         family, n, part, part2, tickets, nll, grad);
+  return launch<CB, 2>(sh, d, chains, shards, st, x, y, off, w, scale, family,
+                       n, part, part2, tickets, nll, grad);
 }
 
 }  // namespace
 
 extern "C" int glm_potential_max_chains() { return kMaxChains; }
 
-// Floats of the two partial buffers for a call; tickets holds
+// Floats of the two partial buffers for a call on n rows; tickets holds
 // glm_potential_ticket_ints() ints, zeroed once (the kernel leaves it zero).
 extern "C" long long glm_potential_part_floats(long long n, int d,
                                                int chains) {
@@ -459,24 +481,41 @@ extern "C" long long glm_potential_part2_floats(int d, int chains) {
 }
 
 extern "C" int glm_potential_ticket_ints() {
-  return (kMaxChains / kChainsPerCta) * (kMaxGroups + 1);
+  return kChainGroups * (kMaxGroups + 1);
 }
 
-// x (n, d), y (n,), offset (n,) or null, w (chains, d), all float32; family
-// 0 = bernoulli_logit, 1 = normal.  nll (chains,), grad (chains, d).
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int glm_potential_grad_f32(const void* x, const void* y,
-                                      const void* offset, const void* w,
-                                      float scale, int family, long long n,
-                                      int d, int chains, void* part,
-                                      void* part2, void* tickets, void* nll,
-                                      void* grad, void* stream) {
-  if (n <= 0 || d <= 0 || d > 256 || chains < 1 || chains > kMaxChains ||
-      (family != 0 && family != 1))
+// The same for S shards of m rows: S times the buffers of one shard.
+extern "C" long long glm_potential_partials_part_floats(long long m, int d,
+                                                        int chains,
+                                                        int shards) {
+  return (long long)shards * glm_potential_part_floats(m, d, chains);
+}
+
+extern "C" long long glm_potential_partials_part2_floats(int d, int chains,
+                                                         int shards) {
+  return (long long)shards * glm_potential_part2_floats(d, chains);
+}
+
+extern "C" long long glm_potential_partials_ticket_ints(int shards) {
+  return (long long)shards * glm_potential_ticket_ints();
+}
+
+// x (shards * m, d), y (shards * m,), offset (shards * m,) or null, w
+// (chains, d), all float32; family 0 = bernoulli_logit, 1 = normal.  nll
+// (chains, shards), grad (chains, shards, d): shard z's partials of chain
+// c, from x's rows z m to (z + 1) m.  Returns the cudaError_t of the launch
+// (0 on success).
+extern "C" int glm_potential_partials_f32(const void* x, const void* y,
+                                          const void* offset, const void* w,
+                                          float scale, int family,
+                                          long long m, int d, int chains,
+                                          int shards, void* part, void* part2,
+                                          void* tickets, void* nll,
+                                          void* grad, void* stream) {
+  if (m <= 0 || d <= 0 || d > 256 || chains < 1 || chains > kMaxChains ||
+      shards < 1 || shards > kMaxShards || (family != 0 && family != 1))
     return (int)cudaErrorInvalidValue;
-  const Shape sh = shape_for(n, d);
-  const bool vec = ((uintptr_t)x % 16 == 0) && ((uintptr_t)y % 16 == 0) &&
-                   ((uintptr_t)offset % 16 == 0);
+  const Shape sh = shape_for(m, d);
   cudaStream_t st = (cudaStream_t)stream;
   const float* xf = (const float*)x;
   const float* yf = (const float*)y;
@@ -489,19 +528,33 @@ extern "C" int glm_potential_grad_f32(const void* x, const void* y,
   float* gr = (float*)grad;
   switch (chains_per_cta(chains)) {
     case 1:
-      return (int)launch_cb<1>(sh, d, chains, st, xf, yf, of, wf, scale,
-                               family, n, vec, pa, pb, tk, nl, gr);
+      return (int)launch_cb<1>(sh, d, chains, shards, st, xf, yf, of, wf,
+                               scale, family, m, pa, pb, tk, nl, gr);
     case 2:
-      return (int)launch_cb<2>(sh, d, chains, st, xf, yf, of, wf, scale,
-                               family, n, vec, pa, pb, tk, nl, gr);
+      return (int)launch_cb<2>(sh, d, chains, shards, st, xf, yf, of, wf,
+                               scale, family, m, pa, pb, tk, nl, gr);
     case 4:
-      return (int)launch_cb<4>(sh, d, chains, st, xf, yf, of, wf, scale,
-                               family, n, vec, pa, pb, tk, nl, gr);
+      return (int)launch_cb<4>(sh, d, chains, shards, st, xf, yf, of, wf,
+                               scale, family, m, pa, pb, tk, nl, gr);
     case 8:
-      return (int)launch_cb<8>(sh, d, chains, st, xf, yf, of, wf, scale,
-                               family, n, vec, pa, pb, tk, nl, gr);
+      return (int)launch_cb<8>(sh, d, chains, shards, st, xf, yf, of, wf,
+                               scale, family, m, pa, pb, tk, nl, gr);
     default:
-      return (int)launch_cb<16>(sh, d, chains, st, xf, yf, of, wf, scale,
-                                family, n, vec, pa, pb, tk, nl, gr);
+      return (int)launch_cb<16>(sh, d, chains, shards, st, xf, yf, of, wf,
+                                scale, family, m, pa, pb, tk, nl, gr);
   }
+}
+
+// x (n, d), y (n,), offset (n,) or null, w (chains, d), all float32; family
+// 0 = bernoulli_logit, 1 = normal.  nll (chains,), grad (chains, d): the
+// one-shard launch.  Returns the cudaError_t of the launch (0 on success).
+extern "C" int glm_potential_grad_f32(const void* x, const void* y,
+                                      const void* offset, const void* w,
+                                      float scale, int family, long long n,
+                                      int d, int chains, void* part,
+                                      void* part2, void* tickets, void* nll,
+                                      void* grad, void* stream) {
+  return glm_potential_partials_f32(x, y, offset, w, scale, family, n, d,
+                                    chains, 1, part, part2, tickets, nll,
+                                    grad, stream);
 }

@@ -1,12 +1,12 @@
-"""Distributed runtime of the port: checkpointing (``checkpoint``).
+"""Distributed runtime of the port: checkpointing (``checkpoint``) and the
+inference mesh's placements and collectives (``sharding``).
 
 Submodules load lazily (PEP 562), as in the JAX package's
-``repro.distributed``.  ``sharding`` and the device mesh wait for the
-multi-GPU item of the port (ROADMAP.md).
+``repro.distributed``.
 """
 from importlib import import_module
 
-_SUBMODULES = ("checkpoint",)
+_SUBMODULES = ("checkpoint", "sharding")
 
 __all__ = list(_SUBMODULES)
 

@@ -24,6 +24,18 @@ run repeats the uninterrupted one's arithmetic.
 Writes are atomic: the checkpoint is written to a temporary directory
 beside ``directory`` and renamed over it, so a writer killed mid-write
 never corrupts the last complete checkpoint.
+
+Elastic resume (docs/distributed.md's contract): every leaf is saved in
+its logical (unsharded) layout, and under ``chain_method="parallel"`` rank
+0 writes what a one-process run writes, byte for byte, so an MCMC run
+checkpointed on one inference mesh (four ranks on ``mesh_shape=(2, 2)``,
+say) resumes under any other mesh or under ``"vectorized"`` in one process:
+the executor restores the whole state and each chain rank takes its block
+of chains.  The continuation is bit-identical as long as the new chain axis
+divides the chains (``RPL301`` otherwise) and the new data axis divides the
+potential's static ``data_shards`` fold (``RPL303``).  ``restore(...,
+shardings=)`` for the LM's parameters waits for the LM slice of the
+multi-GPU port.
 """
 from __future__ import annotations
 

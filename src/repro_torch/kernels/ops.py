@@ -39,7 +39,11 @@ their chain-batched forms for lockstep NUTS, ``nuts_leaf_batch``,
 step size per chain);
 ``mala_accept``, the MALA/RWM accept step after ``mala_step``'s proposal;
 ``chees_open``, a ChEES trajectory's momentum draw and opening half-kick in
-row 3's kernel, and ``chees_accept``, the transition's close after it.
+row 3's kernel, and ``chees_accept``, the transition's close after it;
+``glm_potential_partials``, the per-shard partials of the data-sharded
+potential, which the JAX package computes with one ``glm_potential_grad``
+call per shard, in one launch of row 2's kernel over a shard grid
+dimension.
 They are routed like the rest and their launches are counted with them.
 """
 from __future__ import annotations
@@ -183,6 +187,12 @@ FUSED = {spec.name: spec for spec in (
     # the same accept_prob; accept_prob within 1e-6 relative
     OpSpec("mala_accept", rwm_mala.mala_accept_cuda, rwm_mala.mala_accept_ref,
            "cuda", _I + "mala.py:184", False, 1e-6),
+    # row 2's kernel over S row shards in one launch: each partial
+    # bit-identical to a one-shard launch on its rows; against the plain
+    # loop within row 2's bound
+    OpSpec("glm_potential_partials", glm_potential.glm_potential_partials_cuda,
+           glm_potential.glm_potential_partials_ref, "cuda",
+           _K + "glm_potential.py:106", False, 5e-3),
     # row 3's kernel with momentum_sample in front: bit-identical
     OpSpec("chees_open", leapfrog.chees_open_cuda, leapfrog.chees_open_ref,
            "cuda", _K + "leapfrog.py:104", True, 0.0),
@@ -362,6 +372,18 @@ def glm_potential_grad(x, y, w, offset=None, scale=None,
     return _route("glm_potential_grad", x)(x, y, w, offset, scale, family)
 
 
+def glm_potential_partials(x, y, w, offset=None, scale=None,
+                           family="bernoulli_logit", *, data_shards=1):
+    """Per-shard partials of :func:`glm_potential_grad` over
+    ``data_shards`` equal row shards: ``w (d,)`` -> ``((S,), (S, d))``,
+    ``w (C, d)`` -> ``((C, S), (C, S, d))``; row ``i`` is
+    ``glm_potential_grad`` of shard ``i``.  One launch for every shard and
+    chain on a card, the plain loop on the CPU; raises when the rows do not
+    split evenly."""
+    return _route("glm_potential_partials", x)(
+        x, y, w, offset, scale, family, data_shards=data_shards)
+
+
 def mala_step(z, grad, noise, m_inv, eps):
     """Batched Langevin proposal over a (C, D) ensemble, ``z - eps * m_inv
     * grad + sqrt(2 * eps * m_inv) * noise``; ``grad=None`` gives the
@@ -425,6 +447,8 @@ def counters() -> list:
     return [(kernel, "launches") for kernel in _counted().values()
             if hasattr(kernel, "launches")] + [
         (glm_potential.glm_potential_grad_cuda, "chain_evals"),
+        (glm_potential.glm_potential_partials_cuda, "chain_evals"),
+        (glm_potential.glm_potential_partials_cuda, "shard_evals"),
         (rwm_mala.mala_step_cuda, "launches_without_grad")]
 
 
@@ -438,4 +462,6 @@ def reset_launch_counts() -> None:
     for kernel in _counted().values():
         kernel.launches = 0
     glm_potential.glm_potential_grad_cuda.chain_evals = 0
+    glm_potential.glm_potential_partials_cuda.chain_evals = 0
+    glm_potential.glm_potential_partials_cuda.shard_evals = 0
     rwm_mala.mala_step_cuda.launches_without_grad = 0

@@ -4,7 +4,9 @@ One ``run_manifest.json`` lives next to the checkpoint directories (or
 wherever ``Telemetry(dir=...)`` points) and accumulates *sessions*: the
 original launch plus every resume appends a session with its own
 environment snapshot (the card, its power limit and the versions may change
-across a resume), chunk schedule, span timings and final diagnostics.
+across a resume), its mesh shape and device count (an elastic resume may
+run on another mesh: ``repro_torch.distributed.checkpoint`` saves the
+logical layout), chunk schedule, span timings and final diagnostics.
 Run-level facts that must survive a resume (the cumulative divergence
 count, the kernel setup hash, the sampling geometry) live at the top level.
 
@@ -108,7 +110,11 @@ class RunManifest:
 
     # -- lifecycle ----------------------------------------------------------
     def begin_session(self, *, run_config: dict, resume: bool = False,
-                      resumed_at=None) -> dict:
+                      resumed_at=None, mesh_shape=None,
+                      device_count=None) -> dict:
+        """Append a session; its environment's ``mesh_shape`` and
+        ``device_count`` are the session's own (a ``"parallel"`` run's mesh
+        and its rank count; no mesh and the visible cards by default)."""
         existing = self._load() if resume else None
         if existing is None:
             self.data = {
@@ -134,6 +140,10 @@ class RunManifest:
             "counters": {},
             "final": None,
         }
+        session["environment"]["mesh_shape"] = (
+            list(mesh_shape) if mesh_shape is not None else None)
+        if device_count is not None:
+            session["environment"]["device_count"] = int(device_count)
         self.data["sessions"].append(session)
         self.flush()
         return session

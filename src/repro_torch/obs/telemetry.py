@@ -82,7 +82,8 @@ class Telemetry:
 
     # -- run lifecycle ------------------------------------------------------
     def begin_run(self, run_config: dict, *, default_dir=None,
-                  resume: bool = False) -> None:
+                  resume: bool = False, mesh_shape=None,
+                  device_count=None) -> None:
         """Reset per-run state and open artifacts.  Artifacts land in
         ``self.dir`` when set, else in ``default_dir`` (the run's
         checkpoint_dir), else stay in memory (``MemorySink``).
@@ -90,7 +91,9 @@ class Telemetry:
         ``run_config`` may be provisional (the executor calls this before
         building the kernel setup, so early spans have a live sink);
         :meth:`commit_run_config` fills in the setup-derived fields and
-        emits the ``run_started`` event."""
+        emits the ``run_started`` event.  ``mesh_shape`` and
+        ``device_count`` describe this session's devices in the manifest's
+        environment block."""
         base = self.dir if self.dir is not None else default_dir
         self._artifact_dir = base
         self.buffer.clear()
@@ -112,7 +115,8 @@ class Telemetry:
         if self._manifest_enabled and base is not None:
             self.manifest = RunManifest(os.path.join(base, MANIFEST_NAME))
             self.manifest.begin_session(run_config=self._run_config,
-                                        resume=resume)
+                                        resume=resume, mesh_shape=mesh_shape,
+                                        device_count=device_count)
         else:
             self.manifest = None
 

@@ -22,7 +22,8 @@ from repro_torch.kernels.enum_contract import (EnumContract,
                                                enum_contract_cuda,
                                                enum_contract_ref)
 from repro_torch.kernels.glm_potential import (glm_potential_grad_cuda,
-                                               glm_potential_grad_ref)
+                                               glm_potential_grad_ref,
+                                               glm_potential_partials_cuda)
 from repro_torch.kernels.leapfrog import (chees_accept_cuda, chees_open_cuda,
                                           leapfrog_halfstep_batch_cuda,
                                           leapfrog_halfstep_batch_ref,
@@ -204,6 +205,59 @@ def test_glm_chains_kernel_matches_plain_on_card(n, d, family, scale):
     tol_v, _ = _glm_referee_tol(x, y, w[0], torch.zeros_like(off), scale,
                                 family)
     assert float((got[0].double() - ref[0]).abs().max()) <= tol_v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,scale", [("bernoulli_logit", None),
+                                          ("normal", 0.7)])
+@pytest.mark.parametrize("shards", [1, 2, 3, 4, 7])
+def test_glm_partials_kernel_matches_shard_launches_on_card(shards, family,
+                                                            scale):
+    """``glm_potential_partials_cuda``: one launch and C * S shard
+    evaluations a call; shard k of chain c bit-identical to a one-shard
+    launch on the rows ``x[k m:(k + 1) m]`` (unaligned for odd k: 13 * 4 *
+    m is not a multiple of 16) and within the float64 referee's bound;
+    rows that do not split evenly raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    n, d = 7 * 4 * 3 * 101, 13
+    x, y, _, off = (torch.from_numpy(a).to(dev)
+                    for a in _glm_inputs(n, d, shards, family))
+    rng = np.random.default_rng(shards)
+    w_all = torch.from_numpy((0.3 * rng.standard_normal((40, d)))
+                             .astype(np.float32)).to(dev)
+    m = n // shards
+    for chains in (1, 5, 16, 40):
+        w = w_all[:chains].contiguous()
+        glm_potential_partials_cuda.launches = 0
+        glm_potential_partials_cuda.shard_evals = 0
+        nll, grad = glm_potential_partials_cuda(x, y, w, off, scale, family,
+                                                data_shards=shards)
+        assert (glm_potential_partials_cuda.launches,
+                glm_potential_partials_cuda.shard_evals) \
+            == (1, chains * shards)
+        assert nll.shape == (chains, shards)
+        assert grad.shape == (chains, shards, d)
+        for k in range(shards):
+            rows = slice(k * m, (k + 1) * m)
+            v, g = glm_potential_grad_cuda(x[rows], y[rows], w, off[rows],
+                                           scale, family)
+            assert torch.equal(nll[:, k], v) and torch.equal(grad[:, k], g)
+            pv, pg = glm_potential_grad_ref(x[rows], y[rows], w[0],
+                                            off[rows], scale, family,
+                                            compute_dtype=torch.float64)
+            tol_v, tol_g = _glm_referee_tol(x[rows], y[rows], w[0],
+                                            off[rows], scale, family)
+            assert abs(float(nll[0, k]) - float(pv)) <= tol_v
+            assert bool(((grad[0, k].double() - pg).abs() <= tol_g).all())
+    one = glm_potential_partials_cuda(x, y, w_all[0], off, scale, family,
+                                      data_shards=shards)
+    assert one[0].shape == (shards,) and one[1].shape == (shards, d)
+    if shards > 1:
+        with pytest.raises(ValueError, match="equal shards"):
+            glm_potential_partials_cuda(x[:-1], y[:-1], w_all[0], off[:-1],
+                                        scale, family, data_shards=shards)
 
 
 @pytest.mark.cuda

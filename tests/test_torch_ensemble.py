@@ -46,7 +46,7 @@ from repro.core.infer.mala import mrw_setup as j_mrw_setup
 from repro_torch import core as pc
 from repro_torch.bench.models import logreg_model_glm
 from repro_torch.core import dist
-from repro_torch.core.errors import NO_DEVICE, PENDING, ReproError
+from repro_torch.core.errors import NO_DEVICE, ReproError
 from repro_torch.core.infer import (MALA, MCMC, RWM, ChEES, chees_setup,
                                     gelman_rubin, initialize_model_structure,
                                     mrw_setup)
@@ -408,6 +408,8 @@ def test_ensemble_entry_points_default_to_cuda_and_wait_for_shards():
         else:
             with pytest.raises(ReproError, match=NO_DEVICE):
                 kernel(_scalar_model)
-        with pytest.raises(ReproError, match=PENDING):
+        # data_shards has landed: a model without the fused GLM
+        # likelihood has no shard structure (RPL302)
+        with pytest.raises(ReproError, match="RPL302"):
             MCMC(kernel(_scalar_model, device="cpu", data_shards=2), 2,
                  2).run(0)

@@ -25,7 +25,7 @@ from repro.core.infer.hmc import nuts_setup as j_nuts_setup
 from repro.core.infer.hmc_util import IntegratorState as JIntegratorState
 from repro.core.infer.hmc_util import velocity_verlet as j_velocity_verlet
 from repro_torch.bench.models import logreg_model, logreg_model_glm
-from repro_torch.core.errors import NO_DEVICE, PENDING, ReproError
+from repro_torch.core.errors import NO_DEVICE, ReproError
 from repro_torch.core.infer import (HMC, MCMC, NUTS, effective_sample_size,
                                     gelman_rubin, initialize_model_structure,
                                     nuts_setup)
@@ -175,17 +175,25 @@ def test_hmc_runs_and_moves():
 
 def test_vectorized_chains_wait_for_batched_nuts():
     """Lockstep NUTS has landed: ``chain_method="vectorized"`` (the
-    default) with several chains runs on ``device="cpu"``; chains over
-    several cards (``"parallel"``) still wait for the multi-GPU slice."""
-    with pytest.raises(ReproError, match=PENDING):
-        MCMC(NUTS(logreg_model, device="cpu"), num_warmup=1, num_samples=1,
-             num_chains=2, chain_method="parallel")
+    default) with several chains runs on ``device="cpu"``; so has
+    ``"parallel"``, which on one rank (a group it starts in this process)
+    gives the same draws."""
     x, y = _data(60, 2, 7)
     m = MCMC(NUTS(logreg_model, device="cpu"), num_warmup=5, num_samples=5,
              num_chains=2)
     w = m.run(0, x, y=y).get_samples(group_by_chain=True)["w"]
     assert m.chain_method == "vectorized" and w.shape == (2, 5, 2)
     assert torch.isfinite(w).all() and m.stats["lockstep_leapfrogs"] > 0
+    import torch.distributed as tdist
+    started = not tdist.is_initialized()
+    try:
+        p = MCMC(NUTS(logreg_model, device="cpu"), num_warmup=5,
+                 num_samples=5, num_chains=2, chain_method="parallel")
+        assert torch.equal(p.run(0, x, y=y).get_samples(
+            group_by_chain=True)["w"], w)
+    finally:
+        if started and tdist.is_initialized():
+            tdist.destroy_process_group()
 
 
 def test_entry_points_default_to_cuda():
