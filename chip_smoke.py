@@ -132,7 +132,9 @@ result line if any fails):
    pooled mean within 0.05 of ``true_w``; the parallel checkpoint, copied
    after its first samples write, resumed under ``"vectorized"``,
    byte-identical; ms a lockstep leapfrog beside the checkpoint phase's
-   uninterrupted run, the same run without shards.
+   uninterrupted run, the same run without shards.  The parallel run has
+   telemetry on (the metric series of its 4 chains, in memory), and a
+   one-rank mesh dim runs no collective.
    Then ``obs``: the checkpoint phase's three configurations run once more
    with ``telemetry=obs.Telemetry(...)``, each held against that phase's
    uninterrupted run without it (every collected field and the final
@@ -187,7 +189,11 @@ result line if any fails):
    launches per step; a profiled
    step; ``launch.train.main`` for 2 steps; then a full-width 2-layer
    float32 gemma's loss and every gradient through the kernels against the
-   plain versions.
+   plain versions, and the same model on a one-rank (1, 1) LM mesh
+   (``sharding_ctx``, DTensor parameters, the kernels through
+   ``local_map``): its loss and gradients, then one ``make_train_step``
+   step's metrics and parameters, bit-identical to the unsharded kernel
+   step's, with the same launches.
 6. ``ssm``: hold ``ssd_scan`` against its plain version (float32 within
    1e-4; bfloat16 ``y`` within one rounding step and the float32 state
    within 1e-4 of its largest entry; with and without ``D``, with ``h0``,
@@ -3947,6 +3953,99 @@ def run_train_f32_check(dev):
                       f"the plain versions by {err} > {tol}")
     check(all(counts[k] == v for k, v in expected.items()),
           f"the 2-layer float32 step launched {counts}, not {expected}")
+    del want
+    torch.cuda.empty_cache()
+    out["mesh (1, 1)"] = train_mesh_check(dev, lm, w, batch, got_loss, got,
+                                          counts)
+    return out
+
+
+def train_mesh_check(dev, lm, w, batch, loss, grads, counts):
+    """The 2-layer float32 gemma on a one-rank (1, 1) LM mesh: the loss and
+    every gradient leaf (against ``loss``/``grads``, the unsharded kernel
+    run's, whose launches were ``counts``), then one ``make_train_step``
+    step against the unsharded one from the same seed; bit for bit, the
+    same launches."""
+    import torch.distributed as tdist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.common import sharding_ctx
+    from repro_torch.optim import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    backend = start_one_rank_group()
+    mesh = make_host_mesh((1, 1))
+    rules = sharding.make_rules(lm.cfg, mesh)
+    bs = sharding.batch_sharding(rules, mesh)
+    placed = {k: sharding.place(v, mesh, bs.placements)
+              for k, v in batch.items()}
+    hp = steps_mod.TrainHParams(learning_rate=TRAIN_LR,
+                                warmup_steps=TRAIN_WARMUP)
+    tokens = batch["tokens"].numel()
+
+    def state():
+        return steps_mod.make_train_state(
+            lm, hp, rng=torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+
+    shapes, specs = lm.abstract_params()
+    shardings = sharding.param_shardings(specs, rules, mesh, shapes=shapes)
+    with sharding_ctx(mesh, rules):
+        wd = tree_map(lambda p, s: sharding.place(
+            p.detach(), mesh, s.placements).requires_grad_(), w, shardings)
+        ops.reset_launch_counts()
+        mloss, _ = lm.forward(wd, placed)
+        mgrads = torch.autograd.grad(mloss, tree_leaves(wd))
+        grad_counts = ops.launch_counts()
+    grad_bits = same_bits(mloss.to_local().detach(), loss) and all(
+        same_bits(a.to_local(), b) for a, b in zip(mgrads, grads))
+    grad_err = max(float((a.to_local() - b).abs().max())
+                   for a, b in zip(mgrads, grads))
+    del wd, mgrads
+    plain = state()
+    step = steps_mod.make_train_step(lm, hp, total_tokens=tokens)
+    ops.reset_launch_counts()
+    plain, m = step(plain, batch)
+    step_counts = ops.launch_counts()
+    with sharding_ctx(mesh, rules):
+        meshed = state()
+        mstep = steps_mod.make_train_step(lm, hp, total_tokens=tokens)
+        ops.reset_launch_counts()
+        meshed, mm = mstep(meshed, placed)
+        mesh_counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    param_bits = all(same_bits(a, b.to_local()) for a, b in zip(
+        tree_leaves(plain["params"]), tree_leaves(meshed["params"])))
+    param_err = max(float((a - b.to_local()).abs().max()) for a, b in zip(
+        tree_leaves(plain["params"]), tree_leaves(meshed["params"])))
+    metric_bits = all(same_bits(m[k], mm[k]) for k in m)
+    placements = {str(p.placements) for p in tree_leaves(meshed["params"])}
+    del plain, meshed
+    tdist.destroy_process_group()
+    out = {"backend": backend, "loss_and_grads_bit_identical": grad_bits,
+           "grad_max_abs_err": grad_err,
+           "step_metrics_bit_identical": metric_bits,
+           "step_params_bit_identical": param_bits,
+           "step_param_max_abs_err": param_err,
+           "loss": float(mm["loss"]), "placements": sorted(placements),
+           "launches": {what: {k: v for k, v in c.items() if v}
+                        for what, c in (("loss_and_grads", grad_counts),
+                                        ("step", mesh_counts),
+                                        ("unsharded step", step_counts))},
+           "seconds": time.perf_counter() - t0}
+    print("gemma 2-layer float32 on a (1, 1) LM mesh vs unsharded:",
+          json.dumps(out), flush=True)
+    check(grad_bits, f"the (1, 1) mesh's loss and gradients are not the "
+                     f"unsharded kernel run's bits (max err {grad_err})")
+    check(metric_bits and param_bits,
+          f"the (1, 1) mesh's train step is not the unsharded step's bits "
+          f"(params max err {param_err})")
+    check(grad_counts == counts and mesh_counts == step_counts,
+          f"the (1, 1) mesh launched {grad_counts} / {mesh_counts}, "
+          f"unsharded {counts} / {step_counts}")
     return out
 
 
@@ -5533,6 +5632,7 @@ def mesh_logreg(data, plain_nuts):
     import shutil
     import tempfile
 
+    from repro_torch import obs
     from repro_torch.bench.models import logreg_model_glm
     from repro_torch.core.infer import MCMC, NUTS
     from repro_torch.kernels import ops
@@ -5557,15 +5657,26 @@ def mesh_logreg(data, plain_nuts):
     vec, out["vectorized"] = counted(
         lambda: run_recorded(make, args, kwargs)[0], "vectorized")
     root = tempfile.mkdtemp()
+    tele = obs.Telemetry()
     try:
         copy = os.path.join(root, f"after_save_{MESH_COPY_AT}")
         par, out["parallel (1, 1)"] = counted(lambda: run_recorded(
-            lambda: make(chain_method="parallel", mesh_shape=(1, 1)), args,
+            lambda: make(chain_method="parallel", mesh_shape=(1, 1),
+                         telemetry=tele), args,
             kwargs, copies={MESH_COPY_AT: copy}, checkpoint_every=MESH_EVERY,
             checkpoint_dir=os.path.join(root, "parallel"))[0],
             "parallel (1, 1)")
-        check(same_run(par, vec), "parallel (1, 1) is not byte-identical to "
-                                  "vectorized")
+        check(same_run(par, vec), "parallel (1, 1) with telemetry is not "
+                                  "byte-identical to vectorized")
+        series = tele.buffer.series()
+        check(bool(series) and all(
+            np.shape(v) == (CKPT_NUTS_CHAINS, CKPT_DRAWS)
+            for v in series.values()),
+            f"the parallel run's metric series: "
+            f"{ {k: np.shape(v) for k, v in series.items()} }")
+        out["parallel (1, 1)"]["telemetry"] = {
+            "metrics": sorted(series), "chunks": len(chunk_spans(tele)),
+            "mean_accept_prob": float(np.mean(series["accept_prob"]))}
         with open(os.path.join(root, "parallel", "state",
                                "manifest.json")) as f:
             extra = json.load(f)["extra"]

@@ -14,7 +14,9 @@ training (the prior term is elementwise: no extra matrix products).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
+from ..distributed.sharding import replicate
 from . import dist
 from .handlers import Messenger, trace
 from .infer.util import _SupportChecked
@@ -34,13 +36,19 @@ def log_prior(params, sigma: float = 1.0, min_ndim: int = 2):
     """Joint log density (a 0-dim float32 tensor) of a Normal(0, sigma)
     prior over the weight leaves with ``ndim >= min_ndim`` (norm scales and
     biases are excluded, matching the no-decay-on-norms convention);
-    differentiable in the leaves."""
+    differentiable in the leaves.  A DTensor leaf (a parameter on a mesh)
+    is scored on each rank's shard against a replicated prior, and the
+    total is the mesh's sum."""
 
     def prior_model():
         for path, leaf in _flatten_with_path(params):
             if leaf.dim() < min_ndim:
                 continue
             zero = torch.zeros((), dtype=torch.float32, device=leaf.device)
+            if isinstance(leaf, DTensor):
+                zero = DTensor.from_local(
+                    zero, leaf.device_mesh,
+                    [Replicate()] * leaf.device_mesh.ndim, run_check=False)
             sample("/".join(path),
                    dist.Normal(zero, zero + sigma).expand(leaf.shape)
                    .to_event(leaf.dim()),
@@ -55,7 +63,7 @@ def log_prior(params, sigma: float = 1.0, min_ndim: int = 2):
     for name in list(tr):  # each float32 copy is released once scored
         site = tr.pop(name)
         if site["type"] == "sample":
-            term = torch.sum(site["fn"].log_prob(site["value"]))
+            term = replicate(torch.sum(site["fn"].log_prob(site["value"])))
             lp = term if lp is None else lp + term
     return torch.zeros(()) if lp is None else lp
 

@@ -87,7 +87,11 @@ the chunk span's close rides, so ``stats["host_syncs"]`` shows the cost:
 at most one more a chunk (one more for a chunk that diverged, with
 forensics on).  With ``telemetry=None``, ``progress=False`` and
 ``until=None`` the executor runs exactly the loop it runs without them.
-Telemetry under ``"parallel"`` takes a one-rank mesh.
+Under ``"parallel"`` every rank computes its chains' metric series and
+gathers them in rank order (the draws' order) for the chunk's read, so
+every rank buffers the whole run's series and takes the gate's decision
+from the same gathered draws; rank 0 alone writes the events, the manifest
+(its session records ``mesh_shape`` and the rank count) and the forensics.
 """
 from __future__ import annotations
 
@@ -356,10 +360,6 @@ class MCMC:
             else None
         if mesh is not None and mesh.get_coordinate() is None:
             return self._idle()
-        if tele is not None and mesh is not None and mesh.size() > 1:
-            raise ValueError(
-                "telemetry under chain_method='parallel' takes a one-rank "
-                f"mesh; this one has {mesh.size()} ranks")
         if tele is not None:
             # open the sink and the manifest before any span can fire; the
             # setup-derived fields land via commit_run_config below
@@ -380,7 +380,8 @@ class MCMC:
                             "batch_size": until.batch_size})},
                 default_dir=checkpoint_dir, resume=resume,
                 mesh_shape=self._mesh_fields()[0],
-                device_count=(mesh.size() if mesh is not None else None))
+                device_count=(mesh.size() if mesh is not None else None),
+                writer=mesh is None or dist.get_rank() == 0)
         t0 = time.perf_counter()
         with self._span("setup"):
             model_args = _to_device(model_args, self.device)
@@ -511,7 +512,9 @@ class MCMC:
                     init_evals += setup.grad_evals.count - evals
             if tele is not None and tele.metrics \
                     and setup.metrics_fn is not None:
-                self._check_metrics_contract(setup, state, lockstep)
+                self._check_metrics_contract(
+                    setup, state, lockstep, self.num_chains if split is None
+                    else split.stop - split.start)
             state = self._advance(setup, prog, state, done, chunk,
                                   checkpoint_dir, chain_parts, split)
             if split is not None:
@@ -624,15 +627,16 @@ class MCMC:
             return contextlib.nullcontext(dict(attrs))
         return self.telemetry.span(name, **attrs)
 
-    def _check_metrics_contract(self, setup, state, lockstep):
-        """RPL401 and RPL402 on the run's own initial state, before the
-        first transition: the runtime twin of
+    def _check_metrics_contract(self, setup, state, lockstep, chains):
+        """RPL401 and RPL402 on the run's own initial state (``chains`` of
+        them: a chain rank's block under ``"parallel"``), before the first
+        transition: the runtime twin of
         :func:`repro_torch.lint_rules.obs_rules.verify_metrics_fn`.  A
         clean metrics_fn costs no read."""
         from ...lint_rules.obs_rules import check_metrics_state
         from ..lint import LintResult
         LintResult(check_metrics_state(
-            setup, state, self.num_chains,
+            setup, state, chains,
             batched=lockstep and not setup.cross_chain)).raise_if_errors()
 
     def _resume_monitor(self, extra, parts):
@@ -649,21 +653,24 @@ class MCMC:
             self.monitor.fold(np.concatenate([p["z"].numpy() for p in parts],
                                              axis=1))
 
-    def _drain(self, setup, prog, metric_rows, out, count_div):
+    def _drain(self, setup, prog, metric_rows, out, count_div, split=None):
         """Everything the chunk's observers need from the device, in one
-        read through ``setup.host_reads``: the metric series, the
-        divergence mask, the gate's draws, with forensics on the draws'
-        per-dim moments (the baseline), and, for a progress line without
-        metrics, the step size and accept prob.  With telemetry on, a
-        chunk that had nothing on the device to read still ends in one
-        counted synchronize, so its span closes on finished device work.
-        Returns ``(host metrics or None, host fields of out)``."""
+        read through ``setup.host_reads``: the metric series (a chain
+        rank's gathered over ``split``'s ranks in rank order, the draws'
+        order), the divergence mask, the gate's draws, with forensics on
+        the draws' per-dim moments (the baseline), and, for a progress line
+        without metrics, the step size and accept prob.  With telemetry
+        on, a chunk that had nothing on the device to read still ends in
+        one counted synchronize, so its span closes on finished device
+        work.  Returns ``(host metrics or None, host fields of out)``."""
         tele = self.telemetry
         forens = tele.forensics if tele is not None else None
         tree, fields = {}, []
         if metric_rows:
-            tree.update({("m", k): v
-                         for k, v in prog.metrics(metric_rows).items()})
+            series = prog.metrics(metric_rows)
+            if split is not None:
+                series = sharding.gather_tree(series, split.group)
+            tree.update({("m", k): v for k, v in series.items()})
         if out is not None:
             if forens is not None:
                 tree[("b", "mean")], tree[("b", "m2")] = _moments(out["z"])
@@ -759,7 +766,7 @@ class MCMC:
                     parts.append(out)
                 if observed:
                     metrics, fields = self._drain(setup, prog, metric_rows,
-                                                  out, count_div)
+                                                  out, count_div, split)
                 if tele is not None:
                     builds, captures = (b - a for a, b in zip(
                         work0, _one_time_work(setup)))

@@ -33,9 +33,15 @@ say) resumes under any other mesh or under ``"vectorized"`` in one process:
 the executor restores the whole state and each chain rank takes its block
 of chains.  The continuation is bit-identical as long as the new chain axis
 divides the chains (``RPL301`` otherwise) and the new data axis divides the
-potential's static ``data_shards`` fold (``RPL303``).  ``restore(...,
-shardings=)`` for the LM's parameters waits for the LM slice of the
-multi-GPU port.
+potential's static ``data_shards`` fold (``RPL303``).
+
+The LM's train state on a mesh has DTensor leaves: :func:`save` gathers
+each to its full value on every rank, rank 0 writes the same files as an
+unsharded save, and the mesh's ranks meet at a barrier after it.
+:func:`restore` places a leaf on the current mesh by ``shardings=`` (a tree
+of ``sharding.NamedSharding``, which may cover part of the tree), else a
+leaf whose ``tree_like`` is a DTensor by that DTensor's placements: a
+state saved on one mesh resumes on another, or on none.
 """
 from __future__ import annotations
 
@@ -47,6 +53,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 _BF16 = "bfloat16"
 
@@ -148,8 +156,24 @@ def save(tree: Any, directory: str, *, step: int = 0,
          extra: Optional[dict] = None) -> None:
     """Atomically write ``tree`` to ``directory`` (a tmpdir beside it, then
     a rename: a preempted writer never corrupts the latest complete
-    checkpoint)."""
+    checkpoint).  DTensor leaves are gathered whole on every rank of their
+    mesh (every rank calls ``save``), rank 0 writes, and the ranks meet at
+    a barrier after it."""
     flat = _flatten(tree)
+    meshes = [leaf.device_mesh for leaf in flat.values()
+              if isinstance(leaf, DTensor)]
+    if meshes:
+        from .sharding import barrier
+        flat = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                for k, v in flat.items()}
+        if dist.get_rank() == 0:
+            _write(flat, directory, step, extra)
+        barrier(meshes[0])
+        return
+    _write(flat, directory, step, extra)
+
+
+def _write(flat, directory, step, extra):
     parent = os.path.dirname(directory) or "."
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=parent)
@@ -210,20 +234,51 @@ def _load_leaf(directory, key, meta, like, device):
     return {"bool": bool, "int": int, "float": float}[kind](arr[()])
 
 
-def restore(tree_like: Any, directory: str, *, device=None):
+def _sharding_leaves(node, path=(), out=None):
+    """``{key: NamedSharding}`` of a shardings tree, keyed as
+    :func:`_flatten` keys the tree it covers."""
+    from .sharding import NamedSharding
+    out = {} if out is None else out
+    if isinstance(node, NamedSharding):
+        out["/".join(path)] = node
+    elif isinstance(node, dict):
+        for k in node:
+            _sharding_leaves(node[k], path + (str(k),), out)
+    elif isinstance(node, (list, tuple)) and not _is_namedtuple(node):
+        for i, v in enumerate(node):
+            _sharding_leaves(v, path + (str(i),), out)
+    return out
+
+
+def restore(tree_like: Any, directory: str, *, device=None,
+            shardings: Any = None):
     """Restore into the structure of ``tree_like``, each leaf of the type,
     dtype and shape of the matching ``tree_like`` leaf; tensors go to
-    ``device``, else to their ``tree_like`` leaf's device.
+    ``device``, else to their ``tree_like`` leaf's device.  ``shardings``
+    (the tree's shape, or part of it) places each leaf it covers on the
+    current mesh, and a leaf whose ``tree_like`` is a DTensor follows its
+    placements: the elastic path.
 
     Returns ``(tree, step, extra)``.
     """
+    from .sharding import place
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
+    placed = _sharding_leaves(shardings) if shardings is not None else {}
     loaded = []
     for key, like in _flatten(tree_like).items():
         meta = manifest["leaves"].get(key)
         if meta is None:
             raise KeyError(f"checkpoint missing leaf '{key}'")
-        loaded.append(_load_leaf(directory, key, meta, like, device))
+        leaf = _load_leaf(directory, key, meta, like, device)
+        if key in placed:
+            mesh, placements = placed[key].mesh, placed[key].placements
+        elif isinstance(like, DTensor):
+            mesh, placements = like.device_mesh, like.placements
+        else:
+            mesh = None
+        if mesh is not None:
+            leaf = place(leaf.to(mesh.device_type), mesh, placements)
+        loaded.append(leaf)
     tree = _rebuild(tree_like, iter(loaded))
     return tree, manifest["step"], manifest["extra"]

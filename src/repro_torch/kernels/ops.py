@@ -45,13 +45,24 @@ potential, which the JAX package computes with one ``glm_potential_grad``
 call per shard, in one launch of row 2's kernel over a shard grid
 dimension.
 They are routed like the rest and their launches are counted with them.
+
+Under a device mesh the LM ops take DTensors: ``rmsnorm``, ``attention``
+and ``softmax_xent`` (with their ``BACKWARD`` rows) run through
+``torch.distributed.tensor.experimental.local_map``, each declaring the
+layout its kernel needs (:func:`_mesh_rmsnorm`, :func:`_mesh_attention`,
+:func:`_mesh_softmax_xent`), so the autograd Functions and the kernel
+launches see only each rank's local tensors and the counters count per
+rank.  A DTensor that reaches :func:`_route` raises.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from ..distributed.sharding import grad_placements
 from . import enum_contract as _enum_contract
 from . import flash_attention as _flash
 from . import glm_potential, leapfrog, rwm_mala
@@ -213,6 +224,11 @@ def _counted():
 
 def _route(name, tensor):
     """The plain version for a tensor on the CPU, else the kernel."""
+    if isinstance(tensor, DTensor):
+        raise TypeError(
+            f"{name} was given a DTensor: a kernel launches on local "
+            "tensors only, through the op's local_map (ops.rmsnorm, "
+            "ops.attention, ops.softmax_xent)")
     spec = SPECS.get(name) or BACKWARD.get(name) or FUSED[name]
     return spec.ref if tensor.device.type == "cpu" else spec.kernel
 
@@ -227,6 +243,8 @@ def attention(q, k, v, *, causal=True, scale=None, window=0):
     if window:
         return _flash.flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                           window=window)[0]
+    if isinstance(q, DTensor):
+        return _mesh_attention(q, k, v, causal, scale)
     return _flash.FlashAttention.apply(
         q, k, v, causal, scale, _route("attention", q),
         _route("attention_dq", q), _route("attention_dkv", q))[0]
@@ -241,6 +259,8 @@ def decode_attention(q, k, v, mask, *, scale=None):
 def rmsnorm(x, weight, eps=1e-6):
     """RMSNorm over the last axis, float32 statistics, result in x's dtype;
     differentiable (:class:`~repro_torch.kernels.rmsnorm.RMSNorm`)."""
+    if isinstance(x, DTensor):
+        return _mesh_rmsnorm(x, weight, eps)
     return _rmsnorm.RMSNorm.apply(x, weight, eps, _route("rmsnorm", x),
                                   _route("rmsnorm_bwd", x))
 
@@ -251,9 +271,116 @@ def softmax_xent(x, w_unembed, labels, *, z_loss_weight=0.0):
     whole; differentiable in ``x`` and ``w_unembed``
     (:class:`~repro_torch.kernels.softmax_xent.SoftmaxXent`: in bfloat16 on
     a card through the dlogits kernel, else the plain backward)."""
+    if isinstance(x, DTensor):
+        return _mesh_softmax_xent(x, w_unembed, labels, z_loss_weight)
     return _xent.SoftmaxXent.apply(x, w_unembed, labels, z_loss_weight,
                                    _route("softmax_xent", x),
                                    _route("softmax_xent_bwd", x))
+
+
+# -- the LM ops on a device mesh ------------------------------------------------
+
+def _dense(t):
+    """A local shard as the kernels take it: contiguous (a shard of a
+    non-leading dim is a strided view), a matrix also as the transpose of
+    a contiguous one (a tied unembedding)."""
+    if t.is_contiguous() or (t.dim() == 2 and t.T.is_contiguous()):
+        return t
+    return t.contiguous()
+
+
+def _mesh_rmsnorm(x, weight, eps):
+    """RMSNorm of DTensor ``x``: its rows may stay sharded, the feature dim
+    is whole on each rank (a sharded one gathered, a partial sum reduced);
+    the weight whole on every rank."""
+    mesh = x.device_mesh
+    xp = tuple(p if isinstance(p, Shard) and p.dim % x.ndim < x.ndim - 1
+               else Replicate() for p in x.placements)
+    rep = (Replicate(),) * mesh.ndim
+    weight = weight if isinstance(weight, DTensor)         else DTensor.from_local(weight, mesh, rep, run_check=False)
+    return local_map(
+        lambda xl, wl: _rmsnorm.RMSNorm.apply(
+            _dense(xl), _dense(wl), eps, _route("rmsnorm", xl),
+            _route("rmsnorm_bwd", xl)),
+        out_placements=list(xp), in_placements=(xp, rep),
+        in_grad_placements=(xp, grad_placements(mesh, xp)),
+        device_mesh=mesh, redistribute_inputs=True)(x, weight)
+
+
+def _mesh_attention(q, k, v, causal, scale):
+    """Attention of DTensors ``q (B, S, H, dq)``, ``k``/``v (B, S, K, d)``:
+    the batch stays over the mesh dims that shard it, the heads go over
+    the others where they divide, the sequence and head dim are whole.  A
+    kv head count a dim does not divide is held whole there (one kv head)
+    or repeated to one per query head."""
+    mesh = q.device_mesh
+    B, _, H, _ = q.shape
+    K = k.shape[2]
+    qp, kp, heads = [], [], 1
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if n > 1 and isinstance(p, Shard) and p.dim == 0:
+            qp.append(Shard(0))
+            kp.append(Shard(0))
+        elif n > 1 and H % (heads * n) == 0:
+            heads *= n
+            qp.append(Shard(2))
+            kp.append(Shard(2) if K % heads == 0 else Replicate())
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+    if any(a == Shard(2) and b == Replicate() for a, b in zip(qp, kp)) \
+            and K > 1:
+        # each rank's query heads need their own kv heads: one per head
+        k, v = (t.repeat_interleave(H // K, dim=2) for t in (k, v))
+        kp = list(qp)
+    qp, kp = tuple(qp), tuple(kp)
+    kg = tuple(Partial() if a == Shard(2) and b == Replicate() else b
+               for a, b in zip(qp, kp))
+
+    def local(ql, kl, vl):
+        ql, kl, vl = _dense(ql), _dense(kl), _dense(vl)
+        return _flash.FlashAttention.apply(
+            ql, kl, vl, causal, scale, _route("attention", ql),
+            _route("attention_dq", ql), _route("attention_dkv", ql))[0]
+    return local_map(local, out_placements=list(qp), in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, kg, kg), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+def _mesh_softmax_xent(x, w_unembed, labels, z_loss_weight):
+    """``softmax_xent`` of DTensor rows ``x (T, d)``: the rows split over
+    every mesh dim of more than one rank that divides them, the unembedding
+    gathered whole (vocab and embed dims) on each rank for the fused
+    kernel; ``ce`` and ``z_loss`` come back in the rows' layout."""
+    mesh = x.device_mesh
+    rows, split = x.shape[0], 1
+    xp = []
+    for i in range(mesh.ndim):
+        n = mesh.size(i)
+        if n > 1 and rows % (split * n) == 0:
+            split *= n
+            xp.append(Shard(0))
+        else:
+            xp.append(Replicate())
+    xp = tuple(xp)
+    rep = (Replicate(),) * mesh.ndim
+    if not isinstance(w_unembed, DTensor):
+        w_unembed = DTensor.from_local(w_unembed, mesh, rep, run_check=False)
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, rep, run_check=False)
+
+    def local(xl, wl, ll):
+        xl, wl, ll = _dense(xl), _dense(wl), _dense(ll)
+        return _xent.SoftmaxXent.apply(xl, wl, ll, z_loss_weight,
+                                       _route("softmax_xent", xl),
+                                       _route("softmax_xent_bwd", xl))
+    return local_map(local, out_placements=(list(xp), list(xp)),
+                     in_placements=(xp, rep, xp),
+                     in_grad_placements=(xp, grad_placements(mesh, xp),
+                                         xp),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        x, w_unembed, labels)
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk, D=None, h0=None):

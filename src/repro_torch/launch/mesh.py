@@ -1,16 +1,20 @@
-"""The MCMC executor's device mesh (``make_inference_mesh`` of the JAX
-package's ``repro/launch/mesh.py``).
+"""Device meshes (the port of the JAX package's ``repro/launch/mesh.py``):
+the MCMC executor's (``make_inference_mesh``) and the LM stack's
+(``make_production_mesh``, ``make_host_mesh``).
 
 A rank is one process with one device: a card (``cuda``, the default) or
 the CPU when the caller asks for it (the tests, with gloo).  Under
-``torchrun`` or any process group the caller started, the mesh spans its
-ranks; with no process group, :func:`make_inference_mesh` starts a one-rank
-group in this process (NCCL on a card, gloo on the CPU, rendezvous through
+``torchrun`` (whose environment starts the group) or any process group
+the caller started, the mesh spans its ranks; with neither,
+:func:`make_inference_mesh` starts a one-rank group in this process (NCCL on a card, gloo on the CPU, rendezvous through
 an in-process store), so ``chain_method="parallel"`` runs in one process on
-one card as the JAX package's does on one device.  The production and host
-meshes of the LM stack wait for the LM slice of the multi-GPU port.
+one card as the JAX package's does on one device.  The LM meshes span the
+process group's ranks exactly: a shape whose rank count differs from the
+group's raises ``RPL301`` naming the count it needs.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.distributed as dist
@@ -20,14 +24,76 @@ from ..core.errors import MESH_SHAPE, ReproValueError
 from ..distributed.sharding import CHAIN_AXIS, DATA_AXIS
 
 
+def _launched():
+    """Whether a launcher (``torchrun``) gave this process its rank in the
+    environment."""
+    return all(k in os.environ for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                                         "MASTER_PORT"))
+
+
+def _world():
+    """The rank count a mesh can take before any group is started."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ["WORLD_SIZE"]) if _launched() else 1
+
+
 def _ranks(device_type):
-    """The ranks a mesh can take: the process group's, after starting a
-    one-rank group in this process when there is none."""
+    """The ranks a mesh can take: the process group's, after starting one
+    when there is none (from ``torchrun``'s environment, else a one-rank
+    group in this process)."""
     if not dist.is_initialized():
         backend = "nccl" if device_type == "cuda" else "gloo"
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1)
+        if _launched():
+            dist.init_process_group(backend)
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                    world_size=1)
     return dist.get_world_size()
+
+
+def _lm_mesh(shape, axes, devices):
+    """A ``DeviceMesh`` of ``shape`` with dims ``axes`` over every rank of
+    the process group (a one-rank group started in process when there is
+    none), in row-major order."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes) or min(shape) < 1:
+        raise ReproValueError(f"mesh shape {shape} does not fit the dims "
+                              f"{axes}", code=MESH_SHAPE)
+    need = 1
+    for n in shape:
+        need *= n
+    have = _world()
+    if need != have:
+        raise ReproValueError(
+            f"a {'x'.join(map(str, shape))} mesh needs {need} ranks, one "
+            f"device each, but the process group has {have}: start {need} "
+            "ranks (torchrun --nproc-per-node "
+            f"{need}) or pick a shape of {have}.", code=MESH_SHAPE)
+    device_type = torch.device(devices or "cuda").type
+    _ranks(device_type)
+    return DeviceMesh(device_type, torch.arange(need).view(shape),
+                      mesh_dim_names=axes)
+
+
+def make_production_mesh(multi_pod: bool = False, *, devices=None):
+    """The production mesh: ``(data=16, model=16)``, 256 ranks, or with
+    ``multi_pod`` ``(pod=2, data=16, model=16)``, 512 ranks, where ``pod``
+    carries only the data-parallel gradient reductions."""
+    if multi_pod:
+        return _lm_mesh((2, 16, 16), ("pod", "data", "model"), devices)
+    return _lm_mesh((16, 16), ("data", "model"), devices)
+
+
+def make_host_mesh(shape=None, axes=("data", "model"), *, devices=None):
+    """A mesh over the process group's ranks (tests, examples, the
+    launcher's ``--mesh``): ``shape`` by default ``(n // 2, 2)`` for an
+    even ``n > 1`` ranks, else ``(n, 1)``; ``devices`` is the device type,
+    ``"cuda"`` (default) or ``"cpu"``."""
+    if shape is None:
+        n = _world()
+        shape = (n // 2, 2) if n % 2 == 0 and n > 1 else (n, 1)
+    return _lm_mesh(shape, axes, devices)
 
 
 def make_inference_mesh(num_chains, mesh_shape=None, *, devices=None):

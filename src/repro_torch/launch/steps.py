@@ -6,9 +6,15 @@ The paper's machinery is in the hot path: the log-prior flows through the
 handler stack (``core.bayes.log_prior``) and ``serve_step`` draws the next
 token through a ``sample`` site, the predictive pattern of the paper's
 Fig. 1.  Where the JAX package donates the train state to its compiled
-step, ``train_step`` writes the parameters in place.  The mesh-sharded
-variants (``grad_shardings``, ``shard_accum``) and the dry-run input specs
-wait for the multi-GPU item of the port (ROADMAP.md).
+step, ``train_step`` writes the parameters in place.
+
+Under ``models.common.sharding_ctx`` the train state lives on the mesh:
+:func:`make_train_state` places every parameter by
+``distributed.sharding.param_shardings`` (DTensors; the AdamW moments
+follow them), and the step's gradients come back in the parameters'
+placements before the clip and the optimizer, which read the global norm.
+The dry-run input specs (``train_input_specs``, ``serve_input_specs``) are
+not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,12 +22,15 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import optim
 from ..core import bayes, dist
 from ..core.errors import pending
 from ..core.primitives import sample
+from ..distributed.sharding import param_shardings, place
 from ..models import LM, ModelConfig
+from ..models.common import current_mesh, current_rules
 from ..optim import tree_leaves, tree_map
 
 
@@ -36,7 +45,10 @@ class TrainHParams:
     clip_norm: float = 1.0
     prior_sigma: float = 10.0       # MAP prior (~ decoupled weight decay)
     bias_update_rate: float = 1e-3  # DeepSeek aux-free router-bias step
-    shard_accum: bool = False       # multi-GPU: not ported (RPL501)
+    shard_accum: bool = False       # accumulate microbatch gradients in the
+    #                                 parameters' placements (one
+    #                                 reduce-scatter a microbatch instead of
+    #                                 a full-size partial sum)
 
 
 def default_hparams(cfg: ModelConfig, shape=None) -> TrainHParams:
@@ -87,10 +99,15 @@ def make_train_step(lm: LM, hp: TrainHParams, total_tokens: int,
     ``accum_dtype``, then clipped and fed to the optimizer; the parameters
     are updated in place.  ``metrics`` (0-dim tensors on the card) are the
     JAX package's (``ce``, ``z_loss``, ``log_prior``, ``loss`` the MAP
-    loss) plus ``grad_norm``, the norm the clip reads."""
-    if grad_shardings is not None or hp.shard_accum:
-        raise pending("sharded gradient accumulation (grad_shardings, "
-                      "shard_accum)", "multi-GPU")
+    loss) plus ``grad_norm``, the norm the clip reads.
+
+    On a mesh (DTensor parameters) a microbatch is each data rank's own
+    slice of its rows, and the metrics are the plain tensors of their
+    reduced values.  ``grad_shardings`` (a tree of
+    ``sharding.NamedSharding``), or ``hp.shard_accum`` for the parameters'
+    own placements, puts each microbatch's gradients there before they are
+    summed; without either they are summed as autograd gives them and
+    placed once.  With plain tensors both are the plain step."""
     cfg = lm.cfg
     opt = make_optimizer(hp)
     accum_dtype = getattr(torch, hp.accum_dtype)
@@ -109,18 +126,33 @@ def make_train_step(lm: LM, hp: TrainHParams, total_tokens: int,
         loss, metrics = loss_fn(wg, mb)
         leaves = tree_leaves(wg)
         grads = torch.autograd.grad(loss, leaves)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, _unflatten(w, grads)
+        metrics = {k: _whole(v.detach()) for k, v in metrics.items()}
+        return _whole(loss.detach()), metrics, _unflatten(w, grads)
+
+    def arrange(grads, w, each):
+        """The gradients in their placements: ``grad_shardings`` (or the
+        parameters' own under ``shard_accum``) for a microbatch's
+        (``each``), the parameters' own for the sum; plain tensors as they
+        are."""
+        if not isinstance(tree_leaves(w)[0], DTensor):
+            return grads
+        if grad_shardings is not None and each:
+            return tree_map(_place, grads, grad_shardings)
+        if hp.shard_accum or not each:
+            return tree_map(_place, grads, w)
+        return grads
 
     def train_step(state, batch):
         w = state["params"]
         if n_mb == 1:
             loss, metrics, grads = grad_fn(w, batch)
+            grads = arrange(grads, w, False)
         else:
             grads = metrics = None
             for i in range(n_mb):
-                mb = {k: v.chunk(n_mb, 0)[i] for k, v in batch.items()}
+                mb = {k: _microbatch(v, n_mb, i) for k, v in batch.items()}
                 l, m, g = grad_fn(w, mb)
+                g = arrange(g, w, True)
                 m = dict(m, loss=l)
                 if grads is None:
                     grads = tree_map(lambda a: a.to(accum_dtype), g)
@@ -129,9 +161,10 @@ def make_train_step(lm: LM, hp: TrainHParams, total_tokens: int,
                     tree_map(lambda a, b: a.add_(b.to(accum_dtype)), grads, g)
                     metrics = {k: metrics[k] + v / n_mb for k, v in m.items()}
                 del g
+            grads = arrange(grads, w, False)
             tree_map(lambda a: a.div_(n_mb), grads)
             loss = metrics["loss"]
-        metrics = dict(metrics, grad_norm=optim.global_norm(grads))
+        metrics = dict(metrics, grad_norm=_whole(optim.global_norm(grads)))
         updates, opt_state = opt.update(grads, state["opt"], w)
         del grads
         _apply_in_place(w, updates)
@@ -140,6 +173,32 @@ def make_train_step(lm: LM, hp: TrainHParams, total_tokens: int,
                 "step": state["step"] + 1}, dict(metrics, loss=loss)
 
     return train_step
+
+
+def _whole(t):
+    """A DTensor as the plain tensor of its full value (a reduced scalar
+    metric); a plain tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _place(grad, target):
+    """``grad`` redistributed to ``target``'s placements (a DTensor
+    parameter, or a ``NamedSharding``); a plain tensor as it is."""
+    if not isinstance(grad, DTensor):
+        return grad
+    placements = tuple(target.placements)
+    if tuple(grad.placements) == placements:
+        return grad
+    return grad.redistribute(grad.device_mesh, placements)
+
+
+def _microbatch(v, n_mb, i):
+    """Microbatch ``i`` of ``n_mb``: rows of a plain batch; of a DTensor
+    batch, each rank's ``i``-th slice of its own rows (no rows move)."""
+    if not isinstance(v, DTensor):
+        return v.chunk(n_mb, 0)[i]
+    return DTensor.from_local(v.to_local().chunk(n_mb, 0)[i], v.device_mesh,
+                              v.placements, run_check=False)
 
 
 def _unflatten(tree, leaves):
@@ -177,9 +236,18 @@ def _router_bias_update(cfg, w, metrics, rate):
 
 def make_train_state(lm: LM, hp: TrainHParams, rng=0, device="cuda"):
     """``{"params", "opt", "step"}``: params drawn from ``rng`` (see
-    ``LM.init``) on ``device`` (default the card)."""
+    ``LM.init``) on ``device`` (default the card).  Under an active mesh
+    (``models.common.sharding_ctx``) every rank draws the full parameters
+    from the same seed and keeps its shards of them, placed by
+    ``param_shardings`` (bit-identical to the unsharded draw); the
+    optimizer's moments follow them."""
     opt = make_optimizer(hp)
     w = lm.init(rng, device=device)
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is not None:
+        shapes, specs = lm.abstract_params()
+        shardings = param_shardings(specs, rules, mesh, shapes=shapes)
+        w = tree_map(lambda p, s: place(p, mesh, s.placements), w, shardings)
     return {"params": w, "opt": opt.init(w), "step": 0}
 
 

@@ -17,6 +17,7 @@ import torch
 
 from ..core.errors import pending
 from ..core.primitives import param
+from ..distributed.sharding import whole_seq
 from ..kernels import ops
 from .common import apply_rope, normal_init, ones_init, zeros_init
 from .config import ModelConfig
@@ -75,6 +76,7 @@ def gqa_params(cfg: ModelConfig, prefix: str, stacked: int = 0):
 
 
 def _qkv(cfg: ModelConfig, w, x):
+    x = whole_seq(x)
     B, S, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = torch.matmul(x, w["wq"].to(x.dtype))

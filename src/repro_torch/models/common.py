@@ -6,16 +6,79 @@ params tree for apply.  The initializers draw on the device of the
 generator ``seed`` hands them, so a model initialized from a CUDA generator
 is drawn on the card, never on the host.
 
-The JAX package's logical-sharding context (``sharding_ctx``,
-``constrain``) has no effect on one card and is not ported: it waits for
-the multi-GPU item of the port.
+Weights carry logical sharding names (``sharding=`` of their ``param``
+site).  Under :func:`sharding_ctx` a model's activations are laid out by
+:func:`constrain` at the JAX package's sites: the names map through the
+rules (``distributed.sharding.make_rules``) to DTensor placements on the
+mesh, and the tensor is redistributed to them.  Off a mesh ``constrain``
+returns its input.
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from ..core.primitives import param
+
+# ---------------------------------------------------------------------------
+# logical sharding context
+# ---------------------------------------------------------------------------
+
+_SHARDING_CTX = {"mesh": None, "rules": None}
+
+
+@contextmanager
+def sharding_ctx(mesh, rules):
+    """Lay a model's activations out on ``mesh`` by ``rules`` inside."""
+    old = dict(_SHARDING_CTX)
+    _SHARDING_CTX.update(mesh=mesh, rules=rules)
+    try:
+        yield
+    finally:
+        _SHARDING_CTX.update(old)
+
+
+def current_mesh():
+    return _SHARDING_CTX["mesh"]
+
+
+def current_rules():
+    return _SHARDING_CTX["rules"]
+
+
+def logical_to_spec(names: Optional[Sequence[Optional[str]]]):
+    """Logical axis names -> a spec tuple under the active rules, or None.
+    A name ABSENT from the rules disables the whole constraint (the layout
+    is left as it is), where a name mapped to None replicates its dim."""
+    from ..distributed.sharding import logical_to_partition
+    rules = _SHARDING_CTX["rules"]
+    if names is None or rules is None:
+        return None
+    if any(n is not None and n not in rules for n in names):
+        return None
+    return logical_to_partition(names, rules)
+
+
+def constrain_spec(x, spec):
+    """``x`` laid out by an explicit spec tuple on the active mesh; the
+    input itself off a mesh."""
+    mesh = _SHARDING_CTX["mesh"]
+    if mesh is None or spec is None:
+        return x
+    from ..distributed.sharding import place, spec_to_placements
+    return place(x, mesh, spec_to_placements(spec, mesh))
+
+
+def constrain(x, names: Optional[Sequence[Optional[str]]]):
+    """``x`` laid out by logical names on the active mesh (the JAX
+    package's ``with_sharding_constraint``); the input itself off a mesh or
+    when a name is absent from the rules."""
+    if _SHARDING_CTX["mesh"] is None:
+        return x
+    return constrain_spec(x, logical_to_spec(names))
 
 # ---------------------------------------------------------------------------
 # initializers: (generator, shape, dtype) -> tensor on the generator's device

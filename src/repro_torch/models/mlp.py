@@ -9,6 +9,7 @@ from typing import Optional
 import torch
 
 from ..core.primitives import param
+from ..distributed.sharding import whole_seq
 from . import common
 from .common import normal_init
 from .config import ModelConfig
@@ -40,6 +41,7 @@ def mlp_params(cfg: ModelConfig, prefix: str, stacked: int = 0,
 
 def mlp_apply(cfg: ModelConfig, w, x):
     act = common.geglu if cfg.mlp_act == "geglu" else common.swiglu
+    x = whole_seq(x)
     g = torch.matmul(x, w["wg"].to(x.dtype))
     u = torch.matmul(x, w["wu"].to(x.dtype))
     return torch.matmul(act(g, u), w["wd"].to(x.dtype))

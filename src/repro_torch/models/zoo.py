@@ -13,6 +13,13 @@ is one preallocated (L, B, S, K, hd) tensor per k and v, written in place
 one position per decode step; an SSM layer's cache is one (L, B, h, p, n)
 float32 state and one (L, B, width - 1, conv_ch) conv tail, written in place
 each step.
+
+Under ``common.sharding_ctx`` the dense families train on a device mesh:
+the parameters are DTensors placed by their logical names
+(``distributed.sharding.param_shardings`` of :meth:`LM.abstract_params`),
+the activations are laid out at the JAX package's ``constrain`` sites, and
+the kernels of ``ops`` run on each rank's local shards.  The SSM family and
+decoding under a mesh raise ``RPL501``.
 """
 from __future__ import annotations
 
@@ -20,18 +27,22 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..core import handlers
 from ..core.errors import pending
 from ..core.infer.hmc import resolve_device
 from ..core.primitives import param
+from ..distributed.sharding import (grad_placements, place, replicate,
+                                    whole_seq)
 from ..kernels import ops
 from . import attention as attn
 from . import mlp as mlpm
 from . import ssm as ssmm
-from .common import (embedding, normal_init, rmsnorm_weight, rope_at,
-                     rope_frequencies)
+from .common import (constrain, current_mesh, embedding, normal_init,
+                     rmsnorm_weight, rope_at, rope_frequencies)
 from .config import ModelConfig
 
 # ---------------------------------------------------------------------------
@@ -121,15 +132,22 @@ def _block_params(cfg: ModelConfig, prefix: str, spec: LayerSpec, stacked):
 
 
 def _block_apply(cfg: ModelConfig, spec: LayerSpec, w, x, rope):
-    """Full-sequence block: x (B, S, d) -> x."""
+    """Full-sequence block: x (B, S, d) -> x.  On a mesh, block-internal
+    activations take the ``seq_inner`` rule (the sequence gathered when
+    ``sp_scoped``) and each branch joins the residual stream in its
+    ``seq`` layout."""
     h = ops.rmsnorm(x, w["ln1"])
+    h = constrain(h, ("batch", "seq_inner", None))
     if spec.mixer == "ssm":
         h = ssmm.ssm_apply(cfg, w["mixer"], h)
     else:
         h = attn.attn_apply(cfg, w["mixer"], h, rope)
-    x = x + h
+    x = x + constrain(h, ("batch", "seq", None))
     if spec.ffn is not None:
-        x = x + mlpm.mlp_apply(cfg, w["ffn"], ops.rmsnorm(x, w["ln2"]))
+        h = ops.rmsnorm(x, w["ln2"])
+        h = constrain(h, ("batch", "seq_inner", None))
+        h = mlpm.mlp_apply(cfg, w["ffn"], h)
+        x = x + constrain(h, ("batch", "seq", None))
     return x
 
 
@@ -222,9 +240,33 @@ class LM:
                 int(rng))
         return handlers.seed(self.params_fn, rng)()
 
+    def abstract_params(self):
+        """``(shapes, specs)``: the parameter tree as tensors on the
+        ``meta`` device (shapes and dtypes, no memory) and the same tree of
+        each ``param`` site's logical sharding names."""
+        specs = {}
+
+        class _record(_meta_params):
+            def process_message(self, msg):
+                super().process_message(msg)
+                if msg["type"] == "param":
+                    specs[id(msg["value"])] = msg["kwargs"].get("sharding")
+
+        with _record():
+            shapes = self.params_fn()
+
+        def names(tree):
+            if isinstance(tree, dict):
+                return {k: names(v) for k, v in tree.items()}
+            return specs.get(id(tree))
+        return shapes, names(shapes)
+
     # -- embedding / head ----------------------------------------------------
     def _embed(self, w, tokens):
-        x = w["embed"][tokens]
+        if isinstance(tokens, DTensor):
+            x = _mesh_embed(w["embed"], tokens)
+        else:
+            x = w["embed"][tokens]
         if self.cfg.tie_embeddings:  # gemma-style sqrt(d) scaling
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype,
                                  device=x.device)
@@ -234,9 +276,16 @@ class LM:
         return w["embed"].T if self.cfg.tie_embeddings else w["unembed"]
 
     def _rope(self, seq_len, device):
+        """cos/sin tables; on a mesh replicated DTensors, which a
+        sequence-sharded activation meets at its own positions."""
         cfg = self.cfg
-        return rope_frequencies(cfg.head_dim, max(seq_len, 1),
-                                base=cfg.rope_base, device=device)
+        tables = rope_frequencies(cfg.head_dim, max(seq_len, 1),
+                                  base=cfg.rope_base, device=device)
+        mesh = current_mesh()
+        if mesh is None:
+            return tables
+        return tuple(place(t, mesh, [Replicate()] * mesh.ndim)
+                     for t in tables)
 
     # -- the layer stack ------------------------------------------------------
     def _run_groups(self, w, x, rope):
@@ -248,9 +297,10 @@ class LM:
             ckpt = remat and (x.requires_grad or _requires_grad(w[g.name]))
 
             def body(x, wi, _g=g):
+                x = constrain(x, ("batch", "seq", None))
                 for j, spec in enumerate(_g.specs):
                     x = _block_apply(cfg, spec, wi[f"p{j}"], x, rope)
-                return x
+                return constrain(x, ("batch", "seq", None))
 
             for wi in _unbind(w[g.name], g.n):
                 x = checkpoint(body, x, wi, use_reentrant=False,
@@ -268,8 +318,12 @@ class LM:
         ``loss``."""
         cfg = self.cfg
         tokens = batch["tokens"]
+        if cfg.family == "ssm" and current_mesh() is not None:
+            raise pending(f"{cfg.name}: the SSM family under a mesh",
+                          "mamba2 training")
         B, S = tokens.shape
         x = self._embed(w, tokens)
+        x = constrain(x, ("batch", "seq", None))
         rope = self._rope(S, x.device)
         x = self._run_groups(w, x, rope)
         x = ops.rmsnorm(x, w["final_norm"])
@@ -278,11 +332,12 @@ class LM:
             return torch.matmul(x[:, -1:], uw.to(x.dtype))[:, 0]
         if return_logits:
             return torch.matmul(x, uw.to(x.dtype))
-        ce, zl = ops.softmax_xent(x.reshape(B * S, cfg.d_model),
+        ce, zl = ops.softmax_xent(whole_seq(x).reshape(B * S, cfg.d_model),
                                   uw.to(x.dtype), batch["labels"].reshape(-1),
                                   z_loss_weight=cfg.z_loss_weight)
-        loss = ce.mean() + zl.mean()
-        return loss, {"ce": ce.mean(), "z_loss": zl.mean(), "loss": loss}
+        ce, zl = replicate(ce.mean()), replicate(zl.mean())
+        loss = ce + zl
+        return loss, {"ce": ce, "z_loss": zl, "loss": loss}
 
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch, seq_len, device="cuda"):
@@ -291,6 +346,7 @@ class LM:
         and v for attention layers, a (n, B, h, p, n) float32 state and a
         (n, B, width - 1, conv_ch) conv tail for SSM layers (``seq_len`` is
         then unused)."""
+        _no_mesh_decoding()
         device = resolve_device(device)
         cfg = self.cfg
         return {g.name: {f"p{j}": _block_cache(cfg, spec, batch, seq_len,
@@ -302,6 +358,7 @@ class LM:
         """tokens: (B, 1) -> (logits (B, V), cache).  ``pos`` is the host
         int position written; the cache is updated in place and returned.
         RoPE is evaluated at ``pos`` directly, with no (S, hd) table."""
+        _no_mesh_decoding()
         cfg = self.cfg
         pos = int(pos)
         x = self._embed(w, tokens)
@@ -315,6 +372,28 @@ class LM:
         x = ops.rmsnorm(x, w["final_norm"])
         logits = torch.matmul(x, self._unembed_w(w).to(x.dtype))[:, 0]
         return logits, cache
+
+
+def _no_mesh_decoding():
+    if current_mesh() is not None:
+        raise pending("decoding under a mesh (serving takes one device)",
+                      "multi-GPU serving")
+
+
+def _mesh_embed(table, tokens):
+    """The embedding lookup of DTensor ``tokens`` on every rank's own
+    tokens against the whole table (gathered once), in the tokens'
+    layout; the table's gradient sums over the ranks that split the
+    tokens."""
+    mesh = tokens.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    grad = grad_placements(mesh, tokens.placements)
+    return local_map(lambda t, idx: t[idx],
+                     out_placements=list(tokens.placements),
+                     in_placements=(rep, tokens.placements),
+                     in_grad_placements=(grad, tokens.placements),
+                     device_mesh=mesh, redistribute_inputs=True)(table,
+                                                                 tokens)
 
 
 # ---------------------------------------------------------------------------

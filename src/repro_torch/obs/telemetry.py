@@ -79,11 +79,12 @@ class Telemetry:
         self._artifact_dir = None
         self._profiling = False
         self._span_seq = 0
+        self._writer = True
 
     # -- run lifecycle ------------------------------------------------------
     def begin_run(self, run_config: dict, *, default_dir=None,
                   resume: bool = False, mesh_shape=None,
-                  device_count=None) -> None:
+                  device_count=None, writer: bool = True) -> None:
         """Reset per-run state and open artifacts.  Artifacts land in
         ``self.dir`` when set, else in ``default_dir`` (the run's
         checkpoint_dir), else stay in memory (``MemorySink``).
@@ -93,8 +94,12 @@ class Telemetry:
         :meth:`commit_run_config` fills in the setup-derived fields and
         emits the ``run_started`` event.  ``mesh_shape`` and
         ``device_count`` describe this session's devices in the manifest's
-        environment block."""
-        base = self.dir if self.dir is not None else default_dir
+        environment block.  ``writer=False`` (a mesh's ranks but rank 0)
+        keeps the metrics buffer, spans and forensics ring in memory and
+        writes nothing: no sink, manifest, trace or forensics file."""
+        self._writer = bool(writer)
+        base = (self.dir if self.dir is not None else default_dir) \
+            if writer else None
         self._artifact_dir = base
         self.buffer.clear()
         self.spans = []
@@ -104,7 +109,9 @@ class Telemetry:
                           if self._forensics_enabled else None)
         self._run_config = dict(run_config)
         self._resume = bool(resume)
-        if self._sink_arg is not None:
+        if not writer:
+            self.sink = NullSink()
+        elif self._sink_arg is not None:
             self.sink = self._sink_arg
         elif not self._events:
             self.sink = NullSink()
@@ -163,7 +170,7 @@ class Telemetry:
         (the CPU, and the card when there is one; never nested) and exports
         one Chrome trace, ``<profile_dir>/<seq>_<name>/trace.json``."""
         clock = SpanClock(name, attrs)
-        profiling = (self.profile_dir is not None
+        profiling = (self.profile_dir is not None and self._writer
                      and name in self.profile_spans and not self._profiling)
         trace_dir = None
         if profiling:

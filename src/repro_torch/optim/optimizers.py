@@ -6,7 +6,10 @@ kept in ``mu_dtype``/``nu_dtype`` (default: the parameter's dtype) and every
 update is computed from float32 copies.  Step counts and learning-rate
 schedules are host numbers computed in float32 (``numpy.float32``), so an
 update issues no read back from the card.  Every function returns new
-tensors; ``launch/steps.py`` writes the parameters in place.
+tensors; ``launch/steps.py`` writes the parameters in place.  The leaves
+may be DTensors on a mesh (the LM's train state under
+``models.common.sharding_ctx``): the math is the same, and the global norm
+is the mesh's.
 """
 from __future__ import annotations
 
@@ -15,6 +18,9 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+
+from ..distributed.sharding import replicate
 
 _F32 = np.float32
 
@@ -65,7 +71,7 @@ class GradientTransformation(NamedTuple):
 
 def global_norm(tree):
     """The float32 l2 norm of every leaf together (a 0-dim tensor)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+    return torch.sqrt(sum(replicate(torch.sum(torch.square(x.float())))
                           for x in tree_leaves(tree)))
 
 
@@ -207,7 +213,15 @@ def adafactor(learning_rate, decay=0.8, eps=1e-30, clip_threshold=1.0
         return p.dim() >= 2
 
     def _zeros(shape, like):
-        return torch.zeros(shape, dtype=torch.float32, device=like.device)
+        """Float32 zeros on ``like``'s device; for a DTensor parameter a
+        DTensor replicated on its mesh (the factored statistics are
+        O(n + m))."""
+        zeros = torch.zeros(shape, dtype=torch.float32, device=like.device)
+        if isinstance(like, DTensor):
+            mesh = like.device_mesh
+            return DTensor.from_local(zeros, mesh, [Replicate()] * mesh.ndim,
+                                      run_check=False)
+        return zeros
 
     def init(params):
         v_row = tree_map(lambda p: _zeros(p.shape[:-1], p) if _factored(p)
@@ -215,7 +229,8 @@ def adafactor(learning_rate, decay=0.8, eps=1e-30, clip_threshold=1.0
         v_col = tree_map(lambda p: _zeros(p.shape[:-2] + p.shape[-1:], p)
                          if _factored(p) else _zeros((), p), params)
         v_full = tree_map(lambda p: _zeros((), p) if _factored(p)
-                          else _zeros(p.shape, p), params)
+                          else torch.zeros_like(p, dtype=torch.float32),
+                          params)
         return AdafactorState(0, v_row, v_col, v_full)
 
     def update(grads, state, params=None):

@@ -1614,3 +1614,30 @@ def test_svi_steps_on_card_match_the_cpu():
     for name in p_cpu:
         torch.testing.assert_close(p_card[name], p_cpu[name], rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_one_rank_lm_mesh_step_on_card():
+    """A reduced 2-layer float32 gemma on a one-rank (1, 1) LM mesh on the
+    card (``chip_smoke.train_mesh_check``): its loss and gradients through
+    the kernels (run in ``local_map``), then one ``make_train_step`` step,
+    bit-identical to the unsharded kernel run, with the same launches."""
+    from chip_smoke import train_mesh_check
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import LM, reduced
+    from repro_torch.optim import tree_leaves, tree_map
+    dev = _need_card()
+    lm = LM(reduced(get_config("gemma-2b"), num_layers=2), remat="full")
+    w = lm.init(torch.Generator(device=dev).manual_seed(0))
+    batch = SyntheticLMData(lm.cfg.vocab_size, 64, 2,
+                            seed=0).batch_at(0, device=dev)
+    wg = tree_map(lambda p: p.detach().requires_grad_(), w)
+    ops.reset_launch_counts()
+    loss, _ = lm.forward(wg, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(wg))
+    counts = ops.launch_counts()
+    assert counts["attention"] > 0 and counts["rmsnorm"] > 0
+    out = train_mesh_check(dev, lm, w, batch, loss.detach(), grads, counts)
+    assert out["loss_and_grads_bit_identical"]
+    assert out["step_params_bit_identical"]

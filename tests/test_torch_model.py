@@ -362,7 +362,9 @@ def test_port_imports_no_jax():
             "repro_torch.core.infer.svi, repro_torch.core.infer.autoguide, "
             "repro_torch.obs, repro_torch.obs.compare, "
             "repro_torch.obs.validate, repro_torch.lint_rules, "
-            "repro_torch.lint_rules.obs_rules, repro_torch.core.lint; "
+            "repro_torch.lint_rules.obs_rules, repro_torch.core.lint, "
+            "repro_torch.optim.compression, repro_torch.launch.mesh, "
+            "repro_torch.distributed.sharding, repro_torch.bench.lm_mesh; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             " assert not bad, bad")

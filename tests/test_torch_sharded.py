@@ -15,6 +15,14 @@ them exactly.
   MALA with ``data_shards=4`` under the 1-D mesh and the (2, 2), (4, 1)
   and (1, 4) meshes: every rank's draws and state equal the vectorized
   run's.
+- ``observed`` (NUTS, ChEES and MALA, in the same jobs): telemetry on
+  under (2, 2) (its artifacts in one directory: rank 0 alone writes)
+  against the layouts' runs with it off: the draws and state byte for
+  byte, the metric series (gathered in rank order on every rank) the
+  one-process vectorized run's with telemetry on, one manifest; and a
+  NUTS run gated by ``until=`` under (2, 2) equal to the gated
+  vectorized run: the same draws, stopping at the same iteration for the
+  same reason.
 - ``elastic`` (NUTS and MALA, in the same jobs): a (2, 2) run killed
   between a samples write and its state
   write (rank 0 raises right after the samples save, the other ranks at
@@ -44,6 +52,7 @@ WARMUP, SAMPLES, EVERY = 12, 12, 8
 LAYOUTS = {"mesh_1d": None, "mesh_2x2": (2, 2), "mesh_4x1": (4, 1),
            "mesh_1x4": (1, 4)}
 SAMPLERS = ("nuts", "nuts_cross", "chees", "mala")
+OBSERVED = ("nuts", "chees", "mala")
 ELASTIC = ("nuts", "mala")
 RESUMES = ("mesh_1x1", "mesh_2x1", "vectorized", "mesh_2x2_every5")
 
@@ -113,12 +122,12 @@ def _record(mcmc):
             "state": _digest(mcmc.last_state)}
 
 
-def _run(name, chain_method, mesh_shape=None, **run_kw):
+def _run(name, chain_method, mesh_shape=None, telemetry=None, **run_kw):
     from repro_torch.core.infer import MCMC
     model, x, y = _model()
     kw = {"mesh_shape": mesh_shape} if mesh_shape is not None else {}
     mcmc = MCMC(_kernel(name, model), WARMUP, SAMPLES, num_chains=CHAINS,
-                chain_method=chain_method, **kw)
+                chain_method=chain_method, telemetry=telemetry, **kw)
     mcmc.run(SEED, x, y, **run_kw)
     return mcmc
 
@@ -129,6 +138,44 @@ def _layouts(name, rank):
         out["vectorized"] = _record(_run(name, "vectorized"))
     for label, shape in LAYOUTS.items():
         out[label] = _record(_run(name, "parallel", shape))
+    return out
+
+
+def _observed(name, rank, workdir):
+    """Telemetry on under (2, 2) (and for NUTS a gated run), each against
+    the one-process vectorized run with the same options."""
+    from repro_torch import obs
+    out = {}
+
+    def series(tele):
+        return _digest({k: np.asarray(v)
+                        for k, v in tele.buffer.series().items()})
+
+    if rank == 0:
+        tele = obs.Telemetry()
+        _run(name, "vectorized", telemetry=tele)
+        out["vectorized_series"] = series(tele)
+    artifacts = os.path.join(workdir, f"telemetry_{name}")
+    tele = obs.Telemetry(dir=artifacts)
+    out["mesh_2x2"] = _record(_run(name, "parallel", (2, 2), telemetry=tele))
+    out["mesh_2x2_series"] = series(tele)
+    if name == "nuts":
+        until = obs.Converged(max_rhat=1.5, min_ess=8.0, check_every=4,
+                              batch_size=2)
+        if rank == 0:
+            mcmc = _run(name, "vectorized", until=until)
+            out["gated_vectorized"] = dict(
+                _record(mcmc), reason=mcmc.monitor.decision["reason"])
+        mcmc = _run(name, "parallel", (2, 2), until=until)
+        out["gated_mesh_2x2"] = dict(_record(mcmc),
+                                     reason=mcmc.monitor.decision["reason"])
+    import torch.distributed as dist
+    dist.barrier()
+    if rank == 0:
+        out["artifacts"] = sorted(os.listdir(artifacts))
+        with open(os.path.join(artifacts, "events.jsonl")) as f:
+            kinds = [json.loads(line)["kind"] for line in f]
+        out["run_started"] = kinds.count("run_started")
     return out
 
 
@@ -216,6 +263,8 @@ def _rank_main(job, rank, workdir):
         "gloo", init_method=f"file://{os.path.join(workdir, 'rendezvous')}",
         rank=rank, world_size=RANKS)
     out = {"layouts": _layouts(job, rank)}
+    if job in OBSERVED:
+        out["observed"] = _observed(job, rank, workdir)
     if job in ELASTIC:
         out["elastic"] = _elastic(job, rank, workdir)
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
@@ -273,6 +322,33 @@ def test_layouts_byte_identical_to_vectorized(results, sampler, layout):
     assert want is not None
     for rank, got in enumerate(ranks):
         assert got[layout] == want, f"{sampler} {layout}: rank {rank}"
+
+
+@pytest.mark.parametrize("sampler", OBSERVED)
+def test_telemetry_under_a_four_rank_mesh(results, sampler):
+    """Telemetry on under (2, 2): the draws and state byte-identical to
+    the runs with it off, every rank's metric series the vectorized
+    run's, and one writer's artifacts."""
+    ranks = results(sampler)
+    want = ranks[0]["layouts"]["vectorized"]
+    series = ranks[0]["observed"]["vectorized_series"]
+    for rank, r in enumerate(ranks):
+        assert r["observed"]["mesh_2x2"] == want, f"{sampler}: rank {rank}"
+        assert r["observed"]["mesh_2x2_series"] == series, \
+            f"{sampler}: rank {rank}'s metric series"
+    seen = ranks[0]["observed"]
+    assert seen["artifacts"].count("run_manifest.json") == 1
+    assert "events.jsonl" in seen["artifacts"]
+    assert seen["run_started"] == 1
+
+
+def test_gated_run_under_a_four_rank_mesh(results):
+    """``until=`` under (2, 2): every rank stops where the gated
+    vectorized run stops, with its draws and state."""
+    ranks = results("nuts")
+    want = ranks[0]["observed"]["gated_vectorized"]
+    for rank, r in enumerate(ranks):
+        assert r["observed"]["gated_mesh_2x2"] == want, f"rank {rank}"
 
 
 @pytest.mark.parametrize("resumed", RESUMES)

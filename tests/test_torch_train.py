@@ -423,12 +423,25 @@ def test_train_steps_match_reference(n_mb):
 
 
 def test_train_step_pending_options_raise():
-    lm = LM(reduced(get_config("gemma-2b")))
-    with pytest.raises(ReproError, match=PENDING):
-        steps.make_train_step(lm, steps.TrainHParams(shard_accum=True), 64)
-    with pytest.raises(ReproError, match=PENDING):
-        steps.make_train_step(lm, steps.TrainHParams(), 64,
-                              grad_shardings={})
+    """The sharded-accumulation options, once pending, are the plain step
+    off a mesh: ``shard_accum`` and ``grad_shardings`` (plain tensors have
+    no placements to take) give the same state bit for bit."""
+    cfg = reduced(get_config("gemma-2b"))
+    lm = LM(cfg)
+    data = SyntheticLMData(cfg.vocab_size, 16, 4)
+    runs = []
+    for hp, shardings in ((steps.TrainHParams(num_microbatches=2), None),
+                          (steps.TrainHParams(num_microbatches=2,
+                                              shard_accum=True), None),
+                          (steps.TrainHParams(num_microbatches=2), {})):
+        state = steps.make_train_state(lm, hp, device="cpu")
+        step = steps.make_train_step(lm, hp, 64, grad_shardings=shardings)
+        for i in range(2):
+            state, m = step(state, data.batch_at(i))
+        runs.append((optim.tree_leaves(state["params"]), m))
+    for leaves, m in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(leaves, runs[0][0]))
+        assert all(torch.equal(m[k], runs[0][1][k]) for k in m)
 
 
 def test_default_hparams_match_reference():
@@ -473,7 +486,17 @@ def test_train_launcher_runs_on_cpu(capsys, tmp_path):
                 "--ckpt-dir", ck])
     assert ckpt.latest_step(ck) == 1
     assert os.path.exists(os.path.join(ck, "params__embed.npy"))
-    # the device mesh waits for the multi-GPU item
-    with pytest.raises(ReproError, match=PENDING):
-        train.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu",
-                    "--mesh", "2x2"])
+    # --mesh 1x1 (a one-rank gloo group in this process) equals no mesh
+    # bit for bit; a 2x2 mesh needs four ranks
+    args = ["--arch", "gemma-2b", "--reduced", "--device", "cpu", "--steps",
+            "2", "--seq-len", "32", "--global-batch", "4",
+            "--microbatches", "2", "--log-every", "1"]
+    plain, plain_hist = train.main(args)
+    meshed, mesh_hist = train.main(args + ["--mesh", "1x1"])
+    assert mesh_hist == plain_hist
+    for a, b in zip(optim.tree_leaves(plain["params"]),
+                    optim.tree_leaves(meshed["params"])):
+        assert torch.equal(a, b.to_local())
+    with pytest.raises(ReproError, match="needs 4 ranks") as e:
+        train.main(args + ["--mesh", "2x2"])
+    assert e.value.code == "RPL301"
