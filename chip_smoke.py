@@ -13,6 +13,17 @@ result line if any fails):
    each of which must have at least one; then the device time of each
    kernel inside one bf16 dq pass (its delta kernel) and one rmsnorm
    backward (its two kernels) at gemma-2b's shapes.
+   Then ``lint``: the registry invariants (``repro_torch.lint``'s
+   ``verify_registry``: RPL201/202 over ``OP_TABLE``, ``FUSED`` and
+   ``BACKWARD``, and RPL203, each of the 26 kernels launched against its
+   plain version at its factory's shapes, within its row's bound); the
+   model linter clean on the logreg at 581,012 x 54, the semi-supervised
+   HMM at T = 600 and SKIM at p = 256 on the card, and once on meta
+   tensors of the same shapes; ``analyze`` of each of those potentials
+   with its gradient on the card, its findings printed (no gate); and
+   ``MCMC(NUTS(logreg_model_glm), 10, 10, validate=True)`` against
+   ``validate=False``: the draws bit-identical, the model linted once over
+   two runs.  Its seconds are printed (``lint phase seconds``).
 2. ``samplers``: hold each kernel of slices 1-3 against its plain PyTorch
    version on the card, at the main paths' shapes and at ragged ones, and
    time kernel and plain version with CUDA events (``enum_contract`` also
@@ -1032,15 +1043,11 @@ def accept_prob_tolerance(args, eps, coef):
     sums' FUSED_REL_TOL allows: log_accept may move by FUSED_REL_TOL of the
     magnitudes summed into it (|pe|, |pe'|, and MALA's two sums of
     non-negative terms), so accept_prob by that factor of itself.  A
-    divergent chain's (pe' not finite) accept_prob is 0 exactly."""
-    z, pe, grad, z_new, pe_new, grad_new, noise, m, u = args
-    scale = pe.double().abs() + pe_new.double().abs().nan_to_num(
-        nan=0.0, posinf=0.0)
-    if grad is not None:
-        diff = (z - z_new).double() + eps * (m * grad_new).double()
-        scale = scale + 0.5 * (noise.double() ** 2).sum(-1) \
-            + abs(coef) * (diff * diff / m.double()).sum(-1)
-    return torch.expm1(FUSED_REL_TOL * scale)
+    divergent chain's (pe' not finite) accept_prob is 0 exactly.  The
+    magnitudes are ``mala_accept_scale``'s, the ``mala_accept`` registry
+    row's scale."""
+    from repro_torch.kernels.rwm_mala import mala_accept_scale
+    return torch.expm1(FUSED_REL_TOL * mala_accept_scale(*args, eps, coef))
 
 
 def mala_accept_checks(dev):
@@ -5755,6 +5762,122 @@ def run_mesh(dev, data, plain_nuts):
         "seconds": seconds}
 
 
+# -- the lint phase ----------------------------------------------------------
+LINT_VALIDATE = (10, 10)   # warmup, draws of the validate= check
+
+
+def _meta(value):
+    """``value`` with every numpy array or tensor as an empty tensor of its
+    shape and dtype on the meta device."""
+    from torch.utils._pytree import tree_map
+
+    def empty(leaf):
+        if isinstance(leaf, np.ndarray):
+            leaf = torch.from_numpy(leaf)
+        if isinstance(leaf, torch.Tensor):
+            return torch.empty(leaf.shape, dtype=leaf.dtype, device="meta")
+        return leaf
+    return tree_map(empty, value)
+
+
+def lint_models(data):
+    """The three paper models with the main paths' data: (label, model,
+    args, kwargs)."""
+    from repro_torch.bench.models import (hmm_data, hmm_model,
+                                          logreg_model_glm, skim_data,
+                                          skim_model)
+    hmm = hmm_data(seed=0, T=HMM_T, T_sup=HMM_T_SUP, K=HMM_K, V=HMM_V)
+    sk = skim_data(SKIM_P, seed=0, n=SKIM_N, n_inter=SKIM_INTER)
+    return [("logreg_model_glm", logreg_model_glm, (data["x"],),
+             {"y": data["y"]}),
+            ("hmm_model", hmm_model, (hmm,), {}),
+            ("skim_model", skim_model, (sk["x"],), {"y": sk["y"]})]
+
+
+def run_lint(dev, n=N):
+    """The lint phase (see the module docstring) on the logreg's n x 54
+    data; returns what it printed.  The registry check's launches are
+    zeroed after it (every phase reads its counts from zero)."""
+    from repro_torch.bench.models import covtype_data
+    from repro_torch import lint
+    from repro_torch.core import lint as core_lint
+    from repro_torch.core.infer import MCMC, NUTS, hmc_setup
+    from repro_torch.core.infer.hmc_util import GeneratorDraws, value_and_grad
+    from repro_torch.core.infer.mcmc import _to_device
+    from repro_torch.kernels import ops
+    out, part_s = {}, {}
+    t0 = time.perf_counter()
+    data = covtype_data(seed=0, n=n, d=D)
+    part_s["data"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    registry = lint.verify_registry(device=dev)
+    ops.reset_launch_counts()
+    part_s["registry"] = time.perf_counter() - t0
+    rows = [s for s in list(ops.OP_TABLE) + list(ops.FUSED.values())
+            + list(ops.BACKWARD.values()) if s.kernel is not None]
+    out["registry"] = {"findings": [str(f) for f in registry.findings],
+                       "rows": registry.details}
+    print("lint registry (RPL201-203):", json.dumps(out["registry"]),
+          flush=True)
+    check(registry.ok and not registry.findings,
+          f"RPL201-203 findings:\n{registry}")
+    check(len(rows) == 26 and all(
+        (registry.details.get(s.name) or {}).get("launches", 0) >= 1
+        for s in rows), "a registered kernel did not launch against its "
+          f"plain version: {registry.details}")
+    t0 = time.perf_counter()
+    models = lint_models(data)
+    out["models"] = {}
+    for label, model, args, kwargs in models:
+        on_card = lint.lint_model(model, args, kwargs, device=dev)
+        abstract = lint.lint_model(model, _meta(args), _meta(kwargs))
+        out["models"][label] = {"card": str(on_card), "meta": str(abstract)}
+        check(on_card.ok and not on_card.findings
+              and abstract.ok and not abstract.findings,
+              f"lint of {label}: card {on_card}; meta {abstract}")
+    part_s["models"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["hazards"] = {}
+    for label, model, args, kwargs in models:
+        setup = hmc_setup(torch.Generator().manual_seed(0), 10, algo="NUTS",
+                          model=model, model_args=_to_device(args, dev),
+                          model_kwargs=_to_device(kwargs, dev), device=dev)
+        z = setup.init_fn(GeneratorDraws(torch.Generator().manual_seed(1))).z
+        result = lint.analyze(value_and_grad(setup.potential_fn), z)
+        out["hazards"][label] = [str(f) for f in result.findings]
+    part_s["hazards"] = time.perf_counter() - t0
+    print("lint hazards (analyze of each potential and gradient):",
+          json.dumps(out["hazards"]), flush=True)
+    t0 = time.perf_counter()
+    linted, real = [], core_lint.lint_model
+
+    def counting(*a, **k):
+        linted.append(1)
+        return real(*a, **k)
+
+    from repro_torch.bench.models import logreg_model_glm
+    draws = {}
+    core_lint.lint_model = counting
+    try:
+        for validate in (True, False):
+            mcmc = MCMC(NUTS(logreg_model_glm), *LINT_VALIDATE,
+                        validate=validate)
+            mcmc.run(0, data["x"], y=data["y"])
+            if validate:
+                mcmc.run(0, data["x"], y=data["y"])  # warm: no lint
+            draws[validate] = mcmc.get_samples()["w"]
+    finally:
+        core_lint.lint_model = real
+    out["validate"] = {"lint_calls": len(linted), "bit_identical": bool(
+        torch.equal(draws[True], draws[False]))}
+    check(out["validate"] == {"lint_calls": 1, "bit_identical": True},
+          f"validate=True: {out['validate']}")
+    part_s["validate"] = time.perf_counter() - t0
+    out["seconds"] = part_s
+    print("lint validate:", json.dumps(out["validate"]), flush=True)
+    return out
+
+
 # -- the obs phase -----------------------------------------------------------
 # the checkpoint phase's configurations (CKPT_*), each run once more with
 # telemetry and held against that phase's uninterrupted run without it
@@ -5947,6 +6070,11 @@ def main():
     svi_prof["seconds"] = time.perf_counter() - t0
     print("svi profile:", json.dumps(svi_prof), flush=True)
     phase_s = {}
+    t0 = time.perf_counter()
+    lint_out = run_lint(dev)
+    phase_s["lint"] = time.perf_counter() - t0
+    print("lint phase seconds:", json.dumps(
+        {"total": phase_s["lint"], **lint_out["seconds"]}), flush=True)
     t0 = time.perf_counter()
     kernels, data = run_samplers(dev)
     phase_s["samplers"] = time.perf_counter() - t0

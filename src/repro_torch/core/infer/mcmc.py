@@ -101,12 +101,14 @@ import os
 import re
 import shutil
 import time
+import warnings
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 import torch.distributed as dist
+from torch.utils._pytree import tree_flatten, tree_map
 
 from ...distributed import checkpoint as ckpt
 from ...distributed import sharding
@@ -122,16 +124,26 @@ _SAMPLES_DIR_RE = re.compile(r"^samples_(\d+)_(\d+)$")
 
 def _to_device(value, device):
     """Model arguments on ``device``: tensors moved, numpy arrays converted
-    (dtype kept), containers walked, anything else as it is."""
-    if isinstance(value, torch.Tensor):
-        return value.to(device)
-    if isinstance(value, np.ndarray):
-        return torch.from_numpy(value).to(device)
-    if isinstance(value, (tuple, list)):
-        return type(value)(_to_device(v, device) for v in value)
-    if isinstance(value, dict):
-        return {k: _to_device(v, device) for k, v in value.items()}
-    return value
+    (dtype kept), containers walked, meta tensors (abstract arguments) and
+    anything else as it is."""
+    def move(leaf):
+        if isinstance(leaf, np.ndarray):
+            leaf = torch.from_numpy(leaf)
+        if isinstance(leaf, torch.Tensor) and not leaf.is_meta:
+            return leaf.to(device)
+        return leaf
+    return tree_map(move, value)
+
+
+def _same_leaves(a, b) -> bool:
+    """The same arguments: tensors and arrays the same objects, containers
+    alike, anything else equal."""
+    (leaves_a, spec_a), (leaves_b, spec_b) = tree_flatten(a), tree_flatten(b)
+    arrays = (torch.Tensor, np.ndarray)
+    return spec_a == spec_b and all(
+        x is y if isinstance(x, arrays) or isinstance(y, arrays)
+        else type(x) is type(y) and x == y
+        for x, y in zip(leaves_a, leaves_b))
 
 
 def _stack(values, dim=0):
@@ -253,7 +265,11 @@ class MCMC:
     ``device`` defaults to the kernel's device (``"cuda"`` unless the kernel
     was built with ``device="cpu"``); model arguments are moved there.
     ``progress`` and ``telemetry`` (an :class:`repro_torch.obs.Telemetry`)
-    observe the run (see the module docstring).
+    observe the run (see the module docstring).  ``validate=True`` lints
+    the kernel's model (:func:`repro_torch.lint.lint_model`) on the moved
+    arguments before the first run's setup and again only when the model or
+    its arguments change: errors raise with their ``RPL`` code, warnings
+    surface as warnings, and the draws are those of ``validate=False``.
     After ``run``, ``stats`` holds the run's counts: ``num_leapfrog`` (every
     trajectory leapfrog, warmup included, summed over the chains of a
     per-chain kernel; for ChEES the ensemble leapfrogs, each moving all
@@ -288,8 +304,14 @@ class MCMC:
     def __init__(self, kernel, num_warmup: int, num_samples: int,
                  num_chains: int = 1, thinning: int = 1,
                  chain_method: str = "vectorized", progress: bool = False,
-                 device=None, telemetry=None, mesh_shape=None):
+                 device=None, telemetry=None, mesh_shape=None,
+                 validate: bool = False):
         self.kernel = kernel
+        # validate=True lints the kernel's model once per fresh setup: on
+        # the first run and whenever the model or its arguments change (a
+        # warm re-run on the same ones does not lint again)
+        self.validate = bool(validate)
+        self._validated = None   # (model, arguments) last linted clean
         self.num_warmup = int(num_warmup)
         self.num_samples = int(num_samples)
         self.num_chains = int(num_chains)
@@ -327,6 +349,28 @@ class MCMC:
         self._samples = None
         self._collected = None
         self._last_state = None
+
+    def _validate_model(self, given, model_args, model_kwargs):
+        """Lint the kernel's model on the moved arguments before its setup
+        is built: errors raise with their ``RPL`` code, warnings surface as
+        warnings.  Skipped when the same model was linted clean on the same
+        arguments (``given``, as the caller passed them), so a warm re-run
+        does not trace the model again for the linter.  The linter draws
+        from a generator of its own: the run's draws are those of
+        ``validate=False``."""
+        model = getattr(self.kernel, "model", None)
+        if model is None:
+            return  # potential_fn-only kernels have no model to lint
+        if self._validated is not None and self._validated[0] is model \
+                and _same_leaves(self._validated[1], given):
+            return
+        from ..lint import lint_model
+        result = lint_model(model, model_args, model_kwargs,
+                           device=self.device)
+        for finding in result.warnings:
+            warnings.warn(str(finding), stacklevel=4)
+        result.raise_if_errors()
+        self._validated = (model, given)
 
     def run(self, seed: int, *model_args, init_params=None,
             checkpoint_every: Optional[int] = None,
@@ -384,8 +428,11 @@ class MCMC:
                 writer=mesh is None or dist.get_rank() == 0)
         t0 = time.perf_counter()
         with self._span("setup"):
+            given = (model_args, model_kwargs)
             model_args = _to_device(model_args, self.device)
             model_kwargs = _to_device(model_kwargs, self.device)
+            if self.validate:
+                self._validate_model(given, model_args, model_kwargs)
             setup = self.kernel.setup(
                 torch.Generator().manual_seed(int(seed)), self.num_warmup,
                 init_params=init_params, model_args=model_args,

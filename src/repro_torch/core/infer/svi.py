@@ -23,8 +23,10 @@ Differences from the JAX package, by design:
   ``"cuda"``; ``resolve_device`` raises without a card), as ``MCMC.run``
   moves them.  Draws are made on the CPU and moved to the parameters'
   device, so a seed gives the same steps on every device.
-- ``validate=True`` needs the port of ``lint`` (ROADMAP.md, Queue 1) and
-  raises ``RPL501``.
+- ``validate=True`` lints the model and the guide once, in ``init``, on
+  the arguments as moved to the device (:func:`repro_torch.lint.lint_model`):
+  warnings surface as warnings, errors raise with their ``RPL`` code;
+  ``update`` never lints.
 """
 from __future__ import annotations
 
@@ -32,7 +34,6 @@ from typing import NamedTuple
 
 import torch
 
-from ..errors import pending
 from ..handlers import _as_generator, replay, seed, trace
 from .hmc import resolve_device
 from .hmc_util import split_draws
@@ -92,14 +93,25 @@ class SVI:
 
     def __init__(self, model, guide, optim, loss: Trace_ELBO,
                  validate: bool = False, device=None):
-        if validate:
-            raise pending("SVI(validate=True)", "lint")
         self.model = model
         self.guide = guide
         self.optim = optim
         self.loss = loss
+        # validate=True lints model and guide once, in init(): never in
+        # update, so it cannot affect a step
+        self.validate = bool(validate)
         self.device = resolve_device(device if device is not None
                                      else "cuda")
+
+    def _validate(self, args, kwargs):
+        import warnings
+
+        from ..lint import lint_model
+        for label, fn in (("model", self.model), ("guide", self.guide)):
+            result = lint_model(fn, args, kwargs, device=self.device)
+            for finding in result.warnings:
+                warnings.warn(f"{label}: {finding}", stacklevel=3)
+            result.raise_if_errors()
 
     def _args(self, args, kwargs):
         return _to_device(args, self.device), _to_device(kwargs, self.device)
@@ -110,6 +122,8 @@ class SVI:
         ``key_init``), their values as the params, the optimizer's initial
         state and the rest of the generator (``key_state``)."""
         args, kwargs = self._args(args, kwargs)
+        if self.validate:
+            self._validate(args, kwargs)
         key_init, key_state = (
             d.generator for d in split_draws(_as_generator(generator), 2))
         init_state = key_init.get_state()

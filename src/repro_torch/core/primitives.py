@@ -156,10 +156,13 @@ def _check_observed_support(msg: dict) -> None:
     at the site instead.  Masked sites are exempt, and so are sites a
     handler marked ``support_checked`` (the sampler's potential, which
     re-runs a model whose data was checked once at setup: the check reads
-    the value back to the host, which on a device is a sync per call)."""
+    the value back to the host, which on a device is a sync per call), and
+    so are values on the ``meta`` device, which have none."""
     if not msg["is_observed"] or msg["mask"] is not None \
             or msg.get("support_checked"):
         return
+    if isinstance(msg["value"], torch.Tensor) and msg["value"].is_meta:
+        return  # an abstract value (lint's meta pass): nothing to judge
     try:
         support = msg["fn"].support
     except NotImplementedError:

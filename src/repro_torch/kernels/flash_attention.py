@@ -91,6 +91,25 @@ def decode_attention_ref(q, k, v, mask, scale=None):
     return out.reshape(B, 1, H, v.shape[-1]).to(q.dtype)
 
 
+def mla_absorbed_decode_ref(q_nope, q_rope, c_kv, k_rope, wk, wv, mask, *,
+                            scale):
+    """Absorbed-matmul MLA decode, never expanding k or v
+    (``repro/kernels/ref.py:mla_absorbed_decode``): ``q_nope (B, 1, H,
+    dn)``, ``q_rope (B, 1, H, dr)``, the latent cache ``c_kv (B, S, r)``,
+    ``k_rope (B, S, dr)``, the expansions ``wk (H, dn, r)`` and ``wv (H, r,
+    dv)``, ``mask (1|B, S)`` bool -> ``(B, 1, H, dv)`` in q_nope's dtype;
+    float32 throughout."""
+    ql = torch.einsum("bqhn,hnr->bqhr", q_nope.float(), wk.float())
+    s_lat = torch.einsum("bqhr,bsr->bhqs", ql, c_kv.float())
+    s_rope = torch.einsum("bqhd,bsd->bhqs", q_rope.float(), k_rope.float())
+    scores = (s_lat + s_rope) * scale
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", p, c_kv.float())
+    out = torch.einsum("bqhr,hrv->bqhv", o_lat, wv.float())
+    return out.to(q_nope.dtype)
+
+
 def _fn(dtype):
     fn = getattr(_build.load("flash_attention"), _DTYPES[dtype])
     if fn.argtypes is None:
@@ -134,13 +153,19 @@ def _check(name, q, k, v, **rest):
     return B, S, H, dq
 
 
-def flash_attention_cuda(q, k, v, causal=True, scale=None):
+def flash_attention_cuda(q, k, v, causal=True, scale=None, window=0):
     """Launch ``csrc/flash_attention.cu`` on the current stream: one CTA per
     (head, batch, query tile), on the tensor cores for bfloat16 and the CUDA
     cores for float32.  Takes contiguous float32 or bfloat16 CUDA
     tensors of one dtype with ``H % K == 0`` and head dims up to 256; raises
     on anything else and on a failed build or launch.  Returns ``(o,
-    lse)``."""
+    lse)``.  ``window`` is the plain version's parameter and must be 0: the
+    kernel has no sliding window (``ops.attention`` sends ``window > 0`` to
+    the plain version, as the JAX package's ``flash_attention`` does)."""
+    if window:
+        raise ValueError("flash_attention_cuda has no sliding window: got "
+                         f"window={window}; ops.attention runs window > 0 "
+                         "through the plain version")
     B, S, H, dq = _check("flash_attention_cuda", q, k, v)
     K, dv = k.shape[2], v.shape[3]
     fn = _fn(q.dtype)

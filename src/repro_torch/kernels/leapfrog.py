@@ -837,6 +837,20 @@ def chees_accept_ref(z0, pe0, g0, n, m_inv, z1, r, pe1, g1, eps, u,
         torch.stack(parts), folded
 
 
+def chees_accept_scale(z0, pe0, g0, n, m_inv, z1, r, pe1, g1, eps, *_):
+    """Each chain's sum of the magnitudes of the terms its energy change
+    adds up (|pe0|, a finite |pe1| and the two kinetic energies' terms), in
+    float64: kernel and plain version sum them in another order, so the
+    energies may move by a relative tolerance of this, accept_prob by
+    expm1 of that of itself."""
+    m = m_inv.double()
+    r0 = n.double() / torch.sqrt(m)
+    r1 = r.double() - 0.5 * torch.as_tensor(eps).double() * g1.double()
+    return pe0.double().abs() + pe1.double().abs().nan_to_num(
+        nan=0.0, posinf=0.0) + 0.5 * (r0 * m * r0).sum(-1) \
+        + 0.5 * (r1 * m * r1).sum(-1)
+
+
 _ACCEPT = {torch.float32: "chees_accept_f32",
            torch.float64: "chees_accept_f64"}
 # flags of csrc/chees.cu

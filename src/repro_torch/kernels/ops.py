@@ -22,9 +22,11 @@ autograd through its plain version on every device, as the JAX package's
 ``custom_vjp`` differentiates its jnp reference.
 
 Every row with a TPU kernel (nine of the 12) names its hand-written kernel
-and its plain version; of the three ref-only rows, ``decode_attention`` and
-``ssd_decode_step`` name their plain versions and ``mla_absorbed_decode``
-waits for the MLA slice (ROADMAP.md, Queue 1).
+and its plain version; the three ref-only rows, ``decode_attention``,
+``mla_absorbed_decode`` and ``ssd_decode_step``, name their plain versions.
+The tables are held to the public ops of this module, to each other's
+signatures and, on a card, kernel against plain version by
+:mod:`repro_torch.lint_rules.invariants` (RPL201-203).
 
 ``FUSED`` holds the port's ops that run in one launch what the JAX package
 does around or in a loop over a ported op: ``enum_chain``, the T-1
@@ -80,7 +82,16 @@ class OpSpec(NamedTuple):
     ported; ``replaces`` is the file:line of the JAX function that reaches
     ``pl.pallas_call`` (``None`` for the ref-only rows, which have no TPU
     kernel); ``tol`` is the parity bound between kernel and plain version
-    (max-abs error).
+    (max-abs error), or with ``relative`` relative to each output's largest
+    entry (``|kernel - plain| <= tol * max(1, max|plain|)``), where the
+    row's outputs are sums whose rounding grows with their terms; an output
+    in bfloat16 is held to ``BF16_RTOL``/``BF16_ATOL`` instead.  ``also``
+    names the other public ops of ``ops`` that run this row's kernel and
+    plain version, with the same launch counter.  ``scale``, for a row
+    whose output is the exp of a sum (an accept probability), gives from
+    the op's arguments each chain's sum of the magnitudes of the summed
+    terms: the sum may move by ``tol`` of it, so the output (at most 1) by
+    ``expm1(tol * scale)``.
     """
 
     name: str
@@ -90,6 +101,9 @@ class OpSpec(NamedTuple):
     replaces: Optional[str]
     bit_identical: bool
     tol: float
+    relative: bool = False
+    also: tuple = ()
+    scale: Optional[Callable] = None
 
 
 _K = "src/repro/kernels/"
@@ -109,7 +123,8 @@ OP_TABLE = (
            _K + "flash_attention.py:79", False, 2e-4),
     OpSpec("decode_attention", None, _flash.decode_attention_ref, None, None,
            False, 0.0),
-    OpSpec("mla_absorbed_decode", None, None, None, None, False, 0.0),
+    OpSpec("mla_absorbed_decode", None, _flash.mla_absorbed_decode_ref, None,
+           None, False, 0.0),
     OpSpec("leapfrog_halfstep", leapfrog.leapfrog_halfstep_cuda,
            leapfrog.leapfrog_halfstep_ref, "cuda", _K + "leapfrog.py:40",
            False, 1e-6),
@@ -140,10 +155,13 @@ PORTED = tuple(spec.name for spec in OP_TABLE if spec.kernel is not None)
 # backward kernels of ported ops; ``replaces`` is the TPU kernel's function
 # where the JAX package has one
 BACKWARD = {spec.name: spec for spec in (
+    # within 1e-6 of each output's largest entry (summation order)
     OpSpec("enum_contract_bwd", _enum_contract.enum_contract_bwd_cuda,
-           _enum_contract.enum_contract_bwd_ref, "cuda", None, False, 1e-6),
+           _enum_contract.enum_contract_bwd_ref, "cuda", None, False, 1e-6,
+           relative=True),
+    # dw sums over every row: within 2e-5 of its largest entry
     OpSpec("rmsnorm_bwd", _rmsnorm.rmsnorm_bwd_cuda, _rmsnorm.rmsnorm_bwd_ref,
-           "cuda", _K + "rmsnorm.py:67", False, 2e-5),
+           "cuda", _K + "rmsnorm.py:67", False, 2e-5, relative=True),
     OpSpec("attention_dq", _flash.flash_attention_dq_cuda,
            _flash.flash_attention_dq_ref, "cuda",
            _K + "flash_attention.py:184", False, 2e-4),
@@ -156,7 +174,8 @@ BACKWARD = {spec.name: spec for spec in (
     # bit-identical to T-1 launches of enum_contract_bwd; within (T-1) x
     # 1e-6 of its largest entry against the plain chain (summation order)
     OpSpec("enum_chain_bwd", _enum_contract.enum_chain_bwd_cuda,
-           _enum_contract.enum_chain_bwd_ref, "cuda", None, False, 1e-6),
+           _enum_contract.enum_chain_bwd_ref, "cuda", None, False, 1e-6,
+           relative=True),
 )}
 # fused work around or over a ported op; ``replaces`` is the JAX package's
 # code it runs (``nuts_leaf``: row 1's TPU kernel, which it runs fused)
@@ -167,7 +186,7 @@ FUSED = {spec.name: spec for spec in (
     # launch counter
     OpSpec("enum_chain", _enum_contract.enum_chain_cuda,
            _enum_contract.enum_chain_ref, "cuda", _I + "enum.py:600", True,
-           0.0),
+           0.0, also=("enum_chain_alphas",)),
     # the sample mode's backward scan of random.categorical draws (plain
     # jnp in the JAX package): the draws bit-identical
     OpSpec("enum_chain_sample", _enum_contract.enum_chain_sample_cuda,
@@ -175,29 +194,31 @@ FUSED = {spec.name: spec for spec in (
            True, 0.0),
     # vectors bit-identical; ke and the dots within 1e-6 relative
     OpSpec("nuts_leaf", leapfrog.nuts_leaf_cuda, leapfrog.nuts_leaf_ref,
-           "cuda", _K + "leapfrog.py:40", False, 1e-6),
+           "cuda", _K + "leapfrog.py:40", False, 1e-6, relative=True),
     OpSpec("nuts_turning", leapfrog.nuts_turning_cuda,
            leapfrog.nuts_turning_ref, "cuda", _I + "hmc_util.py:494", False,
-           1e-6),
+           1e-6, relative=True),
     # lockstep NUTS over C chains (the JAX package's vmap of the two ops
     # above): row c bit-identical to a one-chain launch on the card; against
     # the plain versions the vectors bit-identical, ke and the dots within
     # 1e-6 relative
     OpSpec("nuts_leaf_batch", leapfrog.nuts_leaf_batch_cuda,
            leapfrog.nuts_leaf_batch_ref, "cuda", _K + "leapfrog.py:40", False,
-           1e-6),
+           1e-6, relative=True),
     OpSpec("nuts_turning_batch", leapfrog.nuts_turning_batch_cuda,
            leapfrog.nuts_turning_batch_ref, "cuda", _I + "hmc_util.py:494",
-           False, 1e-6),
+           False, 1e-6, relative=True),
     # row 1's half-step with a signed step size, m_inv row and active flag
     # per chain: bit-identical
     OpSpec("halfstep_chains", leapfrog.halfstep_chains_cuda,
            leapfrog.halfstep_chains_ref, "cuda", _K + "leapfrog.py:40", True,
            0.0),
     # selections, the running mean and the harmonic mean bit-identical for
-    # the same accept_prob; accept_prob within 1e-6 relative
+    # the same accept_prob; log_accept within 1e-6 of its terms'
+    # magnitudes, so accept_prob within expm1(1e-6 x scale) of itself
     OpSpec("mala_accept", rwm_mala.mala_accept_cuda, rwm_mala.mala_accept_ref,
-           "cuda", _I + "mala.py:184", False, 1e-6),
+           "cuda", _I + "mala.py:184", False, 1e-6, relative=True,
+           scale=rwm_mala.mala_accept_scale),
     # row 2's kernel over S row shards in one launch: each partial
     # bit-identical to a one-shard launch on its rows; against the plain
     # loop within row 2's bound
@@ -209,11 +230,17 @@ FUSED = {spec.name: spec for spec in (
            "cuda", _K + "leapfrog.py:104", True, 0.0),
     # selections, the running mean, the harmonic mean and the Welford fold
     # bit-identical for the same accept_prob; the sums over D within 1e-6
-    # relative
+    # of their terms' magnitudes, so accept_prob within expm1(1e-6 x scale)
+    # of itself
     OpSpec("chees_accept", leapfrog.chees_accept_cuda,
            leapfrog.chees_accept_ref, "cuda", _I + "ensemble.py:339", False,
-           1e-6),
+           1e-6, relative=True, scale=leapfrog.chees_accept_scale),
 )}
+
+
+# the public functions of this module that are controls, not ops (the
+# registry's bijection, RPL201, leaves them out)
+_CONTROL = frozenset({"counters", "launch_counts", "reset_launch_counts"})
 
 
 def _counted():
@@ -254,6 +281,14 @@ def decode_attention(q, k, v, mask, *, scale=None):
     """Single-query attention against a masked cache (a ref-only op: the
     plain version on every device)."""
     return SPECS["decode_attention"].ref(q, k, v, mask, scale=scale)
+
+
+def mla_absorbed_decode(q_nope, q_rope, c_kv, k_rope, wk, wv, mask, *,
+                        scale):
+    """Absorbed-matmul MLA decode against a latent cache ``c_kv (B, S, r)``
+    (a ref-only op: the plain version on every device)."""
+    return SPECS["mla_absorbed_decode"].ref(q_nope, q_rope, c_kv, k_rope, wk,
+                                            wv, mask, scale=scale)
 
 
 def rmsnorm(x, weight, eps=1e-6):
@@ -459,10 +494,11 @@ def nuts_leaf(r_half, z, grad, pe, m_inv, eps, r_sum, r_ckpts, r_sum_ckpts,
                                   idx_max)
 
 
-def nuts_turning(m_inv, r_left, r_right, r_sum):
+def nuts_turning(inverse_mass_matrix, r_left, r_right, r_sum):
     """The two generalized U-turn dots of a tree -> (2,); it turns where
     either is <= 0."""
-    return _route("nuts_turning", r_left)(m_inv, r_left, r_right, r_sum)
+    return _route("nuts_turning", r_left)(inverse_mass_matrix, r_left,
+                                          r_right, r_sum)
 
 
 def nuts_leaf_batch(r_half, z, grad, pe, m_inv, eps, active, r_sum, r_ckpts,
@@ -477,10 +513,10 @@ def nuts_leaf_batch(r_half, z, grad, pe, m_inv, eps, active, r_sum, r_ckpts,
                                         ckpt_i, idx_min, idx_max)
 
 
-def nuts_turning_batch(m_inv, r_left, r_right, r_sum):
+def nuts_turning_batch(inverse_mass_matrix, r_left, r_right, r_sum):
     """The U-turn dots of C trees, (C, D) operands -> (C, 2)."""
-    return _route("nuts_turning_batch", r_left)(m_inv, r_left, r_right,
-                                                r_sum)
+    return _route("nuts_turning_batch", r_left)(inverse_mass_matrix, r_left,
+                                                r_right, r_sum)
 
 
 def halfstep_chains(z, r, grad, m_inv, eps, active):

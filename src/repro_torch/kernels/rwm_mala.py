@@ -121,6 +121,22 @@ def mala_accept_ref(z, pe, grad, z_new, pe_new, grad_new, noise, m_inv, u,
             harmonic_mean_accept(accept_prob))
 
 
+def mala_accept_scale(z, pe, grad, z_new, pe_new, grad_new, noise, m_inv, u,
+                      eps, coef, *_):
+    """Each chain's sum of the magnitudes of the terms its log_accept adds
+    up (|pe|, a finite |pe'|, and MALA's two sums of non-negative terms), in
+    float64: kernel and plain version sum them in another order, so
+    log_accept may move by a relative tolerance of this, accept_prob by
+    expm1 of that of itself."""
+    scale = pe.double().abs() + pe_new.double().abs().nan_to_num(
+        nan=0.0, posinf=0.0)
+    if grad_new is not None:
+        diff = (z - z_new).double() + eps * (m_inv * grad_new).double()
+        scale = scale + 0.5 * (noise.double() ** 2).sum(-1) \
+            + abs(coef) * (diff * diff / m_inv.double()).sum(-1)
+    return scale
+
+
 _ACCEPT = {torch.float32: "mala_accept_f32", torch.float64: "mala_accept_f64"}
 
 

@@ -112,6 +112,28 @@ def check_metrics_state(setup, state, num_chains: int,
     return findings
 
 
+def rng_dependent_metrics(setup, num_chains: int = 2) -> list:
+    """Names of the metric leaves whose bits differ between two evaluations
+    on the same state under different seeds of the global generators (the
+    evaluation RPL402 judges), on one chain's state and, for a lockstep or
+    cross-chain kernel, on the batch.  Empty: independent (or no
+    ``metrics_fn``)."""
+    if setup.metrics_fn is None:
+        return []
+    from ..obs.metrics import lint_state
+    cases = [False]
+    if not setup.cross_chain and setup.init_batch_fn is not None:
+        cases.append(True)
+    names = []
+    for batched in cases:
+        state = lint_state(setup, num_chains, batched)
+        out, _ = _evaluate(setup.metrics_fn, state, 0)
+        again, _ = _evaluate(setup.metrics_fn, state, 1)
+        names += [name for name in out if name not in names
+                  and not _same_bits(out[name], again.get(name))]
+    return names
+
+
 def verify_metrics_fn(setup, num_chains: int = 2):
     """RPL401 + RPL402 over one setup's ``metrics_fn`` (clean result when
     the setup declares none): on one chain's state and, for a kernel that
@@ -190,4 +212,5 @@ def verify_until(until, *, num_samples: int, num_chains: int):
     return _result(findings)
 
 
-__all__ = ["check_metrics_state", "verify_metrics_fn", "verify_until"]
+__all__ = ["check_metrics_state", "rng_dependent_metrics",
+           "verify_metrics_fn", "verify_until"]

@@ -31,6 +31,10 @@ Public surface:
 - :mod:`~repro_torch.obs.compare`: the cross-run regression gate
   (``python -m repro_torch.obs.compare <current> <baseline>``).
 
+- :func:`sanction`: marks a function whose device->host reads are a
+  sanctioned chunk-boundary drain, so the RPL102 hazard rule of
+  :func:`repro_torch.core.lint.analyze` skips reads made inside it.
+
 Each module is the JAX package's ``repro.obs`` counterpart, with the same
 outputs for the same inputs; the lint rules RPL401-403 that guard the
 metrics contract and the stopping rule are in
@@ -44,6 +48,49 @@ from .report import LiveReporter
 from .sinks import JsonlSink, MemorySink, NullSink
 from .spans import SpanRecord
 from .telemetry import Telemetry
+
+# the code objects of sanctioned functions: RPL102 skips a host read made
+# while one of them is on the Python stack
+_SANCTIONED_CODE: set = set()
+
+
+def _unwrap(fn, depth=0):
+    """``fn`` and the callables it wraps (functools wrappers, partials,
+    bound methods), outermost first."""
+    seen = []
+    while fn is not None and depth < 8 and all(fn is not s for s in seen):
+        seen.append(fn)
+        fn = (getattr(fn, "__wrapped__", None) or getattr(fn, "func", None)
+              or getattr(fn, "__func__", None))
+        depth += 1
+    return seen
+
+
+def sanction(fn):
+    """Mark ``fn`` as an executor-sanctioned chunk-boundary host drain.
+
+    The hazard rule RPL102 flags every device->host read that one call of
+    a function makes (``.item()``, a copy to the CPU, a data-dependent
+    shape), because on the sampling hot path each is a sync per iteration.
+    Telemetry never needs one inside a transition (metrics are drained once
+    a chunk), but a read that fires once per chunk is the cost the
+    executor's own drain already pays.  Decorating such a function with
+    ``sanction`` records that intent, and
+    :func:`repro_torch.core.lint.analyze` skips the reads made while it runs.
+    """
+    fn._repro_obs_sanctioned = True
+    for inner in _unwrap(fn):
+        code = getattr(inner, "__code__", None)
+        if code is not None:
+            _SANCTIONED_CODE.add(code)
+    return fn
+
+
+def is_sanctioned(fn) -> bool:
+    """True iff ``fn`` (or a callable it wraps) passed through
+    :func:`sanction`."""
+    return any(getattr(inner, "_repro_obs_sanctioned", False)
+               for inner in _unwrap(fn))
 
 __all__ = [
     "Converged",
@@ -60,6 +107,8 @@ __all__ = [
     "StreamingDiagnostics",
     "Telemetry",
     "collect_environment",
+    "is_sanctioned",
     "metrics_struct",
+    "sanction",
     "validate_metrics_struct",
 ]

@@ -1641,3 +1641,61 @@ def test_one_rank_lm_mesh_step_on_card():
     out = train_mesh_check(dev, lm, w, batch, loss.detach(), grads, counts)
     assert out["loss_and_grads_bit_identical"]
     assert out["step_params_bit_identical"]
+
+
+@pytest.mark.cuda
+def test_registry_parity_on_card():
+    """RPL201-203 clean with every one of the 26 registered kernels
+    launched against its plain version (``lint.verify_registry``), each
+    kernel's launch counter moved by at least its row's launches."""
+    from repro_torch import lint
+    dev = _need_card()
+    ops.reset_launch_counts()
+    result = lint.verify_registry(device=dev)
+    assert result.ok and not result.findings, str(result)
+    rows = [s for s in list(ops.OP_TABLE) + list(ops.FUSED.values())
+            + list(ops.BACKWARD.values()) if s.kernel is not None]
+    assert len(rows) == 26
+    assert all(result.details[s.name]["launches"] >= 1 for s in rows)
+    counts = ops.launch_counts()
+    assert all(counts[s.name] >= result.details[s.name]["launches"]
+               for s in rows)
+
+
+@pytest.mark.cuda
+def test_planted_kernel_drift_is_rpl203_on_card():
+    """A kernel that lands ten times its row's bound away from the plain
+    version is an RPL203 finding naming the row."""
+    from repro_torch import lint
+    dev = _need_card()
+    spec = ops.SPECS["leapfrog_halfstep"]
+
+    def drifted(*args):
+        z, r = spec.kernel(*args)
+        return z + 10 * spec.tol, r
+
+    result = lint.check_parity(spec._replace(kernel=drifted), device=dev)
+    assert [(f.code, f.site) for f in result.findings] == [
+        ("RPL203", "leapfrog_halfstep")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_absorbed_decode_on_card_matches_the_cpu(dtype):
+    """The ref-only op on the card against its CPU result on the same
+    inputs: float32 within 1e-5 (cuBLAS sums in another order; TF32 off),
+    bfloat16 within one bfloat16 step."""
+    dev = _need_card()
+    rng = np.random.default_rng(3)
+    B, S, H, dn, dr, r, dv = 2, 9, 4, 16, 8, 12, 16
+    args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dtype) for s in ((B, 1, H, dn), (B, 1, H, dr), (B, S, r),
+                                 (B, S, dr), (H, dn, r), (H, r, dv))]
+    mask = torch.ones(B, S, dtype=torch.bool)
+    mask[0, 5:] = False
+    mask[1, :2] = False
+    scale = (dn + dr) ** -0.5
+    cpu = ops.mla_absorbed_decode(*args, mask, scale=scale)
+    card = ops.mla_absorbed_decode(*(a.to(dev) for a in args), mask.to(dev),
+                                   scale=scale)
+    _assert_close(card.cpu(), cpu, 1e-5)

@@ -363,6 +363,8 @@ def test_port_imports_no_jax():
             "repro_torch.obs, repro_torch.obs.compare, "
             "repro_torch.obs.validate, repro_torch.lint_rules, "
             "repro_torch.lint_rules.obs_rules, repro_torch.core.lint, "
+            "repro_torch.lint, repro_torch.lint.__main__, "
+            "repro_torch.lint_rules.invariants, "
             "repro_torch.optim.compression, repro_torch.launch.mesh, "
             "repro_torch.distributed.sharding, repro_torch.bench.lm_mesh; "
             "bad = [m for m in sys.modules if m == 'jax' or "

@@ -474,12 +474,14 @@ def test_svi_learns_logreg():
 
 
 def test_svi_entry_point_contract():
-    """``validate=True`` waits for lint (RPL501); the default device is the
-    card; ``run`` with no steps gives an empty loss vector."""
+    """``validate=True`` lints model and guide in ``init`` (no longer
+    ``RPL501``); the default device is the card; ``run`` with no steps gives
+    an empty loss vector."""
     model = svi_logreg_model(10)
-    with pytest.raises(ReproError, match="RPL501"):
-        SVI(model, AutoNormal(model), optim.adam(1e-2), Trace_ELBO(),
-            validate=True, device="cpu")
+    checked = SVI(model, AutoNormal(model), optim.adam(1e-2), Trace_ELBO(),
+                  validate=True, device="cpu")
+    assert set(checked.init(0, *_vc_data(10)).params) == {
+        "auto_m_loc", "auto_m_scale", "auto_b_loc", "auto_b_scale"}
     if not torch.cuda.is_available():
         with pytest.raises(ReproError, match="cuda"):
             SVI(model, AutoNormal(model), optim.adam(1e-2), Trace_ELBO())
